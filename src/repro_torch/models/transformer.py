@@ -1,0 +1,223 @@
+"""The LM engine's serving half for the dense family.
+
+Port of ``src/repro/models/transformer.py``: ``init_params``,
+``embed_tokens``, ``lm_logits_local``, the dense decode cache and
+``decode_step``, and the paged pool and ``paged_decode_step``.  The
+parameter tree keeps the reference's keys and GLOBAL shapes, with layers
+stacked on a leading [L] dim, so a reference tree carries over 1:1
+(``convert.py``).  ``lax.scan`` over layers becomes a Python loop over the
+[L] dim.  The caches are updated IN PLACE: ``decode_step`` writes each
+layer's new K/V into the [L, ...] cache tensors it was given, and
+``paged_decode_step`` scatters into the pool (models/layers.py).
+
+Families other than dense raise until their slices land (ROADMAP queue 1:
+items 9 and 14 for moe, ssm, hybrid, encdec and vlm).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.tp import ParallelCtx
+
+PORTED_FAMILIES = ("dense",)
+
+
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
+            f"ROADMAP queue 1, item 9 (moe, ssm, hybrid, encdec, vlm) "
+            f"and item 14 (rail-local moe)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, device):
+    """GLOBAL-shaped parameter tree (dense family): the reference's keys
+    and shapes, weights N(0, 0.02^2) in ``cfg.dtype``, norms ones.
+    ``generator`` must live on ``device``."""
+    cfg.validate()
+    _require_ported(cfg)
+    dtype = cfg.dtype
+    n, d = cfg.n_layers, cfg.d_model
+    p: Dict[str, Any] = {
+        "embed": L._normal(generator, (cfg.vocab_padded, d), dtype, device),
+        "final_norm": torch.ones((d,), dtype=dtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L._normal(generator, (d, cfg.vocab_padded), dtype,
+                                 device)
+    p["layers"] = {
+        "ln1": torch.ones((n, d), dtype=dtype, device=device),
+        "attn": L.init_attention(generator, cfg, dtype, device, lead=(n,)),
+        "ln2": torch.ones((n, d), dtype=dtype, device=device),
+        "mlp": L.init_mlp(generator, cfg, dtype, device, lead=(n,)),
+    }
+    return p
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked [L, ...] subtree (views, no copies)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# embedding + logits
+# ---------------------------------------------------------------------------
+
+def embed_tokens(p, tokens: torch.Tensor, cfg: ArchConfig,
+                 ctx: ParallelCtx) -> torch.Tensor:
+    """Embedding lookup (the whole vocabulary is local at tp = 1)."""
+    return p["embed"][tokens.long()]
+
+
+def lm_logits_local(p, x: torch.Tensor, cfg: ArchConfig,
+                    ctx: ParallelCtx) -> torch.Tensor:
+    """[B,S,D] -> vocab logits [B,S,V_padded]; columns beyond the true
+    vocab (padding for divisibility) are masked to -inf."""
+    w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    logits = x @ w
+    if cfg.vocab_padded != cfg.vocab:
+        v_l = logits.shape[-1]
+        gid = ctx.tp_index() * v_l + torch.arange(v_l, device=x.device)
+        logits = torch.where(gid < cfg.vocab, logits, -torch.inf)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# dense decode cache (wave engine)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DecodeConfig:
+    """Static decode-shape parameters.
+
+    cache_len_local : sequence length of the KV cache (local to the
+                      device: the reference's sequence-sharded caches
+                      need the communicator, ROADMAP queue 1, item 11)
+    window_override : "cfg" or an int/None — the --swa-override variant
+    """
+    cache_len_local: int
+    window_override: Any = "cfg"
+
+
+def init_cache(cfg: ArchConfig, ctx: ParallelCtx, dcfg: DecodeConfig,
+               batch_local: int, dtype=None, device=None):
+    """Zero cache: ``{"k", "v"}`` of [L, B, S, kv_w, hd]."""
+    _require_ported(cfg)
+    dtype = dtype or cfg.dtype
+    kv_w = L.head_layout(cfg, ctx)[1]
+    shape = (cfg.n_layers, batch_local, dcfg.cache_len_local, kv_w,
+             cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step(p, cache, token: torch.Tensor, pos, cfg: ArchConfig,
+                ctx: ParallelCtx, dcfg: DecodeConfig):
+    """One decode step: token [B,S] int, pos a scalar or [B] ->
+    (logits [B,V], cache).  The cache tensors are updated in place."""
+    _require_ported(cfg)
+    x = embed_tokens(p, token, cfg, ctx)
+    pos_arr = torch.as_tensor(pos, device=x.device)
+    steps = torch.arange(token.shape[1], device=x.device)
+    positions = pos_arr[:, None] + steps if pos_arr.ndim else pos_arr + steps
+
+    for i in range(cfg.n_layers):                 # lax.scan in the reference
+        lp = _layer(p["layers"], i)
+        h, (nk, nv) = L.attention_block(
+            lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, ctx,
+            positions=positions, kv_cache=(cache["k"][i], cache["v"][i]),
+            cache_pos=pos_arr, window_override=dcfg.window_override)
+        cache["k"][i] = nk
+        cache["v"][i] = nv
+        x = x + h
+        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                            ctx)
+
+    x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    return lm_logits_local(p, x[:, -1:], cfg, ctx)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# paged pool (continuous-batching engine, DESIGN.md §13)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PagedConfig:
+    """Static paged-serving shape parameters (DESIGN.md §13).
+
+    block_size         : tokens per physical KV block
+    n_blocks           : physical blocks in the pool (per layer)
+    max_blocks_per_req : logical blocks per request row
+    attn_impl          : "reference" (dense block-gather, matches the wave
+                         path) | "kernel" (the CUDA flash-decode kernel on
+                         the card, its plain version on the CPU)
+    window_override    : "cfg" or an int/None, as DecodeConfig
+    """
+    block_size: int = 16
+    n_blocks: int = 64
+    max_blocks_per_req: int = 8
+    attn_impl: str = "reference"
+    window_override: Any = "cfg"
+
+
+def init_paged_pool(cfg: ArchConfig, ctx: ParallelCtx, pcfg: PagedConfig,
+                    dtype=None, device=None):
+    """Zero paged KV pool: ``[L, n_blocks, block_size, kv_w, hd]`` per K
+    and V.  Block contents are never zeroed again — reuse relies on
+    kv_valid masking (serving/paged_kv.py)."""
+    _require_ported(cfg)
+    dtype = dtype or cfg.dtype
+    kv_w = L.head_layout(cfg, ctx)[1]
+    shape = (cfg.n_layers, pcfg.n_blocks, pcfg.block_size, kv_w,
+             cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_decode_step(p, pool, tokens: torch.Tensor, positions: torch.Tensor,
+                      row_req: torch.Tensor, block_tables: torch.Tensor,
+                      sample_rows: torch.Tensor, cfg: ArchConfig,
+                      ctx: ParallelCtx, pcfg: PagedConfig):
+    """One packed continuous-batching step (context + generation phases).
+
+    tokens/positions/row_req : [T] int — packed rows; ``row_req`` maps a
+        row to its request row (block-table row), -1 for bucket padding
+    block_tables             : [R, max_blocks_per_req] int
+    sample_rows              : [R] int — packed index of each request
+        row's sequence-frontier row
+
+    Returns (logits [R, V], pool); the pool is updated in place.  Padding
+    rows cost zero attention mass and zero pool writes.
+    """
+    _require_ported(cfg)
+    valid = row_req >= 0
+    n_req = block_tables.shape[0]
+    btab = block_tables[torch.clamp(row_req, 0, n_req - 1).long()]
+    kv_valid = torch.where(valid, positions + 1, 0)
+    x = embed_tokens(p, tokens[:, None], cfg, ctx)           # [T, 1, D]
+
+    for i in range(cfg.n_layers):                 # lax.scan in the reference
+        lp = _layer(p["layers"], i)
+        h, _ = L.paged_attention_block(
+            lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, ctx,
+            positions=positions, kv_valid=kv_valid,
+            pools=(pool["k"][i], pool["v"][i]), block_tables=btab,
+            window_override=pcfg.window_override, impl=pcfg.attn_impl)
+        x = x + h
+        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                            ctx)
+
+    x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    xs = x[torch.clamp(sample_rows, 0, x.shape[0] - 1).long()]  # [R, 1, D]
+    return lm_logits_local(p, xs, cfg, ctx)[:, 0], pool
