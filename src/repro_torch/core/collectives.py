@@ -1,0 +1,311 @@
+"""Path primitives + payload partitioning — FlexLink's data plane, on torch
+process groups.
+
+Port of ``src/repro/core/collectives.py``.  The reference's primitives run
+inside ``shard_map`` and name a mesh axis; here every rank is a process
+and each primitive takes the rank's :class:`~repro_torch.launch.mesh.Mesh`
+and an axis name.  ``lax.psum`` / ``all_gather`` / ``psum_scatter`` /
+``all_to_all`` become the mesh's collectives on the axis's primary process
+group; ``lax.ppermute`` becomes :meth:`Mesh.permute` (one
+``batch_isend_irecv`` per ring step) on its staged group.  Routing across
+primitives lives in ``routing.py``, which also holds the ``flex_*``
+entry points.
+
+The three route classes (DESIGN.md §3):
+
+  primary : the native collective on the axis's process group.
+  staged  : the explicit chunk-pipelined point-to-point ring on a second
+            process group over the same ranks, with an explicit per-step
+            reduce (K1 ``chunk_accumulate``, injected by routing).
+            ``substeps > 1`` splits the segment into sub-chunks whose
+            per-step transfers are all posted before any reduce.
+  ortho   : neighbour-row detour over an orthogonal mesh axis: permute the
+            share one hop along it, run the primary collective on the
+            neighbour row, permute back.
+
+The ring schedules are the reference's, step for step (the reduce-scatter
+starts at chunk idx-1 and step s reduces chunk idx-s-2) and the
+accumulate rounds to the payload dtype after every step, so a staged-only
+plan gives the reference's bits on floating payloads too.  The primary
+path's sums run in gloo's or NCCL's order, not XLA's, so mixed plans agree
+with the reference exactly only on payloads whose sums are exact (small
+integers, DESIGN.md §9).
+
+The wire codecs of the reference (``codec=``, DESIGN.md §12) are not
+ported yet: a non-empty codec raises (ROADMAP queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Sequence, Tuple
+
+import torch
+
+#: payload partition granularity (chunks); shares in grid units are mapped
+#: onto this chunk grid.
+CHUNK_GRID = 16
+
+PATH_PRIMARY = "primary"
+PATH_STAGED = "staged"
+PATH_ORTHO = "ortho"
+PATH_ORDER = (PATH_PRIMARY, PATH_STAGED, PATH_ORTHO)
+
+
+def _no_codec(codec: str) -> None:
+    if codec:
+        raise NotImplementedError(
+            f"wire codec {codec!r}: compressed secondary paths are not "
+            f"ported yet (ROADMAP queue 1 item 10)")
+
+
+# ---------------------------------------------------------------------------
+# payload partitioning
+# ---------------------------------------------------------------------------
+
+def quantize_shares(shares: Mapping[str, int], order: Sequence[str],
+                    grid: int = CHUNK_GRID) -> Dict[str, int]:
+    """Map SHARE_GRID-unit shares onto the CHUNK_GRID, preserving the total.
+
+    Largest-remainder rounding; paths with a nonzero share keep at least one
+    chunk only if rounding leaves room (a <1/grid share legitimately rounds
+    to zero — the tuner treats that as path deactivation).
+    """
+    total = sum(shares.get(p, 0) for p in order)
+    if total <= 0:
+        raise ValueError("shares must sum to a positive total")
+    raw = {p: shares.get(p, 0) * grid / total for p in order}
+    out = {p: int(raw[p]) for p in order}
+    rem = grid - sum(out.values())
+    by_frac = sorted(order, key=lambda p: raw[p] - out[p], reverse=True)
+    for p in by_frac[:rem]:
+        out[p] += 1
+    return out
+
+
+def _pad_last(x: torch.Tensor, pad: int) -> torch.Tensor:
+    if not pad:
+        return x
+    return torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+
+
+def _flatten_pad(x: torch.Tensor, grid: int) -> Tuple[torch.Tensor, int]:
+    flat = x.reshape(-1)
+    pad = (-flat.shape[0]) % grid
+    return _pad_last(flat, pad), pad
+
+
+def partition_payload(x: torch.Tensor, chunk_units: Mapping[str, int],
+                      order: Sequence[str], grid: int = CHUNK_GRID
+                      ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Split a tensor into per-path flat segments of `units/grid` each."""
+    flat, pad = _flatten_pad(x, grid)
+    unit = flat.shape[0] // grid
+    segs: Dict[str, torch.Tensor] = {}
+    off = 0
+    for p in order:
+        u = chunk_units.get(p, 0)
+        if u > 0:
+            segs[p] = flat[off * unit:(off + u) * unit]
+        off += u
+    return segs, pad
+
+
+def merge_payload(segs: Mapping[str, torch.Tensor], order: Sequence[str],
+                  pad: int, shape: Tuple[int, ...], dtype) -> torch.Tensor:
+    """Inverse of partition_payload."""
+    parts = [segs[p] for p in order if p in segs]
+    flat = torch.cat(parts) if len(parts) > 1 else parts[0]
+    if pad:
+        flat = flat[: flat.shape[0] - pad]
+    return flat.reshape(shape).to(dtype)
+
+
+def partition_columns(x2d: torch.Tensor, chunk_units: Mapping[str, int],
+                      order: Sequence[str], grid: int = CHUNK_GRID
+                      ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Split a [lead, F] matrix into per-path column groups.
+
+    Used by collectives whose per-rank structure lives on the leading axis
+    (reduce_scatter, all_to_all): every path's segment keeps the full leading
+    dim, so each sub-collective preserves the rank-chunk layout.
+    Returns ({path: [lead, F_p]}, col_pad).
+    """
+    f = x2d.shape[1]
+    pad = (-f) % grid
+    x2d = _pad_last(x2d, pad)
+    unit = (f + pad) // grid
+    segs: Dict[str, torch.Tensor] = {}
+    off = 0
+    for p in order:
+        u = chunk_units.get(p, 0)
+        if u > 0:
+            segs[p] = x2d[:, off * unit:(off + u) * unit]
+        off += u
+    return segs, pad
+
+
+def merge_columns(segs: Mapping[str, torch.Tensor], order: Sequence[str],
+                  pad: int) -> torch.Tensor:
+    parts = [segs[p] for p in order if p in segs]
+    out = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    if pad:
+        out = out[:, : out.shape[1] - pad]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# staged-path primitives: chunk-pipelined point-to-point rings
+# ---------------------------------------------------------------------------
+
+def _split_subchunks(flat: torch.Tensor, substeps: int
+                     ) -> Tuple[List[torch.Tensor], int, int]:
+    """Split a payload into `substeps` equal sub-chunks along its last dim
+    (pad as needed): the pipeline's in-flight units."""
+    m = flat.shape[-1]
+    s = max(1, min(int(substeps), max(m, 1)))
+    pad = (-m) % s
+    flat = _pad_last(flat, pad)
+    w = flat.shape[-1] // s
+    return [flat[..., j * w:(j + 1) * w] for j in range(s)], pad, s
+
+
+def _by_rank(stacked: torch.Tensor, idx: int, n: int) -> torch.Tensor:
+    """Entry k of ``stacked`` holds rank (idx - k) % n; reorder so entry j
+    holds rank j."""
+    return stacked[[(idx - j) % n for j in range(n)]]
+
+
+def ring_all_gather(x: torch.Tensor, mesh, axis: str, *,
+                    substeps: int = 1, codec: str = "") -> torch.Tensor:
+    """All-gather via N-1 permute steps; result ordered by rank like
+    ``lax.all_gather(x, axis, tiled=False)`` (leading axis = rank).
+    ``substeps > 1`` forwards sub-chunks independently each step (pure data
+    movement: bit-identical for any substeps)."""
+    _no_codec(codec)
+    n = mesh.axis_size(axis)
+    idx = mesh.axis_index(axis)
+    subs, pad, s = _split_subchunks(x.reshape(-1), substeps)
+    collected = [[sub] for sub in subs]
+    curs = list(subs)
+    for _ in range(n - 1):
+        # every sub-chunk's transfer of this ring step is posted at once
+        curs = mesh.permute(curs, axis, idx + 1, idx - 1)
+        for j in range(s):
+            collected[j].append(curs[j])
+    rows = torch.cat([torch.stack(c) for c in collected], dim=1)
+    rows = _by_rank(rows, idx, n)
+    if pad:
+        rows = rows[:, :-pad]
+    return rows.reshape((n,) + tuple(x.shape))
+
+
+def ring_reduce_scatter(x: torch.Tensor, mesh, axis: str, accumulate=None,
+                        *, substeps: int = 1, codec: str = "") -> torch.Tensor:
+    """Reduce-scatter via the classic N-1 step ring, chunk-pipelined.
+
+    `x` has leading dim divisible by N; returns this rank's reduced chunk.
+    `accumulate(a, b)` is the per-step reduce — ``a + b`` when None; the
+    routing layer injects K1 ``chunk_accumulate`` for sub-32-bit floats.
+    """
+    _no_codec(codec)
+    if accumulate is None:
+        accumulate = lambda a, b: a + b  # noqa: E731
+    n = mesh.axis_size(axis)
+    idx = mesh.axis_index(axis)
+    chunk_shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+    subs, pad, s = _split_subchunks(x.reshape(n, -1), substeps)
+    # step s: rank r sends the partial for chunk (r - s - 1) and
+    # receives+reduces the partial for chunk (r - s - 2); after N-1 steps
+    # rank r owns fully reduced chunk r — psum_scatter's layout.
+    curs = [sub[(idx - 1) % n] for sub in subs]
+    for step in range(n - 1):
+        # double buffer: all sub-chunk sends of this ring step are posted
+        # before any reduce
+        mines = [sub[(idx - step - 2) % n] for sub in subs]
+        recvd = mesh.permute(curs, axis, idx + 1, idx - 1)
+        curs = [accumulate(r, mine) for r, mine in zip(recvd, mines)]
+    out = torch.cat(curs) if s > 1 else curs[0]
+    if pad:
+        out = out[:-pad]
+    return out.reshape(chunk_shape)
+
+
+def ring_all_reduce(x: torch.Tensor, mesh, axis: str, accumulate=None, *,
+                    substeps: int = 1, codec: str = "") -> torch.Tensor:
+    """All-reduce = ring reduce-scatter + ring all-gather (2(N-1) steps)."""
+    n = mesh.axis_size(axis)
+    flat, pad = _flatten_pad(x, n)
+    mine = ring_reduce_scatter(flat.reshape(n, -1), mesh, axis, accumulate,
+                               substeps=substeps, codec=codec)
+    gathered = ring_all_gather(mine, mesh, axis, substeps=substeps,
+                               codec=codec)           # [n, chunk] by rank
+    flat_out = gathered.reshape(-1)
+    if pad:
+        flat_out = flat_out[:-pad]
+    return flat_out.reshape(x.shape)
+
+
+def ring_all_to_all(x: torch.Tensor, mesh, axis: str, *,
+                    codec: str = "") -> torch.Tensor:
+    """all-to-all via N-1 rotations (tiled semantics, axis 0)."""
+    _no_codec(codec)
+    n = mesh.axis_size(axis)
+    idx = mesh.axis_index(axis)
+    chunk = x.shape[0] // n
+    blocks = x.reshape((n, chunk) + tuple(x.shape[1:]))
+    # rotation s sends block (idx+s) to rank idx+s and receives the block
+    # rank idx-s holds for us
+    received = [blocks[idx]]
+    for s in range(1, n):
+        received += mesh.permute([blocks[(idx + s) % n]], axis, idx + s,
+                                 idx - s)
+    out = _by_rank(torch.stack(received), idx, n)
+    return out.reshape((n * chunk,) + tuple(x.shape[1:]))
+
+
+def tree_all_reduce(x: torch.Tensor, mesh, axis: str, *,
+                    codec: str = "") -> torch.Tensor:
+    """All-reduce via recursive doubling: log2(N) butterfly steps.
+    Requires power-of-two N."""
+    _no_codec(codec)
+    n = mesh.axis_size(axis)
+    if n & (n - 1):
+        raise ValueError("recursive doubling needs power-of-two ranks")
+    idx = mesh.axis_index(axis)
+    k = 0
+    while (1 << k) < n:
+        partner = idx ^ (1 << k)
+        x = x + mesh.permute([x], axis, partner, partner)[0]
+        k += 1
+    return x
+
+
+# ---------------------------------------------------------------------------
+# ortho-route primitives
+# ---------------------------------------------------------------------------
+
+def _detour(x: torch.Tensor, mesh, ortho: str, native) -> torch.Tensor:
+    """Permute one hop along ``ortho``, run ``native`` on the neighbour
+    row, permute back.  The operands never mix between ortho rows, so the
+    result is exact for any sharding across the ortho axis."""
+    j = mesh.axis_index(ortho)
+    guest = mesh.permute([x], ortho, j + 1, j - 1)[0]
+    return mesh.permute([native(guest)], ortho, j - 1, j + 1)[0]
+
+
+def ortho_all_gather(x: torch.Tensor, mesh, axis: str, ortho: str, *,
+                     codec: str = "") -> torch.Tensor:
+    """Gather over `axis` routing the payload via `ortho` links."""
+    _no_codec(codec)
+    if mesh.axis_size(ortho) <= 1:
+        return mesh.all_gather(x, axis)
+    return _detour(x, mesh, ortho, lambda g: mesh.all_gather(g, axis))
+
+
+def ortho_all_reduce(x: torch.Tensor, mesh, axis: str, ortho: str, *,
+                     codec: str = "") -> torch.Tensor:
+    """All-reduce over `axis` via the neighbour-row detour."""
+    _no_codec(codec)
+    if mesh.axis_size(ortho) <= 1:
+        return mesh.all_reduce(x, axis)
+    return _detour(x, mesh, ortho, lambda g: mesh.all_reduce(g, axis))

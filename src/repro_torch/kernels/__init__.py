@@ -1,3 +1,3 @@
 """Hand-written Hopper kernels and their plain PyTorch versions (ports of
 ``src/repro/kernels/``).  CUDA sources live in ``csrc/`` and are built on
-first use (kernels/flash_decode.py)."""
+first use (kernels/_nvcc.py)."""

@@ -3,30 +3,25 @@
 Port of ``src/repro/kernels/flash_decode.py`` (``paged_flash_decode_pool``,
 body ``_fd_kernel``).  The kernel is CUDA C++ in ``csrc/flash_decode.cu``;
 its header says what bounds it on the card (the K/V bytes it reads) and
-what its design does about that.  This module builds it on first use with
-``nvcc`` for ``sm_90a`` into ``build/`` at the root of the checkout, loads
-it with ``ctypes`` and launches it on PyTorch's current stream.  The plain
-PyTorch version is ``kernels/ref.py::paged_flash_decode_ref``; the
-dispatcher ``kernels/ops.py`` picks it for CPU tensors.
+what its design does about that.  This module builds it on first use
+(``kernels/_nvcc.py``), loads it with ``ctypes`` and launches it on
+PyTorch's current stream.  The plain PyTorch version is
+``kernels/ref.py::paged_flash_decode_ref``; the dispatcher
+``kernels/ops.py`` picks it for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
 import pathlib
-import subprocess
-import tempfile
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import _nvcc
+
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SUPPORTED_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -38,41 +33,10 @@ launch_count = 0
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: the K6 kernel builds from "
-                           "csrc/flash_decode.cu with the CUDA toolkit")
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError(f"nvcc not found at {nvcc}")
-    return nvcc
-
-
 def build() -> Tuple[pathlib.Path, str]:
-    """Compile ``csrc/flash_decode.cu`` into a shared library under
-    ``build/`` unless one built from the same source and flags is there.
-    Returns (library path, the compiler's output: the ptxas register and
-    shared-memory report, empty when nothing was built)."""
-    text = SOURCE.read_bytes()
-    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"flash_decode-{tag[:16]}.so"
-    if lib_path.exists():
-        return lib_path, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path, proc.stdout + proc.stderr
+    """Compile ``csrc/flash_decode.cu`` unless its library is built
+    (kernels/_nvcc.py).  Returns (library path, the compiler's output)."""
+    return _nvcc.build(SOURCE)
 
 
 def _library() -> ctypes.CDLL:

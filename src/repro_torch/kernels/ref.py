@@ -11,6 +11,13 @@ import math
 import torch
 
 
+def chunk_accumulate_ref(a: torch.Tensor, b: torch.Tensor, *,
+                         acc_dtype=torch.float32) -> torch.Tensor:
+    """The staged ring's step reduce: ``a + b`` in ``acc_dtype``, rounded
+    once to a's dtype."""
+    return (a.to(acc_dtype) + b.to(acc_dtype)).to(a.dtype)
+
+
 def paged_flash_decode_ref(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
                            kv_valid: torch.Tensor, *,

@@ -1,15 +1,21 @@
 """Parallelism context — how model code reaches the communication backend.
 
-Port of ``src/repro/models/tp.py`` for one device (tp = dp = node = pod
-= 1).  Model layers call collectives only through a ``ParallelCtx``; on
-one device every collective is the identity and there are no
-communicators, so the program API (``register_program``, ``recording``,
-``observe_program``, ``plan_signature``, ``await_all``, ``comms``,
-``comm_report``, ``tuning_status``) keeps the reference's single-device
-behaviour: constant signature, no Stage-2 feedback, empty reports.
+Port of ``src/repro/models/tp.py`` for one device and for the data axis.
+Model layers call collectives only through a ``ParallelCtx``.  On one
+device every collective is the identity and there are no communicators:
+constant signature, no Stage-2 feedback, empty reports.  With a data axis
+wider than 1 the ctx holds the rank's :class:`~repro_torch.launch.mesh.Mesh`
+and takes that axis's :class:`FlexCommunicator` from the memoized
+``comm_init_rank`` registry, so ``grad_all_reduce`` runs the multi-path
+all-reduce and the program API (``register_program``, ``recording``,
+``observe_program``, ``plan_signature``, ``comm_report``,
+``tuning_status``, ``save_tuning_profile``) reads and feeds that
+communicator as the reference's does.  Issue scopes for in-flight
+gradient buckets come with the bucketer (ROADMAP queue 1 item 8).
 
-An axis wider than 1 needs the process-group mesh, the data plane and the
-communicator (ROADMAP queue 1, items 3-5) and raises until they land.
+Still raising, each with the ROADMAP queue 1 item that lifts it: a tensor
+axis wider than 1 (item 7 trains with it, item 11 serves with it), a node
+axis (item 12) and a pod axis (item 14).
 """
 
 from __future__ import annotations
@@ -19,15 +25,28 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
-_NEEDS_COMMS = ("ParallelCtx with an axis wider than 1 needs the "
-                "process-group mesh, data plane and communicator "
-                "(ROADMAP queue 1, items 3-5), not ported yet")
+from repro_torch.core.communicator import (CommConfig, FlexCommunicator,
+                                           comm_init_rank)
+
+_LATER = (("tp_size", "a tensor-parallel axis wider than 1 is not ported "
+           "yet (ROADMAP queue 1 item 7 for training, item 11 for "
+           "serving)"),
+          ("node_size", "a node axis is not ported yet (ROADMAP queue 1 "
+           "item 12)"),
+          ("pod_size", "a pod axis is not ported yet (ROADMAP queue 1 "
+           "item 14)"))
 
 
 @dataclasses.dataclass
 class ParallelCtx:
-    """Axis names + sizes for one step function (single device only)."""
+    """Axis names, sizes and communicators for one step function.
+
+    dp_axis : data-parallel axis ("data"); with dp_size > 1 the ctx needs
+              the rank's ``mesh`` and builds the axis's communicator
+    mesh    : this rank's Mesh (launch/mesh.py); None on one device
+    """
 
     tp_axis: Optional[str] = None
     dp_axis: Optional[str] = None
@@ -37,59 +56,108 @@ class ParallelCtx:
     dp_size: int = 1
     node_size: int = 1
     pod_size: int = 1
+    comm_config: CommConfig = dataclasses.field(default_factory=CommConfig)
+    mesh: Optional[object] = None
+    _dp_comm: Optional[FlexCommunicator] = None
 
     def __post_init__(self):
-        if max(self.tp_size, self.dp_size, self.node_size,
-               self.pod_size) > 1:
-            raise NotImplementedError(_NEEDS_COMMS)
+        for field, msg in _LATER:
+            if getattr(self, field) > 1:
+                raise NotImplementedError(f"ParallelCtx: {msg}")
+        if self.dp_axis and self.dp_size > 1:
+            if self.mesh is None:
+                raise ValueError("ParallelCtx: a data axis wider than 1 "
+                                 "needs the rank's mesh")
+            self._dp_comm = comm_init_rank(self.dp_axis, self.dp_size,
+                                           self.comm_config, mesh=self.mesh)
 
     # -- plan-engine plumbing -------------------------------------------------
 
-    def comms(self) -> Tuple[object, ...]:
-        """The live communicators behind this ctx: none on one device."""
-        return ()
+    def comms(self) -> Tuple[FlexCommunicator, ...]:
+        """The live communicators behind this ctx (the data axis's)."""
+        return tuple(c for c in (self._dp_comm,) if c is not None)
 
     # -- StepProgram registration (runtime/program.py, DESIGN.md §7) ----------
 
     def register_program(self, name: str) -> str:
+        for comm in self.comms():
+            comm.register_recorder(name)
         return name
 
     def unregister_program(self, name: str) -> None:
-        pass
+        for comm in self.comms():
+            comm.unregister_recorder(name)
 
     @contextlib.contextmanager
     def recording(self, name: str):
-        yield
+        """Route every collective called inside to ``name``'s recorders."""
+        with contextlib.ExitStack() as stack:
+            for comm in self.comms():
+                stack.enter_context(comm.recording(comm.recorder(name),
+                                                   name=name))
+            yield
 
     def await_all(self, tree=None):
-        """Barrier for issued plans; with no communicators it returns
-        ``tree`` unchanged."""
+        """Close the communicators' issue windows; returns ``tree``."""
+        for comm in self.comms():
+            comm.await_barrier()
         return tree
 
     def observe_program(self, name: str,
                         elapsed_s: Optional[float] = None) -> bool:
-        return False
+        """Stage-2 feedback from ONE program's replay logs; True when any
+        share moved (the program's next signature lookup re-keys)."""
+        changed = False
+        for comm in self.comms():
+            changed |= comm.observe_recorders(comm.family_recorders(name),
+                                              elapsed_s=elapsed_s)
+        return changed
 
     def timing_kind(self) -> str:
-        """"none": a single-device ctx has no timing source."""
-        return "none"
+        """"measured" if any communicator balances on wall-clock steps,
+        else "sim" ("none" without live communicators)."""
+        kinds = {c.timing.kind for c in self.comms()}
+        if "measured" in kinds:
+            return "measured"
+        return "sim" if kinds else "none"
+
+    def save_tuning_profile(self, path: Optional[str] = None) -> int:
+        """Persist every communicator's converged Stage-1 shares to the
+        warm-start cache; returns the entries recorded."""
+        return sum(c.save_tuning(path) for c in self.comms())
 
     def tuning_status(self) -> Dict[str, Dict[str, object]]:
-        return {}
+        return {c.axis_name: c.tuning_status() for c in self.comms()}
 
     def plan_signature(self, program: Optional[str] = None) -> Tuple:
-        return ()
+        """Frozen tuple of the communicators' current quantized plans — the
+        StepProgram executable-cache key (restricted to ``program``'s
+        footprint when given)."""
+        sigs = []
+        for c in self.comms():
+            touched = c.family_footprint(program) if program else None
+            sigs.append((c.axis_name, c.plan_signature(touched)))
+        return tuple(sigs)
 
     def comm_report(self) -> Dict[str, object]:
-        return {}
+        return {c.axis_name: c.report() for c in self.comms()}
 
-    # -- tensor-parallel collectives (identity on one device) -----------------
+    # -- tensor-parallel collectives (identity without a tensor axis) ---------
 
     def tp_all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
     def tp_index(self) -> int:
         return 0
+
+    # -- data-parallel collectives --------------------------------------------
+
+    def grad_all_reduce(self, grads):
+        """Sum every tensor of the ``grads`` tree over the data axis through
+        the FlexLink communicator (the identity on one device)."""
+        if self._dp_comm is None:
+            return grads
+        return pytree.tree_map(self._dp_comm.all_reduce, grads)
 
 
 def single_device_ctx() -> ParallelCtx:

@@ -201,6 +201,11 @@ class ServeEngine:
                 break
             self.tick()
 
+    def save_tuning(self, path: Optional[str] = None) -> int:
+        """Persist the engine's converged Stage-1 shares to the warm-start
+        TuningProfile (control/profile.py)."""
+        return self.ctx.save_tuning_profile(path)
+
     def close(self) -> None:
         """Retire the engine's StepProgram: drop its replay recorders from
         the (memoized, process-global) communicators and its compiled
@@ -438,6 +443,9 @@ class PagedServeEngine:
         rep["program"] = self._program.report()
         rep["serving"] = self.serving_report()
         return rep
+
+    def save_tuning(self, path: Optional[str] = None) -> int:
+        return self.ctx.save_tuning_profile(path)
 
     def close(self) -> None:
         self._program.close()

@@ -1,0 +1,148 @@
+"""Rank-side halves of the port's multi-rank tests.
+
+``launch.mesh.run_ranks`` starts every rank as a fresh interpreter that
+imports the function it runs, so these functions live in a module that
+imports only the port: no rank ever imports JAX.  Each takes case lists
+of plain data (numpy global inputs, option dicts) made by the test module
+and returns plain data (numpy arrays, tuples), one answer per case.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import collectives as cx
+from repro_torch.core import routing
+from repro_torch.launch.mesh import Mesh
+
+#: mesh name -> (shape, axes); the test modules share these
+MESHES = {"2d": ((4, 2), ("data", "model")), "1d": ((8,), ("data",))}
+
+
+def local_block(x: np.ndarray, spec: str, mesh: Mesh) -> np.ndarray:
+    """This rank's block of a global array: ``spec`` names the mesh axes
+    dim 0 (and dim 1) split over, like a shard_map PartitionSpec."""
+    for dim, axis in enumerate({"none": (), "data": ("data",),
+                                "data,model": ("data", "model")}[spec]):
+        n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+        size = x.shape[dim] // n
+        x = np.take(x, range(i * size, (i + 1) * size), axis=dim)
+    return x
+
+
+def as_bits(y: torch.Tensor) -> np.ndarray:
+    """Exact, dtype-neutral form: float32 values (bf16 widens exactly)."""
+    return y.float().numpy() if y.is_floating_point() else y.numpy()
+
+
+def _collective(op, x, mesh, kw):
+    if op == "flex_all_reduce":
+        return routing.flex_all_reduce(x, mesh, "data", **kw)
+    if op == "flex_all_gather":
+        return routing.flex_all_gather(x, mesh, "data", tiled=True, **kw)
+    if op == "flex_reduce_scatter":
+        return routing.flex_reduce_scatter(x, mesh, "data", **kw)
+    if op == "flex_all_to_all":
+        return routing.flex_all_to_all(x, mesh, "data", **kw)
+    if op == "ring_all_gather":
+        return cx.ring_all_gather(x, mesh, "data", **kw)
+    if op == "ring_all_reduce":
+        return cx.ring_all_reduce(x, mesh, "data", **kw)
+    if op == "tree_all_reduce":
+        return cx.tree_all_reduce(x, mesh, "data", **kw)
+    raise ValueError(op)
+
+
+def collectives(cases):
+    """Every case of tests/test_torch_collectives.py on this rank; also
+    the rank's mesh coordinates."""
+    meshes = {k: Mesh(*v, device="cpu") for k, v in MESHES.items()}
+    out = {"coords": {k: m.coords for k, m in meshes.items()}}
+    for name, c in cases.items():
+        mesh = meshes[c["mesh"]]
+        x = torch.from_numpy(local_block(c["x"], c["in_spec"], mesh))
+        x = x.to(getattr(torch, c["dtype"]))
+        out[name] = as_bits(_collective(c["op"], x, mesh, c["kw"]))
+    return out
+
+
+def plain_signature(sig):
+    """A plan signature with its enums and plans as plain tuples, so two
+    packages' (or two ranks') signatures compare with ``==``."""
+    def plan(p):
+        return tuple((f, getattr(p, f).value if f == "collective"
+                      else getattr(p, f)) for f in p.__dataclass_fields__)
+    return tuple((op, bucket, plan(p)) for op, bucket, p in sig)
+
+
+class SkewClock:
+    """A rank's step clock: each step lasts what its slowest active path
+    would take, with the primary ``1 + rank`` times slower than its share
+    says — every rank reads another wall time for the same step, and
+    alone would drain the primary at its own pace."""
+
+    def __init__(self, ctx, rank: int):
+        self.ctx, self.factor = ctx, 1.0 + rank
+        self.t, self.ticks = 0.0, 0
+
+    def __call__(self) -> float:
+        self.ticks += 1
+        if self.ticks % 2 == 0:
+            dur = 0.0
+            for comm in self.ctx.comms():
+                for sc in comm._slots.values():
+                    dur += max((f * (self.factor if p == "nvlink" else 1.0)
+                                for p, f in sc.fractions().items() if f > 0),
+                               default=0.0)
+            self.t += 1e-3 * max(dur, 1e-6)
+        return self.t
+
+
+def communicator(tuning_cache, payloads, steps, save_dir):
+    """tests/test_torch_communicator.py on this rank: the communicator's
+    data plane on the (4, 2) mesh, warm-started from ``tuning_cache``;
+    then a measured-timing data-parallel StepProgram loop on the (8,)
+    mesh whose ranks each read a skewed clock."""
+    from repro_torch.core.balancer import LoadBalancer
+    from repro_torch.core.communicator import CommConfig, comm_init_rank
+    from repro_torch.models.tp import ParallelCtx
+    from repro_torch.runtime.program import StepProgram
+    meshes = {k: Mesh(*v, device="cpu") for k, v in MESHES.items()}
+    comm = comm_init_rank("data", 4, CommConfig(profile="h800",
+                                                tuning_cache=tuning_cache),
+                          ortho_name="model", mesh=meshes["2d"])
+    out = {}
+    for name, (op, x, in_spec, kw) in payloads.items():
+        x = torch.from_numpy(local_block(x, in_spec, meshes["2d"]))
+        out[name] = as_bits(getattr(comm, op)(x, **kw))
+    out["signature"] = plain_signature(comm.plan_signature())
+
+    mesh = meshes["1d"]
+    ctx = ParallelCtx(dp_axis="data", dp_size=8, mesh=mesh,
+                      comm_config=CommConfig(profile="h800",
+                                             timing="measured",
+                                             tuning_cache=tuning_cache))
+    prog = StepProgram(lambda: ctx.grad_all_reduce, ctx, name="dp",
+                       clock=SkewClock(ctx, mesh.rank))
+    grads = {"w": torch.full((64, 8), float(mesh.rank)),
+             "b": torch.arange(8, dtype=torch.float32) * (mesh.rank + 1)}
+    sigs, summed = [], None
+    for step in range(steps):
+        summed = prog(grads)
+        prog.observe()
+        if step == 0:
+            # a short window so the loop moves shares within a few steps
+            (sc,) = ctx.comms()[0]._slots.values()
+            sc.balancer = LoadBalancer(dict(sc.shares), "nvlink", window=3,
+                                       invoke_period=3)
+            sc.probe_period = 5
+        sigs.append(plain_signature(ctx.comms()[0].plan_signature()))
+    saved = f"{save_dir}/rank{mesh.rank}.json"
+    out["measured"] = {"signatures": sigs,
+                       "grads": {k: v.numpy() for k, v in summed.items()},
+                       "timing": ctx.timing_kind(),
+                       "report": prog.report(),
+                       "saved": (ctx.save_tuning_profile(saved), saved)}
+    prog.close()
+    return out

@@ -93,7 +93,7 @@ def test_step_program_counters_match_reference():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="items 3-5"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         TParallelCtx(tp_axis="model", tp_size=2)
     gen = torch.Generator().manual_seed(0)
     for arch in ("mixtral-8x7b", "mamba2-1.3b", "whisper-medium"):
