@@ -43,18 +43,57 @@ non-zero:
    host-staged gloo on one card, not a link bandwidth;
 8. K1 timed by CUDA events at the staged sub-chunk of (b) and at a
    64 MiB bfloat16 chunk, beside its plain version, ``a + b`` and the
-   memory bound (3 x bytes over the card's rate).
+   memory bound (3 x bytes over the card's rate), with the operands
+   rotated over enough copies that each call reads device memory, not L2;
+9. the wire codecs K2-K5 and the mixed (float32 + bfloat16) K1 against
+   their plain versions on the card at lengths {1, 127, 1000, 2^20+7,
+   2^26}, aligned and one element off, float32 and bfloat16 input, both
+   fp8 formats, with NaN and inf groups: bit for bit (NaN at the same
+   places, and with the same bits);
+10. compressed collectives on 4 ranks (gloo on this card), ``h100``
+   profile: (a) mesh (data=2, model=2), an explicit three-route
+   all-reduce of 64 MiB random bfloat16 with fp8 on the staged and ortho
+   routes; (b) the same mesh, tuned 256 MiB bfloat16 all-gather and
+   reduce-scatter under ``compress="secondary=fp8"``; (c) mesh (data=4),
+   a tuned 256 MiB float32 all-reduce under ``compress="staged=bf16"``.
+   Each equals, bit for bit, the same collective run on CPU copies (the
+   codecs' plain versions); gathered rows are equal on every rank of a
+   line; the error against the exact sum stays within (n + 1) fp8 (or
+   bf16) steps of each 128-element block's magnitude; K2-K5 and K1
+   launches equal what the plans imply;
+11. full-width glm4-9b training (depth cut 40 -> 2, bf16, random weights
+   from seed 0), ``build_train_program`` + ``run_loop`` on 2 gloo ranks
+   sharing this card, seq 128, global batch 8, 3 steps each with the
+   ``nccl`` backend, ``flexlink`` and ``flexlink`` with
+   ``--compress secondary=fp8``, AdamW at lr 1e-4: finite losses, equal
+   on both ranks, falling; flexlink within 5e-3 of nccl per step, fp8
+   within 0.05 max(|loss|, 1); the fp8 step's codec plans printed and
+   the K2/K3/K4 launches equal to what those plans imply; peak memory;
+12. (a) K2-K5 and the mixed K1 against their plain versions at every
+   length, dtype and format their kernels were given in phase 11's fp8
+   run and phase 10 (c), aligned and one element off, NaN and inf groups
+   included: bit for bit (the ``max_abs_err`` of the kernels line); (b)
+   the same kernels timed by CUDA events at one staged sub-chunk of
+   their path (K2-K4: the lm_head gradient all-reduce of phase 11; K5 and
+   the mixed K1: phase 10 (c)) and at 64 MiB, beside their plain
+   versions, the memory bound and, for K5 and the mixed K1, the one
+   PyTorch call that computes the same function.  Each timed call works
+   on its own copy of the operands, rotated so that none is still in L2
+   (as in phase 8).
 
 The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.  K1's launches in that line are the
-ranks' own counts from phase 7, summed: each rank process sets its count
-to 0 before its collectives and reports it after them.  Without a CUDA
-card, or without the rest of the checkout beside this file, it prints no
-result and exits 1.
+``{"ok": true, "device": {...}}``.  The launches in that line are the
+ranks' own counts from each kernel's path, summed: K1 from phase 7, K2-K4
+from the fp8 training run of phase 11, K5 and the mixed K1 from phase
+10 (c); each rank process sets its counts to 0 just before that path and
+reports them just after it.  Without a CUDA card, or without the rest of
+the checkout beside this file, it prints no result and exits 1.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import hashlib
 import json
 import pathlib
@@ -109,23 +148,45 @@ def make_case(gen, t_rows, maxb, dtype, n_pads=0):
     return q, kp, vp, tables, kv_valid
 
 
-def time_ms(fn, iters=20, warmup=5) -> float:
+def time_ms(fn, iters=20, warmup=5, sets=None) -> float:
     """Median device time of one call, by CUDA events around each call.
     A spin kernel (about 50 ms) goes first so that the host queues every
     timed call before the device reaches them: the events then bracket
-    device time only, not the host's launch overhead between calls."""
-    for _ in range(warmup):
-        fn()
+    device time only, not the host's launch overhead between calls.
+
+    With ``sets``, call i is ``fn(i % sets)``: it works on the (i % sets)-th
+    of ``sets`` copies of its operands, and its result stays alive for the
+    next ``sets`` calls, so no two calls in a row share an input or an
+    output buffer.  The warm-up goes once through every copy; ``rotations``
+    sizes ``sets`` so that each operand has left the L2 cache before its
+    next use: the call then reads and writes device memory, as the bound
+    assumes."""
+    call = (lambda i: fn()) if sets is None else (lambda i: fn(i % sets))
+    keep = collections.deque(maxlen=sets or 1)
+    warmup = max(warmup, sets or 0)     # every copy once, in call order
+    for i in range(warmup):
+        keep.append(call(i))
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     torch.cuda.synchronize()
     torch.cuda._sleep(100_000_000)
-    for s, e in zip(starts, ends):
+    for i, (s, e) in enumerate(zip(starts, ends)):
         s.record()
-        fn()
+        keep.append(call(warmup + i))
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+# the H100's L2 cache (50 MB on the SXM and PCIe cards)
+L2_BYTES = 50 * 10 ** 6
+
+
+def rotations(nbytes: int) -> int:
+    """Copies of a call's operands (``nbytes`` read and written a call) to
+    rotate over so that three L2 sizes of other traffic pass between two
+    uses of one copy."""
+    return 1 + -(-3 * L2_BYTES // nbytes)
 
 
 def phase1_card_and_build():
@@ -135,9 +196,10 @@ def phase1_card_and_build():
     print(smi[0])
     from repro_torch.kernels import _nvcc
     from repro_torch.kernels import chunk_accumulate as ca
+    from repro_torch.kernels import codec
     from repro_torch.kernels import flash_decode as fd
     t0 = time.perf_counter()
-    built = _nvcc.build_all([fd.SOURCE, ca.SOURCE])
+    built = _nvcc.build_all([fd.SOURCE, ca.SOURCE, codec.SOURCE])
     build_s = time.perf_counter() - t0
     for src, (lib, log) in built.items():
         for line in log.splitlines():
@@ -415,11 +477,12 @@ def phase6_k1_vs_plain():
             b = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
             for off in (0, 1):      # 16-byte aligned, then one element off
                 x, y = a[off:off + n], b[off:off + n]
-                before = ca.launch_count
+                before = ca.launch_count[dtype, dtype]
                 got = ops.accumulate(x, y)
                 want = ref.chunk_accumulate_ref(x, y)
                 torch.cuda.synchronize()
-                check(ca.launch_count == before + 1, "K1 did not launch")
+                check(ca.launch_count[dtype, dtype] == before + 1,
+                      "K1 did not launch")
                 check(torch.equal(_bits(got), _bits(want)),
                       f"K1 {dtype} n={n} offset {off}: not bit-identical "
                       f"to its plain version")
@@ -478,7 +541,7 @@ def collective_rank():
     cfg = CommConfig(profile="h100")
     comm_a = comm_init_rank("data", 2, cfg, ortho_name="model", mesh=mesh_a)
     comm_b = comm_init_rank("data", 4, cfg, mesh=mesh_b)
-    ca.launch_count = 0
+    ca.launch_count.clear()
     out = {"wire": mesh_a.wire, "digest": {}, "wall_s": {}, "plans": {},
            "want_k1": 0}
 
@@ -524,11 +587,12 @@ def collective_rank():
     plan = routing.build_plan(Collective.ALL_REDUCE, "data", HALVES)
     k1 = run("c_all_reduce", lambda: routing.execute(plan, x, mesh_b),
              plan, 4)
-    launches = ca.launch_count
+    launches = sum(ca.launch_count.values())
     plain = routing.execute(plan, x, mesh_b,
                             accumulate=ref.chunk_accumulate_ref)
     torch.cuda.synchronize()
-    check(ca.launch_count == launches, "the plain run launched K1")
+    check(sum(ca.launch_count.values()) == launches,
+          "the plain run launched K1")
     out["c_bit_identical"] = bool(torch.equal(_bits(k1), _bits(plain)))
     out["k1_launches"] = launches
     out["signature"] = [repr(comm_a.plan_signature()),
@@ -604,14 +668,21 @@ def phase8_k1_times(card, plans):
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = {}
     for name, n in (("b_substep", sub), ("chunk_64MiB", 32 * MiB)):
-        a = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
-        b = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
-        before = ca.launch_count
-        ms = time_ms(lambda: ca.chunk_accumulate(a, b))
-        ca.launch_count = before          # timing launches are not the path's
-        plain_ms = time_ms(lambda: ref.chunk_accumulate_ref(a, b))
-        lib_ms = time_ms(lambda: a + b)
-        nbytes = 3 * n * a.element_size()
+        nbytes = 3 * n * 2
+        k = rotations(nbytes)
+        a = [torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(k)]
+        b = [torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(k)]
+        before = collections.Counter(ca.launch_count)
+        ms = time_ms(lambda i: ca.chunk_accumulate(a[i], b[i]), sets=k)
+        # timing launches are not the path's
+        ca.launch_count.clear()
+        ca.launch_count.update(before)
+        plain_ms = time_ms(lambda i: ref.chunk_accumulate_ref(a[i], b[i]),
+                           sets=k)
+        lib_ms = time_ms(lambda i: a[i] + b[i], sets=k)
+        del a, b
         flops = n
         bound_ms = max(nbytes / mem_bps, flops / 67e12) * 1e3
         bound_by = "bytes" if nbytes / mem_bps >= flops / 67e12 \
@@ -622,8 +693,671 @@ def phase8_k1_times(card, plans):
               f"{plain_ms:.4f} ms, a + b {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B at "
               f"{mem_bps / 1e12:.2f} TB/s: {key} datasheet); "
-              f"{bound_ms / ms:.1%} of bound")
+              f"{bound_ms / ms:.1%} of bound; operands rotated over {k} "
+              f"copies, out of L2")
     return rows
+
+
+# -- the wire codecs and the data-parallel train step (phases 9-12) -----------
+
+CODEC_LENGTHS = (1, 127, 1000, (1 << 20) + 7, 1 << 26)
+FMTS = ("fp8_e4m3", "fp8_e5m2")
+
+
+def _codec_input(n, dtype, gen, special):
+    """Random values whose 128-element groups span 10 decades; with
+    ``special``, a NaN in group 0, an inf in group 2 and a -inf last."""
+    x = torch.randn(n, generator=gen, device="cuda")
+    groups = -(-n // 128)
+    mag = torch.exp(torch.empty(groups, device="cuda").uniform_(
+        -12, 12, generator=gen))
+    x *= mag.repeat_interleave(128)[:n]
+    if special:
+        x[min(5, n - 1)] = float("nan")
+        if n > 2 * 128:
+            x[2 * 128 + 7] = float("inf")
+            x[n - 1] = float("-inf")
+    return x.to(dtype)
+
+
+def _same_bits(got, want, what, key, stats):
+    """Bit for bit where the values are numbers, NaN at the same places.
+    Adds to ``stats``: the NaNs whose bits differ, and per ``key`` the max
+    abs difference over the elements finite in both."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+          f"{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    finite = torch.isfinite(g) & torch.isfinite(w)
+    err = float((g[finite] - w[finite]).abs().max()) if finite.any() else 0.0
+    stats[key] = max(stats.get(key, 0.0), err)
+    if got.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        check(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+              f"{what}: fp8 bytes differ from the plain version's")
+        return
+    gn, wn = torch.isnan(g), torch.isnan(w)
+    check(torch.equal(gn, wn), f"{what}: NaN at other places than the "
+          f"plain version's")
+    check(torch.equal(_bits(got)[~gn], _bits(want)[~wn]),
+          f"{what}: not bit-identical to the plain version")
+    nan_bits = stats.setdefault("nan_bits", {})
+    nan_bits[key] = nan_bits.get(key, 0) + int(
+        (_bits(got)[gn] != _bits(want)[wn]).sum())
+
+
+def phase9_codecs_vs_plain():
+    from repro_torch.kernels import chunk_accumulate as ca
+    from repro_torch.kernels import codec, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cases, stats = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in CODEC_LENGTHS:
+            x = _codec_input(n + 1, dtype, gen, special=True)
+            b = _codec_input(n + 1, dtype, gen, special=False)
+            for off in (0, 1):
+                xs, bs = x[off:off + n], b[off:off + n]
+                for fmt in FMTS:
+                    before = dict(codec.launch_count)
+                    vals, scales = codec.fp8_encode(xs, fmt)
+                    dec = codec.fp8_decode(vals, scales, fmt, dtype)
+                    acc = codec.fp8_decode_accumulate(vals, scales, bs, fmt)
+                    torch.cuda.synchronize()
+                    check(all(codec.launch_count[k] == before[k] + 1
+                              for k in ("fp8_encode", "fp8_decode",
+                                        "fp8_decode_accumulate")),
+                          "a codec kernel did not launch")
+                    r_vals, r_scales = ref.fp8_encode_ref(xs, fmt=fmt)
+                    tag = f"{fmt} {dtype} n={n} offset {off}"
+                    _same_bits(vals, r_vals, f"K2 values {tag}",
+                               "fp8_encode", stats)
+                    _same_bits(scales, r_scales, f"K2 scales {tag}",
+                               "fp8_encode", stats)
+                    _same_bits(dec, ref.fp8_decode_ref(
+                        vals, scales, out_dtype=dtype), f"K4 {tag}",
+                        "fp8_decode", stats)
+                    _same_bits(acc, ref.fp8_decode_accumulate_ref(
+                        vals, scales, bs), f"K3 {tag}",
+                        "fp8_decode_accumulate", stats)
+                    cases += 1
+                _same_bits(codec.bf16_pack(xs), ref.bf16_pack_ref(xs),
+                           f"K5 {dtype} n={n} offset {off}", "bf16_pack",
+                           stats)
+                if dtype == torch.float32:
+                    packed = ref.bf16_pack_ref(bs)
+                    before = ca.launch_count[ca.MIXED]
+                    got = ops.accumulate(xs, packed)
+                    torch.cuda.synchronize()
+                    check(ca.launch_count[ca.MIXED] == before + 1,
+                          "the mixed K1 did not launch")
+                    _same_bits(got, ref.chunk_accumulate_ref(xs, packed),
+                               f"mixed K1 n={n} offset {off}", "k1_mixed",
+                               stats)
+            del x, b
+    torch.cuda.empty_cache()
+    print(f"phase 9: K2/K3/K4 vs plain versions in {cases} cases (lengths "
+          f"{CODEC_LENGTHS}, aligned and one off, float32 and bfloat16, "
+          f"e4m3 and e5m2, NaN and inf groups), K5 and the mixed K1 "
+          f"likewise: bit for bit, NaN at the same places (NaNs with "
+          f"other bits: {stats.get('nan_bits', {})}); max abs err "
+          f"{ {k: v for k, v in stats.items() if k != 'nan_bits'} }")
+    return stats
+
+
+def codec_launches(plan, n: int, dtype) -> collections.Counter:
+    """The K1-K5 launches one ``routing.execute`` of ``plan`` makes on one
+    rank, for a payload of ``dtype`` on an axis of ``n`` ranks (the ortho
+    axis of these runs has 2).  Per staged ring with s sub-chunks: the
+    all-reduce encodes n x s times (the reduce-scatter's (n-1) x s
+    partials and the all-gather's s sources), fuses (n-1) x s
+    decode-accumulates and decodes n x s gathered rows; an ortho detour
+    encodes and decodes twice.  bf16_pack decodes by a cast, and its
+    decode-accumulate is K1 (mixed for a float32 payload)."""
+    c = collections.Counter()
+    s, op = plan.staged_substeps, plan.collective.value
+    for path in plan.paths:
+        if path == "primary":
+            continue
+        if path == "staged":
+            enc, dec, acc = {"all_reduce": (n * s, n * s, (n - 1) * s),
+                             "reduce_scatter": ((n - 1) * s, 0, (n - 1) * s),
+                             "all_gather": (s, n * s, 0),
+                             "all_to_all": (n - 1, n - 1, 0)}[op]
+        else:
+            enc, dec, acc = 2, 2, 0
+        codec = plan.codec_for(path)
+        if codec == "bf16_pack":
+            c["bf16_pack"] += enc
+            c["k1_mixed" if dtype == torch.float32 else "k1"] += acc
+        elif codec:
+            c["fp8_encode"] += enc
+            c["fp8_decode"] += dec
+            c["fp8_decode_accumulate"] += acc
+        elif dtype.is_floating_point and torch.finfo(dtype).bits < 32:
+            c["k1"] += acc
+    return c
+
+
+def _kernel_counts(reset=False):
+    """This process's K1-K5 launch counts (set to 0 first with reset)."""
+    from repro_torch.kernels import chunk_accumulate as ca
+    from repro_torch.kernels import codec
+    if reset:
+        for k in codec.launch_count:
+            codec.launch_count[k] = 0
+        ca.launch_count.clear()
+    mixed = ca.launch_count[ca.MIXED]
+    return collections.Counter({**codec.launch_count, "k1_mixed": mixed,
+                                "k1": sum(ca.launch_count.values()) - mixed})
+
+
+@contextlib.contextmanager
+def recorded_calls(seen: set):
+    """Within the block, every call of a K1-K5 wrapper adds what its
+    kernel was given to ``seen``: (kernel, length, dtype, fp8 format),
+    the dtype being the payload's (the input of K2 and K5, the output of
+    K3 and K4, the float32 operand of the mixed K1).  The wrappers and
+    their counts are untouched; this only looks at their arguments."""
+    from repro_torch.kernels import chunk_accumulate as ca
+    from repro_torch.kernels import codec
+    keys = {
+        "fp8_encode": lambda x, fmt="fp8_e4m3": (x.numel(), x.dtype, fmt),
+        "fp8_decode": lambda v, s, fmt, dt=torch.float32: (v.numel(), dt,
+                                                           fmt),
+        "fp8_decode_accumulate": lambda v, s, b, fmt: (v.numel(), b.dtype,
+                                                       fmt),
+        "bf16_pack": lambda x: (x.numel(), x.dtype, None)}
+    originals = {name: getattr(codec, name) for name in keys}
+    k1 = ca.chunk_accumulate
+
+    def wrap(name, fn):
+        def call(*args):
+            seen.add((name, *keys[name](*args)))
+            return fn(*args)
+        return call
+
+    def k1_call(a, b):
+        seen.add(("k1_mixed" if a.dtype != b.dtype else "k1", a.numel(),
+                  a.dtype, None))
+        return k1(a, b)
+
+    for name, fn in originals.items():
+        setattr(codec, name, wrap(name, fn))
+    ca.chunk_accumulate = k1_call
+    try:
+        yield seen
+    finally:
+        for name, fn in originals.items():
+            setattr(codec, name, fn)
+        ca.chunk_accumulate = k1
+
+
+def _rank_payload(numel, dtype, seed, rank):
+    """Rank ``rank``'s random payload: blocks of 4096 elements span 3.5
+    decades, so the codecs' per-group scales differ."""
+    gen = torch.Generator(device="cuda").manual_seed(seed * 100 + rank)
+    x = torch.randn(numel, generator=gen, device="cuda")
+    groups = -(-numel // 4096)
+    x *= torch.exp(torch.empty(groups, device="cuda").uniform_(
+        -4, 4, generator=gen)).repeat_interleave(4096)[:numel]
+    return x.to(dtype)
+
+
+def _block_max(x, block=128):
+    """|x| max over each 128-block and its two neighbours, per element: a
+    bound on the abs-max of any codec group (128 consecutive elements,
+    wherever it starts) that holds the element."""
+    n = x.numel()
+    pad = (-n) % block
+    a = torch.cat([x.abs().float().reshape(-1),
+                   torch.zeros(pad, device=x.device)])
+    m = a.view(-1, block).amax(dim=1)
+    m = torch.maximum(m, torch.cat([m[1:], m[-1:]]))
+    m = torch.maximum(m, torch.cat([m[:1], m[:-1]]))
+    return m.repeat_interleave(block)[:n]
+
+
+def codec_rank():
+    """One rank of phase 10; returns plans, digests, launch counts and
+    errors, per run."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import routing
+    from repro_torch.core.communicator import (CommConfig, bucket_for,
+                                               comm_init_rank)
+    from repro_torch.core.topology import Collective
+    from repro_torch.launch.mesh import Mesh
+    mesh_a = Mesh((2, 2), ("data", "model"))
+    mesh_b = Mesh((4,), ("data",))
+    cpu_a = Mesh((2, 2), ("data", "model"), device="cpu")
+    cpu_b = Mesh((4,), ("data",), device="cpu")
+    rank = mesh_a.rank
+    comm_a = comm_init_rank("data", 2, CommConfig(
+        profile="h100", compress="secondary=fp8"), ortho_name="model",
+        mesh=mesh_a)
+    comm_b = comm_init_rank("data", 4, CommConfig(
+        profile="h100", compress="staged=bf16"), mesh=mesh_b)
+    out = {}
+
+    def run(name, plan, mesh, cpu_mesh, x, seed):
+        n = mesh.axis_size("data")
+        line = [mesh.peer("data", i) for i in range(n)]
+        seen = set()
+        _kernel_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_calls(seen):
+            y = routing.execute(plan, x, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _kernel_counts()
+        plain = routing.execute(plan, x.cpu(), cpu_mesh)
+        check(_kernel_counts() == launches, "the CPU run launched kernels")
+        rec = {"plan": (plan.chunk_units, plan.path_codecs,
+                        plan.staged_substeps),
+               "wall_s": wall, "digest": _digest(y),
+               "equal_plain": bool(torch.equal(_bits(y.cpu()),
+                                               _bits(plain))),
+               "launches": dict(launches), "calls": seen,
+               "want": dict(codec_launches(plan, n, x.dtype))}
+        # the exact result, from every input of this rank's line
+        ins = [_rank_payload(x.numel(), x.dtype, seed, r).reshape(x.shape)
+               for r in line]
+        op = plan.collective.value
+        if op == "all_gather":
+            exact = torch.stack([t.float() for t in ins])
+            mag = torch.maximum(_block_max(exact), _block_max(y))
+            hops = 1
+        else:
+            exact = sum(t.float() for t in ins)
+            if op == "reduce_scatter":
+                d, lead = mesh.axis_index("data"), x.shape[0] // n
+                exact = exact[d * lead:(d + 1) * lead]
+                ins = [t[d * lead:(d + 1) * lead] for t in ins]
+            mag = _block_max(exact)
+            for t in ins:
+                mag = torch.maximum(mag, _block_max(t))
+            hops = n + 1      # ring partials + gathered row, or 3 ortho
+        # one step of the wire format at a group's abs-max: 32/448 for
+        # e4m3, 2^-7 relative for the bf16 pack; plus the payload's own
+        # rounding of the sum
+        step = 2.0 ** -7 if "bf16_pack" in str(plan.path_codecs) else 1 / 14
+        err = (y.float() - exact).abs().reshape(-1)
+        tol = hops * step * mag + exact.abs().reshape(-1) * 2.0 ** -7
+        rec["err_over_tol"] = float((err / tol.clamp_min(1e-30)).max())
+        rec["max_abs_err"] = float(err.max())
+        out[name] = rec
+
+    x = _rank_payload(32 * MiB, torch.bfloat16, 1, rank)
+    plan = routing.build_plan(Collective.ALL_REDUCE, "data", THREE_ROUTES,
+                              "model", path_codecs={"staged": "fp8_e4m3",
+                                                    "ortho": "fp8_e4m3"})
+    run("a_three_route_all_reduce_fp8", plan, mesh_a, cpu_a, x, 1)
+    x = _rank_payload(A_SHAPE[0] * A_SHAPE[1], torch.bfloat16, 2,
+                      rank).reshape(A_SHAPE)
+    for name, op in (("b_all_gather_fp8", Collective.ALL_GATHER),
+                     ("b_reduce_scatter_fp8", Collective.REDUCE_SCATTER)):
+        plan = comm_a._bucket_plan(op, bucket_for(x.numel() * 2))
+        check(plan.path_codecs, f"{name}: the tuned plan carries no codec")
+        run(name, plan, mesh_a, cpu_a, x, 2)
+    x = _rank_payload(64 * MiB, torch.float32, 3, rank)
+    plan = comm_b._bucket_plan(Collective.ALL_REDUCE, bucket_for(256 * MiB))
+    check(plan.path_codecs == (("staged", "bf16_pack"),),
+          f"(c): the tuned plan {plan} carries no bf16_pack")
+    run("c_all_reduce_f32_bf16_pack", plan, mesh_b, cpu_b, x, 3)
+    return out
+
+
+def phase10_codec_collectives():
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    res = run_ranks(codec_rank, 4, backend="gloo", device="cuda",
+                    timeout_s=900)
+    print(f"phase 10: 4 ranks on {torch.cuda.get_device_name(0)}, "
+          f"compressed collectives, profile h100; ranks ran "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches, calls = collections.Counter(), set()
+    for name, rec in res[0].items():
+        for r, got in enumerate(res):
+            g = got[name]
+            if name.startswith("c_"):
+                calls |= g["calls"]
+            check(g["plan"] == rec["plan"], f"rank {r} {name}: other plan")
+            check(g["equal_plain"], f"rank {r} {name}: the kernel run "
+                  f"differs from the plain-version run")
+            check(collections.Counter(g["launches"]) ==
+                  collections.Counter(g["want"]),
+                  f"rank {r} {name}: launches {g['launches']}, the plan "
+                  f"implies {g['want']}")
+            check(g["err_over_tol"] <= 1.0, f"rank {r} {name}: error "
+                  f"{g['max_abs_err']} beyond the codec's step bound "
+                  f"({g['err_over_tol']:.3f} of it)")
+            if name.startswith("c_"):
+                launches += collections.Counter(g["launches"])
+        if name.startswith("b_all_gather"):
+            # the ranks of one data line (same model index) hold one result
+            for r in range(4):
+                check(res[r][name]["digest"] == res[r % 2][name]["digest"],
+                      f"rank {r}: gathered rows differ within its line")
+        print(f"phase 10: {name}: plan {rec['plan']}; kernel run == plain "
+              f"run on every rank; max abs err vs exact "
+              f"{max(g[name]['max_abs_err'] for g in res):.4g} "
+              f"({max(g[name]['err_over_tol'] for g in res):.3f} of the "
+              f"step bound); launches a rank {rec['launches']} = the "
+              f"plan's; wall {max(g[name]['wall_s'] for g in res):.3f} s "
+              f"({WALL_NOTE})")
+    return launches, calls
+
+
+# phase 11: full-width glm4-9b with its depth cut to TRAIN_LAYERS.  The
+# learning rate is one a 4096-wide model takes in its first steps: the
+# launcher's 1e-3 (sized for the reduced config) sends this model's loss
+# up, from 12.7 to 18.1 in one step, on this card
+TRAIN_LAYERS = 2
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-4
+TRAIN_RUNS = (("nccl", {"backend": "nccl"}),
+              ("flexlink", {}),
+              ("fp8", {"compress": "secondary=fp8"}))
+LM_HEAD_NUMEL = 4096 * 151552
+
+
+def train_rank():
+    """One rank of phase 11: three 3-step runs of full-width glm4-9b
+    (depth cut) through build_train_program + run_loop.  Every collective
+    call's plan is recorded, and the kernel counts are set to 0 just
+    before each run and read just after it."""
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import routing
+    from repro_torch.core.communicator import CommConfig
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import build_train_program
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.loop import LoopConfig, run_loop
+    cfg = dataclasses.replace(get_config("glm4-9b"), n_layers=TRAIN_LAYERS)
+    mesh = Mesh((2, 1), ("data", "model"))
+    calls = []
+    execute = routing.execute
+
+    def recorded(plan, x, m, **kw):
+        calls.append((plan, m.axis_size(plan.axis_name), x.dtype,
+                      x.numel()))
+        return execute(plan, x, m, **kw)
+
+    routing.execute = recorded
+    out = {}
+    try:
+        for name, comm in TRAIN_RUNS:
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = init_params(cfg, gen, "cuda")
+            opt_state = init_state(params)
+            program, ctx = build_train_program(
+                cfg, mesh, comm=CommConfig(profile="h100", **comm),
+                opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                total_steps=TRAIN_STEPS), name=name)
+            batches = make_batches(cfg, seq_len=128, batch_per_shard=8)
+            calls.clear()
+            seen = set()
+            torch.cuda.synchronize()
+            _kernel_counts(reset=True)
+            t0 = time.perf_counter()
+            with recorded_calls(seen):
+                params, opt_state, hist = run_loop(
+                    program, params, opt_state, batches, ctx,
+                    LoopConfig(total_steps=TRAIN_STEPS, log_every=0))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _kernel_counts()
+            program.close()
+            want = collections.Counter()
+            for plan, n, dtype, _ in calls:
+                want += codec_launches(plan, n, dtype)
+            plans = sorted({(p.collective.value, numel, p.chunk_units,
+                             p.path_codecs, p.staged_substeps)
+                            for p, _, _, numel in calls if p.path_codecs})
+            out[name] = {"losses": hist, "wall_s": wall,
+                         "peak_gib": torch.cuda.max_memory_allocated()
+                         / 2 ** 30,
+                         "launches": dict(launches), "want": dict(want),
+                         "calls": len(calls), "codec_plans": plans,
+                         "kernel_calls": seen}
+            del params, opt_state, program, ctx
+            torch.cuda.empty_cache()
+    finally:
+        routing.execute = execute
+    return out
+
+
+def phase11_training():
+    from repro_torch.launch.mesh import run_ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_ranks(train_rank, 2, backend="gloo", device="cuda",
+                    timeout_s=900)
+    print(f"phase 11: full-width glm4-9b (d_model 4096, d_ff 13696, vocab "
+          f"151552, 32/2 heads; depth cut 40 -> {TRAIN_LAYERS}), bf16, "
+          f"seed 0, seq 128, global batch 8, AdamW lr {TRAIN_LR}, 2 gloo "
+          f"ranks on one card; "
+          f"ranks ran {time.perf_counter() - t0:.1f} s")
+    losses = {}
+    for name, _ in TRAIN_RUNS:
+        hist = [r[name]["losses"] for r in res]
+        check(all(np.isfinite(h).all() for h in hist),
+              f"{name}: loss not finite: {hist}")
+        check(hist[0] == hist[1], f"{name}: the ranks' losses differ: "
+              f"{hist}")
+        check(hist[0][-1] < hist[0][0], f"{name}: loss did not fall: "
+              f"{hist[0]}")
+        for r, got in enumerate(res):
+            check(collections.Counter(got[name]["launches"]) ==
+                  collections.Counter(got[name]["want"]),
+                  f"rank {r} {name}: launches {got[name]['launches']}, the "
+                  f"step's plans imply {got[name]['want']}")
+        losses[name] = hist[0]
+        rec = res[0][name]
+        print(f"phase 11: {name}: losses {hist[0]}; {rec['calls']} "
+              f"collective calls; launches a rank {rec['launches']}; "
+              f"{rec['wall_s']:.1f} s for {TRAIN_STEPS} steps; peak "
+              f"{max(r[name]['peak_gib'] for r in res):.2f} GiB a rank")
+    for i in range(TRAIN_STEPS):
+        d = abs(losses["flexlink"][i] - losses["nccl"][i])
+        check(d < 5e-3, f"step {i}: flexlink {losses['flexlink'][i]} vs "
+              f"nccl {losses['nccl'][i]}")
+        lim = 0.05 * max(abs(losses["nccl"][i]), 1.0)
+        check(abs(losses["fp8"][i] - losses["nccl"][i]) <= lim,
+              f"step {i}: fp8 {losses['fp8'][i]} vs nccl "
+              f"{losses['nccl'][i]} beyond {lim}")
+    plans = res[0]["fp8"]["codec_plans"]
+    check(any(p[1] == LM_HEAD_NUMEL for p in plans),
+          f"the lm_head all-reduce carries no codec: {plans}")
+    for op, numel, units, codecs, sub in plans:
+        print(f"phase 11: fp8 codec plan: {op} of {numel} elements: units "
+              f"{units}, codecs {codecs}, substeps {sub}")
+    launches = {name: sum((collections.Counter(r[name]["launches"])
+                           for r in res), collections.Counter())
+                for name, _ in TRAIN_RUNS}
+    print(f"phase 11: flexlink within 5e-3 of nccl a step, fp8 within "
+          f"0.05 max(|loss|, 1); launches over 2 ranks, each the sum over "
+          f"the steps' plans: flexlink {dict(launches['flexlink'])}, fp8 "
+          f"{dict(launches['fp8'])}")
+    calls = set().union(*(r["fp8"]["kernel_calls"] for r in res))
+    return launches, plans, calls
+
+
+# float32 operations each kernel does per element (abs, max, divide and
+# convert for K2; convert and a multiply or fused multiply-add for K3 and
+# K4; a convert for K5; a convert and an add for the mixed K1)
+CODEC_OPS = {"fp8_encode": 4, "fp8_decode_accumulate": 2, "fp8_decode": 2,
+             "bf16_pack": 1, "k1_mixed": 2}
+F32_FLOPS = 67e12
+
+
+def phase12_main_path_check(calls):
+    """Each K2-K5 and mixed K1 wrapper against its plain version at every
+    (length, dtype, format) its kernel was given on the main path: phase
+    11's fp8 training run and phase 10 (c).  Aligned and one element off,
+    NaN and inf groups included: bit for bit, NaN at the same places."""
+    from repro_torch.kernels import chunk_accumulate as ca
+    from repro_torch.kernels import codec, ref
+    gen = torch.Generator(device="cuda").manual_seed(121)
+    stats, lengths = {}, collections.defaultdict(set)
+    for name, n, dtype, fmt in sorted(calls, key=str):
+        x = _codec_input(n + 1, dtype, gen, special=True)
+        b = _codec_input(n + 1, dtype, gen, special=False)
+        for off in (0, 1):
+            xs, bs = x[off:off + n], b[off:off + n]
+            tag = f"{name} {dtype} {fmt} n={n} offset {off} (main path)"
+            if name == "bf16_pack":
+                _same_bits(codec.bf16_pack(xs), ref.bf16_pack_ref(xs), tag,
+                           name, stats)
+                continue
+            if name in ("k1", "k1_mixed"):
+                other = ref.bf16_pack_ref(bs) if name == "k1_mixed" else bs
+                _same_bits(ca.chunk_accumulate(xs, other),
+                           ref.chunk_accumulate_ref(xs, other), tag, name,
+                           stats)
+                continue
+            vals, scales = ref.fp8_encode_ref(xs, fmt=fmt)
+            if name == "fp8_encode":
+                got = codec.fp8_encode(xs, fmt)
+                _same_bits(got[0], vals, tag, name, stats)
+                _same_bits(got[1], scales, tag, name, stats)
+            elif name == "fp8_decode":
+                _same_bits(codec.fp8_decode(vals, scales, fmt, dtype),
+                           ref.fp8_decode_ref(vals, scales, out_dtype=dtype),
+                           tag, name, stats)
+            else:
+                _same_bits(codec.fp8_decode_accumulate(vals, scales, bs, fmt),
+                           ref.fp8_decode_accumulate_ref(vals, scales, bs),
+                           tag, name, stats)
+        lengths[name].add(n)
+        del x, b
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for name in ("fp8_encode", "fp8_decode_accumulate", "fp8_decode",
+                 "bf16_pack", "k1_mixed"):
+        check(lengths[name], f"{name}: no call recorded on the main path")
+    lengths = {k: sorted(v) for k, v in lengths.items()}
+    print(f"phase 12: K2-K5 and the mixed K1 vs plain versions at every "
+          f"length the main path gave them ({lengths}), aligned and one "
+          f"off, NaN and inf groups: "
+          f"bit for bit, NaN at the same places (NaNs with other bits: "
+          f"{stats.get('nan_bits', {})}); max abs err "
+          f"{ {k: v for k, v in stats.items() if k != 'nan_bits'} }")
+    return stats, lengths
+
+
+def phase12_codec_times(card, plans, lengths):
+    key, (mem_bps, _) = card_peaks(card)
+    # K2-K4 at the lm_head gradient all-reduce of phase 11 ([4096, 151552]
+    # bf16): its staged segment, one rank's ring chunk of it, one
+    # sub-chunk; K5 and the mixed K1 at the longest call of their own
+    # path, phase 10 (c)
+    _, numel, units, _, substeps = [p for p in plans
+                                    if p[0] == "all_reduce"
+                                    and p[1] == LM_HEAD_NUMEL][0]
+    sub = numel * dict(units)["staged"] // 16 // 2 // substeps
+    check(sub in lengths["fp8_encode"], f"the lm_head sub-chunk {sub} is "
+          f"not among the fp8 path's lengths {lengths['fp8_encode']}")
+    where = {name: (sub, "one staged sub-chunk of the lm_head gradient "
+                         "all-reduce, phase 11")
+             for name in ("fp8_encode", "fp8_decode_accumulate",
+                          "fp8_decode")}
+    for name in ("bf16_pack", "k1_mixed"):
+        where[name] = (max(lengths[name]), "one staged sub-chunk of the "
+                       "float32 all-reduce of phase 10 (c)")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = collections.defaultdict(dict)
+    for shape_name in ("main", "64MiB"):
+        groups = collections.defaultdict(list)
+        for name in CODEC_OPS:
+            groups[where[name][0] if shape_name == "main"
+                   else 32 * MiB].append(name)
+        for n, names in sorted(groups.items()):
+            _time_codecs(n, names, gen, shape_name, rows, key, mem_bps)
+    for name in CODEC_OPS:
+        rows[name]["main"]["where"] = where[name][1]
+    return rows
+
+
+def _time_codecs(n, names, gen, shape_name, rows, key, mem_bps):
+    """Time the kernels ``names`` at length ``n`` into rows[name][shape]."""
+    from repro_torch.kernels import chunk_accumulate as ca
+    from repro_torch.kernels import codec, ref
+    s = -(-n // 128) * 4
+    # name: (kernel, plain version, one PyTorch call or None, bytes: every
+    # input read once, every output written once); each takes the index
+    # of its operands' copy
+    calls = {
+        "fp8_encode": (lambda i: codec.fp8_encode(xb[i]),
+                       lambda i: ref.fp8_encode_ref(xb[i]), None,
+                       2 * n + n + s),
+        "fp8_decode_accumulate": (
+            lambda i: codec.fp8_decode_accumulate(vals[i], scales[i], bb[i],
+                                                  "fp8_e4m3"),
+            lambda i: ref.fp8_decode_accumulate_ref(vals[i], scales[i],
+                                                    bb[i]),
+            None, n + s + 2 * n + 2 * n),
+        "fp8_decode": (
+            lambda i: codec.fp8_decode(vals[i], scales[i], "fp8_e4m3",
+                                       torch.bfloat16),
+            lambda i: ref.fp8_decode_ref(vals[i], scales[i],
+                                         out_dtype=torch.bfloat16),
+            None, n + s + 2 * n),
+        "bf16_pack": (lambda i: codec.bf16_pack(xf[i]),
+                      lambda i: ref.bf16_pack_ref(xf[i]),
+                      lambda i: xf[i].to(torch.bfloat16), 4 * n + 2 * n),
+        "k1_mixed": (lambda i: ca.chunk_accumulate(xf[i], packed[i]),
+                     lambda i: ref.chunk_accumulate_ref(xf[i], packed[i]),
+                     lambda i: xf[i] + packed[i], 4 * n + 2 * n + 4 * n),
+    }
+    k = rotations(min(calls[name][3] for name in names))
+    xb = [torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+          for _ in range(k)]
+    xf = [torch.randn(n, generator=gen, device="cuda") for _ in range(k)]
+    bb = [torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+          for _ in range(k)]
+    vals, scales = zip(*(ref.fp8_encode_ref(x) for x in xb))
+    packed = [ref.bf16_pack_ref(x) for x in xf]
+    for name in names:
+        kern, plain, lib, nbytes = calls[name]
+        ms = time_ms(kern, sets=k)
+        plain_ms = time_ms(plain, iters=5, warmup=1, sets=k)
+        lib_ms = time_ms(lib, sets=k) if lib is not None else None
+        b_s, f_s = nbytes / mem_bps, CODEC_OPS[name] * n / F32_FLOPS
+        bound_ms = max(b_s, f_s) * 1e3
+        bound_by = "bytes" if b_s >= f_s else "operations"
+        rows[name][shape_name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by, n=n)
+        lib_txt = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        print(f"phase 12: {name} n={n} ({shape_name}): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms{lib_txt}, bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({nbytes} B at {mem_bps / 1e12:.2f} TB/s: "
+              f"{key} datasheet); {bound_ms / ms:.1%} of bound; operands "
+              f"rotated over {k} copies, out of L2")
+    del xb, xf, bb, vals, scales, packed
+    torch.cuda.empty_cache()
+
+
+def _codec_row(name, cuda_name, source, replaces, launches, rows,
+               launches_from, err, err_lengths, lengths):
+    main, big = rows["main"], rows["64MiB"]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_from": launches_from, "max_abs_err": err,
+            "max_abs_err_at": f"the main path's lengths {lengths}, phase 12",
+            "max_abs_err_phase9": err_lengths,
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "shape": f"n={main['n']} ({main['where']})",
+            "n_64MiB": {k: big[k] for k in ("n", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")},
+            "kernel": cuda_name}
 
 
 def main() -> int:
@@ -651,6 +1385,13 @@ def main() -> int:
     k1_launches, plans = phase7_collectives()
     k1_rows = phase8_k1_times(card, plans)
     k1_main, k1_big = k1_rows["b_substep"], k1_rows["chunk_64MiB"]
+    codec_errs = phase9_codecs_vs_plain()
+    bf16_launches, bf16_calls = phase10_codec_collectives()
+    train_launches, train_plans, train_calls = phase11_training()
+    fp8_launches = train_launches["fp8"]
+    path_errs, path_lengths = phase12_main_path_check(train_calls
+                                                      | bf16_calls)
+    codec_rows = phase12_codec_times(card, train_plans, path_lengths)
     kernels = [{
         "name": "paged_flash_decode",
         "route": "cuda",
@@ -684,7 +1425,36 @@ def main() -> int:
                  f"1 GiB all-reduce on 4 ranks)",
         "chunk_64MiB": {k: k1_big[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
+        "launches_train_flexlink": train_launches["flexlink"]["k1"],
+        "mixed_f32_bf16": {
+            "launches": bf16_launches["k1_mixed"],
+            "max_abs_err": path_errs["k1_mixed"],
+            "max_abs_err_at": f"the main path's lengths "
+                              f"{path_lengths['k1_mixed']}, phase 12",
+            "max_abs_err_phase9": codec_errs["k1_mixed"],
+            "launches_from": "phase 10 (c), 4 ranks",
+            **{k: codec_rows["k1_mixed"]["main"][k]
+               for k in ("n", "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "where")},
+            "n_64MiB": {k: codec_rows["k1_mixed"]["64MiB"][k]
+                        for k in ("n", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms")}},
     }]
+    codec_src = "src/repro_torch/kernels/csrc/codec.cu"
+    fp8_from = "phase 11, fp8 training run, 2 ranks"
+    kernels += [
+        _codec_row(name, cuda_name, codec_src,
+                   f"src/repro/kernels/codec.py:{line}", launches[name],
+                   codec_rows[name], launches_from, path_errs[name],
+                   codec_errs[name], path_lengths[name])
+        for name, cuda_name, line, launches, launches_from in (
+            ("fp8_encode", "K2", 80, fp8_launches, fp8_from),
+            ("fp8_decode_accumulate", "K3", 136, fp8_launches, fp8_from),
+            ("fp8_decode", "K4", 110, fp8_launches, fp8_from),
+            ("bf16_pack", "K5", 55, bf16_launches,
+             "phase 10 (c), 4 ranks"))]
+    for row in kernels:
+        check(row["launches"] > 0, f"{row['name']}: no launch on its path")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,140 @@
+"""Checkpointing: flat-keyed .npz checkpoints with step metadata, atomic
+writes, retention, and exact tree-structure restore (params + optimizer
+state).
+
+Port of ``src/repro/checkpoint/checkpointer.py`` with the same file
+layout: one ``ckpt_<step:08d>.npz`` per snapshot whose keys are the
+tree's paths joined by ``/`` (``params/layers/attn/wq``,
+``opt/mu/embed``, ``opt/step``), bf16 leaves stored as their uint16 bit
+patterns under ``<key>@bf16``, and a JSON ``__meta__`` entry.  A
+checkpoint written by either package restores in the other.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import tempfile
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+_SEP = "/"
+
+
+def _to_numpy(t: torch.Tensor) -> Tuple[str, np.ndarray]:
+    """(key suffix, array): bfloat16 as its uint16 bit patterns (npz has
+    no bf16), everything else as it is."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return "@bf16", t.view(torch.int16).numpy().view(np.uint16)
+    return "", t.numpy()
+
+
+def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+    out = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(_flatten(tree[k], f"{prefix}{k}{_SEP}"))
+    elif hasattr(tree, "_fields"):  # NamedTuple — must precede tuple check
+        for k in tree._fields:
+            out.update(_flatten(getattr(tree, k), f"{prefix}{k}{_SEP}"))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}{_SEP}"))
+    else:
+        key = prefix[:-1] if prefix.endswith(_SEP) else prefix
+        suffix, arr = _to_numpy(torch.as_tensor(tree))
+        out[key + suffix] = arr
+    return out
+
+
+def _unflatten_into(template, flat: Dict[str, np.ndarray], prefix=""):
+    if isinstance(template, dict):
+        return {k: _unflatten_into(template[k], flat, f"{prefix}{k}{_SEP}")
+                for k in template}
+    if isinstance(template, (tuple, list)) and not hasattr(template,
+                                                           "_fields"):
+        vals = [_unflatten_into(v, flat, f"{prefix}{i}{_SEP}")
+                for i, v in enumerate(template)]
+        return type(template)(vals)
+    if hasattr(template, "_fields"):
+        vals = {k: _unflatten_into(getattr(template, k), flat,
+                                   f"{prefix}{k}{_SEP}")
+                for k in template._fields}
+        return type(template)(**vals)
+    key = prefix[:-1] if prefix.endswith(_SEP) else prefix
+    if key + "@bf16" in flat:
+        arr = torch.from_numpy(np.array(flat[key + "@bf16"], order="C")
+                               .view(np.int16)).view(torch.bfloat16)
+    else:
+        arr = torch.from_numpy(np.array(flat[key], order="C"))
+    want = torch.as_tensor(template)
+    if tuple(arr.shape) != tuple(want.shape):
+        raise ValueError(f"checkpoint leaf {key}: shape {tuple(arr.shape)}, "
+                         f"the template has {tuple(want.shape)}")
+    return arr.to(device=want.device, dtype=want.dtype)
+
+
+class Checkpointer:
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.dir, f"ckpt_{step:08d}.npz")
+
+    def save(self, step: int, params, opt_state=None,
+             extra: Optional[Dict[str, Any]] = None) -> str:
+        tree = {"params": params}
+        if opt_state is not None:
+            tree["opt"] = opt_state
+        flat = _flatten(tree)
+        meta = {"step": step, "extra": extra or {}}
+        path = self._path(step)
+        fd, tmp = tempfile.mkstemp(dir=self.dir, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, __meta__=json.dumps(meta), **flat)
+            shutil.move(tmp, path)          # atomic within the same fs
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        self._gc()
+        return path
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        for s in steps[: -self.keep] if self.keep else []:
+            os.remove(self._path(s))
+
+    def all_steps(self):
+        out = []
+        for f in os.listdir(self.dir):
+            m = re.fullmatch(r"ckpt_(\d+)\.npz", f)
+            if m:
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, params_template, opt_template=None,
+                step: Optional[int] = None) -> Tuple[Any, Any, Dict]:
+        """New tensors shaped, typed and placed like the templates'."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        with np.load(self._path(step), allow_pickle=False) as z:
+            flat = {k: z[k] for k in z.files if k != "__meta__"}
+            meta = json.loads(str(z["__meta__"]))
+        params = _unflatten_into(params_template, flat, "params" + _SEP)
+        opt = None
+        if opt_template is not None:
+            opt = _unflatten_into(opt_template, flat, "opt" + _SEP)
+        return params, opt, meta

@@ -1,9 +1,12 @@
-"""Parameter carry-over from the JAX reference to the port.
+"""Parameter and optimizer-state carry-over from the JAX reference to the
+port.
 
 No counterpart in ``src/repro/``.  The reference's ``init_params`` tree,
 with every leaf converted to a numpy array (``np.asarray``), becomes the
 port's tree of tensors: the two trees share keys, shapes and the stacked
-[L] layout, so the map is 1:1.  numpy bfloat16 arrays are ``ml_dtypes``
+[L] layout, so the map is 1:1.  The reference's AdamW state
+(``optim/adamw.py``'s ``AdamWState(step, mu, nu)``) maps the same way, so
+a run resumed in the port starts where the reference stands.  numpy bfloat16 arrays are ``ml_dtypes``
 arrays, which ``torch.from_numpy`` rejects; they cross as their raw 16-bit
 patterns (``.view(np.uint16)`` then ``.view(torch.bfloat16)``), which is
 exact.
@@ -30,3 +33,12 @@ def params_from_reference(tree, device=None):
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def opt_state_from_reference(state, device=None):
+    """The reference's ``AdamWState`` (leaves as numpy arrays) -> the
+    port's; the step counter stays a scalar on the host."""
+    from repro_torch.optim.adamw import AdamWState
+    return AdamWState(step=tensor_from_numpy(np.asarray(state.step)),
+                      mu=params_from_reference(state.mu, device),
+                      nu=params_from_reference(state.nu, device))

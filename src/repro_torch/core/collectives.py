@@ -31,15 +31,28 @@ path's sums run in gloo's or NCCL's order, not XLA's, so mixed plans agree
 with the reference exactly only on payloads whose sums are exact (small
 integers, DESIGN.md §9).
 
-The wire codecs of the reference (``codec=``, DESIGN.md §12) are not
-ported yet: a non-empty codec raises (ROADMAP queue 1 item 10).
+Wire codecs (``codec=``, DESIGN.md §12) compress the secondary routes'
+hops: encode (K2 fp8, or K5 bf16 pack) -> permute the wire payload ->
+decode, with the fp8 decode fused into the staged reduce (K3) and the
+bf16 pack's decode being K1 itself.  The fp8 values cross the wire as
+uint8 and their float32 scales ride the same point-to-point batch.  The
+compressed all-gather encodes each row ONCE at its source and forwards
+the payload unchanged; every rank decodes every row, its own included,
+so the gathered rows are equal on every rank.  These composites are
+forward only: the reference's straight-through VJPs
+(collectives.py:198, 227, 272) come with the differentiable mesh
+collectives of the tensor-parallel slice (ROADMAP queue 1 item 7b); the
+data-parallel step never differentiates through a collective.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Mapping, Sequence, Tuple
 
 import torch
+
+from repro_torch.kernels import ops as kops
 
 #: payload partition granularity (chunks); shares in grid units are mapped
 #: onto this chunk grid.
@@ -49,13 +62,6 @@ PATH_PRIMARY = "primary"
 PATH_STAGED = "staged"
 PATH_ORTHO = "ortho"
 PATH_ORDER = (PATH_PRIMARY, PATH_STAGED, PATH_ORTHO)
-
-
-def _no_codec(codec: str) -> None:
-    if codec:
-        raise NotImplementedError(
-            f"wire codec {codec!r}: compressed secondary paths are not "
-            f"ported yet (ROADMAP queue 1 item 10)")
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +160,52 @@ def merge_columns(segs: Mapping[str, torch.Tensor], order: Sequence[str],
 
 
 # ---------------------------------------------------------------------------
+# wire-codec composites (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+
+_FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def _permute_wire(mesh, payloads, axis: str, send_to: int, recv_from: int):
+    """One permute step for wire payloads ``[(values, scales or None)]``:
+    every tensor of every payload is posted in one point-to-point batch,
+    fp8 values as uint8 (the wire has no fp8 type)."""
+    tensors = []
+    for vals, scales in payloads:
+        tensors.append(vals.view(torch.uint8) if vals.dtype in _FP8
+                       else vals)
+        if scales is not None:
+            tensors.append(scales)
+    got = iter(mesh.permute(tensors, axis, send_to, recv_from))
+    return [(next(got).view(vals.dtype),
+             None if scales is None else next(got))
+            for vals, scales in payloads]
+
+
+def _codec_permute(x: torch.Tensor, mesh, axis: str, send_to: int,
+                   recv_from: int, codec: str) -> torch.Tensor:
+    """Permute ``x`` through the wire codec: the encoded values (and
+    scales) cross the link; the receiver decodes to x's shape/dtype."""
+    payload = kops.wire_encode(x, codec_name=codec)
+    ((vals, scales),) = _permute_wire(mesh, [payload], axis, send_to,
+                                      recv_from)
+    return kops.wire_decode(vals, scales, codec_name=codec, shape=x.shape,
+                            dtype=x.dtype)
+
+
+def _codec_permute_accumulate(curs, mines, mesh, axis: str, send_to: int,
+                              recv_from: int, codec: str):
+    """One compressed ring-reduce step for every sub-chunk at once: each
+    running partial crosses the link encoded, and the receiver decodes it
+    and accumulates its local chunk in one fused kernel (float32
+    accumulation, rounded to the local chunk's dtype)."""
+    payloads = [kops.wire_encode(c, codec_name=codec) for c in curs]
+    moved = _permute_wire(mesh, payloads, axis, send_to, recv_from)
+    return [kops.wire_decode_accumulate(vals, scales, mine, codec_name=codec)
+            for (vals, scales), mine in zip(moved, mines)]
+
+
+# ---------------------------------------------------------------------------
 # staged-path primitives: chunk-pipelined point-to-point rings
 # ---------------------------------------------------------------------------
 
@@ -180,18 +232,29 @@ def ring_all_gather(x: torch.Tensor, mesh, axis: str, *,
     """All-gather via N-1 permute steps; result ordered by rank like
     ``lax.all_gather(x, axis, tiled=False)`` (leading axis = rank).
     ``substeps > 1`` forwards sub-chunks independently each step (pure data
-    movement: bit-identical for any substeps)."""
-    _no_codec(codec)
+    movement: bit-identical for any substeps).  ``codec`` encodes each
+    sub-chunk once at its source and forwards the wire payload unchanged;
+    every rank decodes every row, its own included."""
     n = mesh.axis_size(axis)
     idx = mesh.axis_index(axis)
     subs, pad, s = _split_subchunks(x.reshape(-1), substeps)
-    collected = [[sub] for sub in subs]
-    curs = list(subs)
+    if codec:
+        curs = [kops.wire_encode(sub, codec_name=codec) for sub in subs]
+        send = functools.partial(_permute_wire, mesh)
+    else:
+        curs = list(subs)
+        send = mesh.permute
+    collected = [[c] for c in curs]
     for _ in range(n - 1):
         # every sub-chunk's transfer of this ring step is posted at once
-        curs = mesh.permute(curs, axis, idx + 1, idx - 1)
+        curs = send(curs, axis, idx + 1, idx - 1)
         for j in range(s):
             collected[j].append(curs[j])
+    if codec:
+        collected = [[kops.wire_decode(v, sc, codec_name=codec,
+                                       shape=sub.shape, dtype=sub.dtype)
+                      for v, sc in col]
+                     for col, sub in zip(collected, subs)]
     rows = torch.cat([torch.stack(c) for c in collected], dim=1)
     rows = _by_rank(rows, idx, n)
     if pad:
@@ -206,8 +269,10 @@ def ring_reduce_scatter(x: torch.Tensor, mesh, axis: str, accumulate=None,
     `x` has leading dim divisible by N; returns this rank's reduced chunk.
     `accumulate(a, b)` is the per-step reduce — ``a + b`` when None; the
     routing layer injects K1 ``chunk_accumulate`` for sub-32-bit floats.
+    ``codec`` sends each running partial encoded and replaces the
+    accumulate with the fused decode-accumulate: the local chunks still
+    enter at full precision, only the partials in flight are quantized.
     """
-    _no_codec(codec)
     if accumulate is None:
         accumulate = lambda a, b: a + b  # noqa: E731
     n = mesh.axis_size(axis)
@@ -222,6 +287,10 @@ def ring_reduce_scatter(x: torch.Tensor, mesh, axis: str, accumulate=None,
         # double buffer: all sub-chunk sends of this ring step are posted
         # before any reduce
         mines = [sub[(idx - step - 2) % n] for sub in subs]
+        if codec:
+            curs = _codec_permute_accumulate(curs, mines, mesh, axis,
+                                             idx + 1, idx - 1, codec)
+            continue
         recvd = mesh.permute(curs, axis, idx + 1, idx - 1)
         curs = [accumulate(r, mine) for r, mine in zip(recvd, mines)]
     out = torch.cat(curs) if s > 1 else curs[0]
@@ -247,8 +316,8 @@ def ring_all_reduce(x: torch.Tensor, mesh, axis: str, accumulate=None, *,
 
 def ring_all_to_all(x: torch.Tensor, mesh, axis: str, *,
                     codec: str = "") -> torch.Tensor:
-    """all-to-all via N-1 rotations (tiled semantics, axis 0)."""
-    _no_codec(codec)
+    """all-to-all via N-1 rotations (tiled semantics, axis 0).  ``codec``
+    compresses each rotation's transfer; the resident block stays exact."""
     n = mesh.axis_size(axis)
     idx = mesh.axis_index(axis)
     chunk = x.shape[0] // n
@@ -257,8 +326,12 @@ def ring_all_to_all(x: torch.Tensor, mesh, axis: str, *,
     # rank idx-s holds for us
     received = [blocks[idx]]
     for s in range(1, n):
-        received += mesh.permute([blocks[(idx + s) % n]], axis, idx + s,
-                                 idx - s)
+        send = blocks[(idx + s) % n]
+        if codec:
+            received.append(_codec_permute(send, mesh, axis, idx + s,
+                                           idx - s, codec))
+        else:
+            received += mesh.permute([send], axis, idx + s, idx - s)
     out = _by_rank(torch.stack(received), idx, n)
     return out.reshape((n * chunk,) + tuple(x.shape[1:]))
 
@@ -266,8 +339,8 @@ def ring_all_to_all(x: torch.Tensor, mesh, axis: str, *,
 def tree_all_reduce(x: torch.Tensor, mesh, axis: str, *,
                     codec: str = "") -> torch.Tensor:
     """All-reduce via recursive doubling: log2(N) butterfly steps.
-    Requires power-of-two N."""
-    _no_codec(codec)
+    Requires power-of-two N.  ``codec`` compresses each butterfly
+    exchange (the local operand stays exact)."""
     n = mesh.axis_size(axis)
     if n & (n - 1):
         raise ValueError("recursive doubling needs power-of-two ranks")
@@ -275,7 +348,11 @@ def tree_all_reduce(x: torch.Tensor, mesh, axis: str, *,
     k = 0
     while (1 << k) < n:
         partner = idx ^ (1 << k)
-        x = x + mesh.permute([x], axis, partner, partner)[0]
+        if codec:
+            (x,) = _codec_permute_accumulate([x], [x], mesh, axis, partner,
+                                             partner, codec)
+        else:
+            x = x + mesh.permute([x], axis, partner, partner)[0]
         k += 1
     return x
 
@@ -284,28 +361,34 @@ def tree_all_reduce(x: torch.Tensor, mesh, axis: str, *,
 # ortho-route primitives
 # ---------------------------------------------------------------------------
 
-def _detour(x: torch.Tensor, mesh, ortho: str, native) -> torch.Tensor:
+def _detour(x: torch.Tensor, mesh, ortho: str, native,
+            codec: str) -> torch.Tensor:
     """Permute one hop along ``ortho``, run ``native`` on the neighbour
-    row, permute back.  The operands never mix between ortho rows, so the
-    result is exact for any sharding across the ortho axis."""
+    row, permute back (both hops through ``codec`` when one is given).
+    The operands never mix between ortho rows, so the result is exact for
+    any sharding across the ortho axis."""
     j = mesh.axis_index(ortho)
-    guest = mesh.permute([x], ortho, j + 1, j - 1)[0]
-    return mesh.permute([native(guest)], ortho, j - 1, j + 1)[0]
+
+    def hop(y, send_to, recv_from):
+        if codec:
+            return _codec_permute(y, mesh, ortho, send_to, recv_from, codec)
+        return mesh.permute([y], ortho, send_to, recv_from)[0]
+
+    return hop(native(hop(x, j + 1, j - 1)), j - 1, j + 1)
 
 
 def ortho_all_gather(x: torch.Tensor, mesh, axis: str, ortho: str, *,
                      codec: str = "") -> torch.Tensor:
     """Gather over `axis` routing the payload via `ortho` links."""
-    _no_codec(codec)
     if mesh.axis_size(ortho) <= 1:
         return mesh.all_gather(x, axis)
-    return _detour(x, mesh, ortho, lambda g: mesh.all_gather(g, axis))
+    return _detour(x, mesh, ortho, lambda g: mesh.all_gather(g, axis), codec)
 
 
 def ortho_all_reduce(x: torch.Tensor, mesh, axis: str, ortho: str, *,
                      codec: str = "") -> torch.Tensor:
-    """All-reduce over `axis` via the neighbour-row detour."""
-    _no_codec(codec)
+    """All-reduce over `axis` via the neighbour-row detour (the two hops
+    carry encoded payloads under ``codec``; the reduce itself is native)."""
     if mesh.axis_size(ortho) <= 1:
         return mesh.all_reduce(x, axis)
-    return _detour(x, mesh, ortho, lambda g: mesh.all_reduce(g, axis))
+    return _detour(x, mesh, ortho, lambda g: mesh.all_reduce(g, axis), codec)

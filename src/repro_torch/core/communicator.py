@@ -12,9 +12,10 @@ the reference holds an axis name.  Every rank must then reach the same
 plan for the same call, or the ring deadlocks: the ``sim`` timing source
 is seeded alike on every rank, and under ``timing="measured"`` each
 step's wall time is max-reduced over the ranks the plans span before the
-balancer sees it (:meth:`FlexCommunicator.observe_recorders`).  The wire
-codecs (``compress``) are not ported yet and raise (ROADMAP queue 1
-item 10).
+balancer sees it (:meth:`FlexCommunicator.observe_recorders`).  With
+``compress`` the timing model chooses per slot which secondary routes
+carry a wire codec; the plan names it and the data plane runs the codec
+kernels (core/collectives.py, K2-K5).
 
 The communicator is the DATA plane plus its recorders; the CONTROL plane
 lives in ``repro.control`` (DESIGN.md §8) and is delegated to:
@@ -278,10 +279,6 @@ class FlexCommunicator:
             raise ValueError(f"axis {axis_name!r} spans "
                              f"{mesh.axis_size(axis_name)} ranks, not "
                              f"{n_ranks}")
-        if self.config.compress:
-            raise NotImplementedError(
-                f"compress={self.config.compress!r}: compressed secondary "
-                f"paths are not ported yet (ROADMAP queue 1 item 10)")
         self.profile: NodeProfile = PROFILES[self.config.profile]
         #: the profile name that keys slot lookups and save_tuning; the
         #: reference moves it on live fabric transitions, which come with

@@ -7,13 +7,16 @@ low bits across N-1 sequential steps.  The kernel is CUDA C++ in
 ``csrc/chunk_accumulate.cu`` (its header says what bounds it and what its
 design does about that); this module builds it on first use
 (``kernels/_nvcc.py``), loads it with ``ctypes`` and launches it on
-PyTorch's current stream.  The plain PyTorch version is
-``kernels/ref.py::chunk_accumulate_ref``; the dispatcher
-``kernels/ops.py::accumulate`` picks it for CPU tensors.
+PyTorch's current stream.  The same pass takes a float32 ``a`` with a
+bfloat16 ``b``: the decode of the ``bf16_pack`` wire codec (reference
+``kernels/ops.py:139``).  The plain
+PyTorch version is ``kernels/ref.py::chunk_accumulate_ref``; the
+dispatcher ``kernels/ops.py::accumulate`` picks it for CPU tensors.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import pathlib
 from typing import Optional, Tuple
@@ -26,10 +29,14 @@ SOURCE = (pathlib.Path(__file__).resolve().parent / "csrc"
           / "chunk_accumulate.cu")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: kernel launches since the last reset; the wrapper adds one per launch
-#: and nowhere else (chip_smoke.py reads it to prove the staged ring ran
-#: through the kernel)
-launch_count = 0
+#: the one pair of operand dtypes that differ: a float32 local chunk plus
+#: a received bf16_pack chunk (the reference's ops.py:139), out float32
+MIXED = (torch.float32, torch.bfloat16)
+
+#: kernel launches since the last reset, by (a dtype, b dtype); the
+#: wrapper adds one per launch and nowhere else (chip_smoke.py reads it
+#: to prove the staged ring ran through the kernel)
+launch_count: collections.Counter = collections.Counter()
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -46,7 +53,7 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()[0]))
         p = ctypes.c_void_p
         lib.ca_chunk_accumulate.argtypes = [p, p, p, ctypes.c_int64,
-                                            ctypes.c_int, p]
+                                            ctypes.c_int, ctypes.c_int, p]
         lib.ca_chunk_accumulate.restype = ctypes.c_int
         lib.ca_error_string.argtypes = [ctypes.c_int]
         lib.ca_error_string.restype = ctypes.c_char_p
@@ -62,17 +69,18 @@ def _check(cond: bool, msg: str) -> None:
 def chunk_accumulate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(a.float() + b.float()).to(a.dtype)`` on the card, any shape.
 
-    a, b : contiguous CUDA tensors of one shape and one dtype (float32,
-           bfloat16 or float16) on one device
+    a, b : contiguous CUDA tensors of one shape on one device, of one
+           dtype (float32, bfloat16 or float16) or a float32 ``a`` with a
+           bfloat16 ``b``
     returns a new tensor of a's shape and dtype
 
     Anything else raises."""
-    global launch_count
     _check(a.is_cuda and b.is_cuda, "both inputs must be on CUDA")
     _check(a.device == b.device, "inputs on two devices")
     _check(a.dtype in _DTYPE_CODES, f"dtype {a.dtype} not float32/bfloat16/"
            f"float16")
-    _check(b.dtype == a.dtype, f"dtypes differ: {a.dtype} and {b.dtype}")
+    _check(b.dtype == a.dtype or (a.dtype, b.dtype) == MIXED,
+           f"dtypes differ: {a.dtype} and {b.dtype}")
     _check(a.shape == b.shape, f"shapes differ: {tuple(a.shape)} and "
            f"{tuple(b.shape)}")
     _check(a.is_contiguous() and b.is_contiguous(), "non-contiguous input")
@@ -84,10 +92,11 @@ def chunk_accumulate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.ca_chunk_accumulate(a.data_ptr(), b.data_ptr(),
                                       out.data_ptr(), a.numel(),
-                                      _DTYPE_CODES[a.dtype], stream)
+                                      _DTYPE_CODES[a.dtype],
+                                      _DTYPE_CODES[b.dtype], stream)
     if err != 0:
         raise RuntimeError("chunk_accumulate launch failed: "
                            f"{lib.ca_error_string(err).decode()} "
-                           f"(n={a.numel()}, dtype={a.dtype})")
-    launch_count += 1
+                           f"(n={a.numel()}, dtypes {a.dtype}, {b.dtype})")
+    launch_count[a.dtype, b.dtype] += 1
     return out

@@ -6,6 +6,10 @@
 // with an fp32 accumulator and one round-to-nearest-even back to the
 // payload type T (float32, bfloat16 or float16) per ring step.
 //
+// The same pass also takes a float32 ``a`` with a bfloat16 ``b`` (out
+// float32): the decode of the bf16_pack wire codec, where the local fp32
+// chunk meets the received bf16 one (src/repro/kernels/ops.py:139).
+//
 // Layout.  a, b and out are flat contiguous arrays of n elements.  The TPU
 // kernel needed [rows % 8 == 0, cols % 128 == 0] tiles (ops._pad_2d); here
 // a grid-stride loop takes any n, so the wrapper hands over the flat chunk
@@ -14,11 +18,12 @@
 // Bound.  One add per element against 3 x sizeof(T) bytes moved (two reads
 // and one write): far below the H100's ridge, so the kernel is bound by
 // device-memory bytes.  What this version does about it: each thread moves
-// 16 bytes per operand per iteration (uint4 loads and stores, 8 bf16/f16 or
-// 4 f32 values), neighbouring threads on neighbouring 16-byte words, and
-// the grid is sized to a few waves of the 132 SMs so the loop, not the
-// launch, covers long chunks.  Pointers that are not 16-byte aligned (a
-// sub-chunk sliced at an odd offset) take the scalar loop instead.
+// 16 bytes of a and of out per iteration (uint4 loads and stores, 8
+// bf16/f16 or 4 f32 values) and the matching 16 or 8 bytes of b,
+// neighbouring threads on neighbouring words, and the grid is sized to a
+// few waves of the 132 SMs so the loop, not the launch, covers long
+// chunks.  Pointers not aligned to their words (a sub-chunk sliced at an
+// odd offset) take the scalar loop instead.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -49,41 +54,51 @@ __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
 }
 
-template <typename T>
-__device__ __forceinline__ T add_f32(T a, T b) {
-  return from_f32<T>(to_f32(a) + to_f32(b));
+// the accumulate in the first operand's type: TA(float(a) + float(b))
+template <typename TA, typename TB>
+__device__ __forceinline__ TA add_f32(TA a, TB b) {
+  return from_f32<TA>(to_f32(a) + to_f32(b));
 }
 
-// 16-byte vector path: every pointer 16-byte aligned.  Elements past the
-// last whole vector are done by the scalar tail loop in the same kernel.
-template <typename T>
-__global__ void accum_vec16(const T* __restrict__ a, const T* __restrict__ b,
-                            T* __restrict__ out, int64_t n) {
-  constexpr int kVec = 16 / sizeof(T);
+// a word of N bytes, loaded and stored as one vector access
+template <int N> struct Word;
+template <> struct Word<16> { using type = uint4; };
+template <> struct Word<8> { using type = uint2; };
+
+// Vector path: 16 bytes of a and out per thread and step (kVec elements),
+// and the kVec elements of b as one 16- or 8-byte word; every pointer
+// aligned to its word.  Elements past the last whole vector are done by
+// the scalar tail loop in the same kernel.
+template <typename TA, typename TB>
+__global__ void accum_vec(const TA* __restrict__ a, const TB* __restrict__ b,
+                          TA* __restrict__ out, int64_t n) {
+  constexpr int kVec = 16 / sizeof(TA);
+  using WordA = typename Word<16>::type;
+  using WordB = typename Word<int(kVec * sizeof(TB))>::type;
   const int64_t n_vec = n / kVec;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const uint4* a4 = reinterpret_cast<const uint4*>(a);
-  const uint4* b4 = reinterpret_cast<const uint4*>(b);
-  uint4* o4 = reinterpret_cast<uint4*>(out);
+  const WordA* aw = reinterpret_cast<const WordA*>(a);
+  const WordB* bw = reinterpret_cast<const WordB*>(b);
+  WordA* ow = reinterpret_cast<WordA*>(out);
   for (int64_t v = tid; v < n_vec; v += stride) {
-    uint4 av = a4[v];
-    uint4 bv = b4[v];
-    uint4 ov;
-    const T* ae = reinterpret_cast<const T*>(&av);
-    const T* be = reinterpret_cast<const T*>(&bv);
-    T* oe = reinterpret_cast<T*>(&ov);
+    WordA av = aw[v];
+    WordB bv = bw[v];
+    WordA ov;
+    const TA* ae = reinterpret_cast<const TA*>(&av);
+    const TB* be = reinterpret_cast<const TB*>(&bv);
+    TA* oe = reinterpret_cast<TA*>(&ov);
 #pragma unroll
     for (int k = 0; k < kVec; ++k) oe[k] = add_f32(ae[k], be[k]);
-    o4[v] = ov;
+    ow[v] = ov;
   }
   for (int64_t i = n_vec * kVec + tid; i < n; i += stride)
     out[i] = add_f32(a[i], b[i]);
 }
 
-template <typename T>
-__global__ void accum_scalar(const T* __restrict__ a,
-                             const T* __restrict__ b, T* __restrict__ out,
+template <typename TA, typename TB>
+__global__ void accum_scalar(const TA* __restrict__ a,
+                             const TB* __restrict__ b, TA* __restrict__ out,
                              int64_t n) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -91,23 +106,26 @@ __global__ void accum_scalar(const T* __restrict__ a,
     out[i] = add_f32(a[i], b[i]);
 }
 
-template <typename T>
+template <typename TA, typename TB>
 int launch(const void* a, const void* b, void* out, int64_t n,
            cudaStream_t stream) {
+  constexpr int64_t kVec = 16 / sizeof(TA);
+  constexpr uintptr_t kBAlign = kVec * sizeof(TB) - 1;
   const bool aligned = ((reinterpret_cast<uintptr_t>(a) |
-                         reinterpret_cast<uintptr_t>(b) |
-                         reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  const int64_t per_thread = aligned ? 16 / (int64_t)sizeof(T) : 1;
+                         reinterpret_cast<uintptr_t>(out)) & 15) == 0 &&
+                       (reinterpret_cast<uintptr_t>(b) & kBAlign) == 0;
+  const int64_t per_thread = aligned ? kVec : 1;
   int64_t blocks = (n / per_thread + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const T* ta = static_cast<const T*>(a);
-  const T* tb = static_cast<const T*>(b);
-  T* to = static_cast<T*>(out);
+  const TA* ta = static_cast<const TA*>(a);
+  const TB* tb = static_cast<const TB*>(b);
+  TA* to = static_cast<TA*>(out);
   if (aligned)
-    accum_vec16<T><<<(int)blocks, kThreads, 0, stream>>>(ta, tb, to, n);
+    accum_vec<TA, TB><<<(int)blocks, kThreads, 0, stream>>>(ta, tb, to, n);
   else
-    accum_scalar<T><<<(int)blocks, kThreads, 0, stream>>>(ta, tb, to, n);
+    accum_scalar<TA, TB><<<(int)blocks, kThreads, 0, stream>>>(ta, tb, to,
+                                                               n);
   return (int)cudaGetLastError();
 }
 
@@ -115,17 +133,19 @@ int launch(const void* a, const void* b, void* out, int64_t n,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  n >= 1 elements.
-// Returns a cudaError_t (0 on success); cudaErrorInvalidValue for a dtype
-// code or length the kernel does not take.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  The operands
+// share a dtype, or a is float32 and b bfloat16; out has a's dtype.  n >= 1
+// elements.  Returns a cudaError_t (0 on success); cudaErrorInvalidValue
+// for a dtype pair or length the kernel does not take.
 int ca_chunk_accumulate(const void* a, const void* b, void* out, int64_t n,
-                        int dtype, void* stream) {
+                        int a_dtype, int b_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < 1) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return launch<float>(a, b, out, n, s);
-    case 1: return launch<__nv_bfloat16>(a, b, out, n, s);
-    case 2: return launch<__half>(a, b, out, n, s);
+  switch (a_dtype * 3 + b_dtype) {
+    case 0: return launch<float, float>(a, b, out, n, s);
+    case 4: return launch<__nv_bfloat16, __nv_bfloat16>(a, b, out, n, s);
+    case 8: return launch<__half, __half>(a, b, out, n, s);
+    case 1: return launch<float, __nv_bfloat16>(a, b, out, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

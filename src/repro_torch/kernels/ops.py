@@ -15,16 +15,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import chunk_accumulate as _ca
+from repro_torch.kernels import codec as _codec
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ref
+
+def _cuda_only(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {x.device}")
 
 
 def _accumulate_impl(a: torch.Tensor, b: torch.Tensor,
                      acc_dtype) -> torch.Tensor:
     if a.device.type == "cpu":
         return ref.chunk_accumulate_ref(a, b, acc_dtype=acc_dtype)
-    if a.device.type != "cuda":
-        raise ValueError(f"accumulate: no kernel for {a.device}")
+    _cuda_only(a, "accumulate")
     if acc_dtype != torch.float32:
         raise ValueError(f"accumulate: the kernel accumulates in float32, "
                          f"not {acc_dtype}")
@@ -34,22 +38,25 @@ def _accumulate_impl(a: torch.Tensor, b: torch.Tensor,
 class _Accumulate(torch.autograd.Function):
     """``a + b`` through the ring-step kernel.  d(a + b)/da = d(a + b)/db
     = identity: the cotangent passes to both operands unchanged (the
-    reference's ``_accumulate`` custom_vjp)."""
+    reference's ``_accumulate`` custom_vjp), in each operand's dtype."""
 
     @staticmethod
     def forward(ctx, a, b, acc_dtype):
+        ctx.b_dtype = b.dtype
         return _accumulate_impl(a, b, acc_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g, g, None
+        return g, g.to(ctx.b_dtype), None
 
 
 def accumulate(a: torch.Tensor, b: torch.Tensor, *,
                acc_dtype=torch.float32) -> torch.Tensor:
     """Ring-step accumulate for chunks of any shape: a + b in
-    ``acc_dtype``, rounded to a's dtype."""
-    if a.shape != b.shape or a.dtype != b.dtype:
+    ``acc_dtype``, rounded to a's dtype.  The operands share a dtype, or
+    are a float32 ``a`` and a bfloat16 ``b``."""
+    if a.shape != b.shape or (a.dtype != b.dtype
+                              and (a.dtype, b.dtype) != _ca.MIXED):
         raise ValueError(f"accumulate: operands differ: {tuple(a.shape)} "
                          f"{a.dtype} and {tuple(b.shape)} {b.dtype}")
     return _Accumulate.apply(a, b, acc_dtype)
@@ -59,6 +66,64 @@ def ring_accumulate_fn(acc_dtype=torch.float32):
     """An ``accumulate(a, b)`` closure for collectives.ring_reduce_scatter /
     ring_all_reduce — this is how the kernel plugs into the staged path."""
     return lambda a, b: accumulate(a, b, acc_dtype=acc_dtype)
+
+
+# -- wire codecs (DESIGN.md §12) ----------------------------------------------
+#
+# The flat-payload face of kernels/codec.py: a chunk of any shape is
+# encoded to its wire form (fp8 values [n] plus one float32 scale per 128
+# elements, or a bf16 half-width pack [n]) and decoded, plain or fused
+# into the ring-step accumulate.  No gradient flows through these: the
+# data-parallel step reduces gradients that are already computed.
+
+def wire_encode(x: torch.Tensor, *, codec_name: str):
+    """Encode a chunk for the wire -> (values [n], scales or None)."""
+    flat = x.reshape(-1)
+    if x.device.type == "cpu":
+        if codec_name == "bf16_pack":
+            return ref.bf16_pack_ref(flat), None
+        return ref.fp8_encode_ref(flat, fmt=codec_name)
+    _cuda_only(x, "wire_encode")
+    flat = flat.contiguous()
+    if codec_name == "bf16_pack":
+        return _codec.bf16_pack(flat), None
+    return _codec.fp8_encode(flat, codec_name)
+
+
+def wire_decode(vals: torch.Tensor, scales, *, codec_name: str, shape,
+                dtype) -> torch.Tensor:
+    """Decode a wire payload back to ``shape``/``dtype``.  The bf16 pack
+    decodes by a plain cast, as the reference's does."""
+    if codec_name == "bf16_pack":
+        out = vals.to(dtype)
+    elif vals.device.type == "cpu":
+        out = ref.fp8_decode_ref(vals, scales, out_dtype=dtype)
+    else:
+        _cuda_only(vals, "wire_decode")
+        out = _codec.fp8_decode(vals, scales, codec_name, dtype)
+    return out.reshape(shape)
+
+
+def wire_decode_accumulate(vals: torch.Tensor, scales, mine: torch.Tensor,
+                           *, codec_name: str) -> torch.Tensor:
+    """Fused ring-step decompress: ``dequant(vals[, scales]) + mine`` in
+    float32, rounded to mine's dtype.  The bf16 pack feeds K1 directly
+    (mixed float32 + bfloat16 when ``mine`` is float32); fp8 runs K3."""
+    if codec_name == "bf16_pack":
+        return accumulate(mine, vals.reshape(mine.shape))
+    if mine.device.type == "cpu":
+        return ref.fp8_decode_accumulate_ref(vals, scales, mine)
+    _cuda_only(mine, "wire_decode_accumulate")
+    return _codec.fp8_decode_accumulate(vals, scales, mine.contiguous(),
+                                        codec_name).reshape(mine.shape)
+
+
+def wire_roundtrip(x: torch.Tensor, *, codec_name: str) -> torch.Tensor:
+    """encode -> decode, same shape and dtype: the quantization a chunk
+    suffers on the wire."""
+    vals, scales = wire_encode(x, codec_name=codec_name)
+    return wire_decode(vals, scales, codec_name=codec_name, shape=x.shape,
+                       dtype=x.dtype)
 
 
 def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,

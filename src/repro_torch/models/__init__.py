@@ -1,9 +1,9 @@
-"""Port of ``src/repro/models/__init__.py`` (the serving slice's names)."""
+"""Port of ``src/repro/models/__init__.py`` (the ported slices' names)."""
 
 from repro_torch.models.config import (ArchConfig, MoEConfig, SSMConfig,
                                        HybridConfig, EncDecConfig, VLMConfig)
 from repro_torch.models.tp import ParallelCtx, single_device_ctx
 from repro_torch.models.transformer import (DecodeConfig, PagedConfig,
-                                            decode_step, init_cache,
+                                            decode_step, forward, init_cache,
                                             init_paged_pool, init_params,
-                                            paged_decode_step)
+                                            lm_loss, paged_decode_step)

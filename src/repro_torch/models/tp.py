@@ -10,12 +10,15 @@ and takes that axis's :class:`FlexCommunicator` from the memoized
 all-reduce and the program API (``register_program``, ``recording``,
 ``observe_program``, ``plan_signature``, ``comm_report``,
 ``tuning_status``, ``save_tuning_profile``) reads and feeds that
-communicator as the reference's does.  Issue scopes for in-flight
-gradient buckets come with the bucketer (ROADMAP queue 1 item 8).
+communicator as the reference's does.  ``metrics_reduce`` sums the step's
+metrics over the data axis in one small all-reduce, and
+``ef_codec_name`` / ``ef_active_for`` answer whether a gradient reduce
+crosses a lossy wire codec.  Issue scopes for in-flight gradient buckets
+come with the bucketer (ROADMAP queue 1 item 8).
 
 Still raising, each with the ROADMAP queue 1 item that lifts it: a tensor
-axis wider than 1 (item 7 trains with it, item 11 serves with it), a node
-axis (item 12) and a pod axis (item 14).
+axis wider than 1 (item 7b trains with it, item 11 serves with it), a
+node axis (item 12) and a pod axis (item 14).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from repro_torch.core.communicator import (CommConfig, FlexCommunicator,
                                            comm_init_rank)
 
 _LATER = (("tp_size", "a tensor-parallel axis wider than 1 is not ported "
-           "yet (ROADMAP queue 1 item 7 for training, item 11 for "
+           "yet (ROADMAP queue 1 item 7b for training, item 11 for "
            "serving)"),
           ("node_size", "a node axis is not ported yet (ROADMAP queue 1 "
            "item 12)"),
@@ -142,6 +145,28 @@ class ParallelCtx:
     def comm_report(self) -> Dict[str, object]:
         return {c.axis_name: c.report() for c in self.comms()}
 
+    def ef_codec_name(self, payload_dtype: str = "float32") -> str:
+        """The wire codec the comm config enables that loses bits for
+        ``payload_dtype`` gradient payloads ("" when compression is off or
+        exact for that dtype): whether error-feedback residuals exist."""
+        from repro_torch.core.codecs import lossy_codec_name
+        return lossy_codec_name(self.comm_config.compress, payload_dtype)
+
+    def ef_active_for(self, nbytes: int, dtype, expert: bool = False) -> bool:
+        """Does the reduce of one gradient bucket of ``nbytes`` traverse a
+        wire codec that loses bits for ``dtype``?  Queries the codec
+        choice of the slot the data-axis all-reduce uses; expert grads
+        never cross a codec."""
+        from repro_torch.core.codecs import get_codec
+        from repro_torch.core.communicator import bucket_for
+        from repro_torch.core.topology import Collective
+        if expert or self._dp_comm is None:
+            return False
+        name = str(dtype).removeprefix("torch.")
+        slot = self._dp_comm.slot(Collective.ALL_REDUCE, bucket_for(nbytes))
+        return any(not get_codec(c).lossless_for(name)
+                   for c in slot.codecs.values())
+
     # -- tensor-parallel collectives (identity without a tensor axis) ---------
 
     def tp_all_reduce(self, x: torch.Tensor) -> torch.Tensor:
@@ -154,10 +179,36 @@ class ParallelCtx:
 
     def grad_all_reduce(self, grads):
         """Sum every tensor of the ``grads`` tree over the data axis through
-        the FlexLink communicator (the identity on one device)."""
-        if self._dp_comm is None:
-            return grads
-        return pytree.tree_map(self._dp_comm.all_reduce, grads)
+        the FlexLink communicator (the identity on one device); a data
+        axis without a communicator takes the mesh's plain all-reduce."""
+        if self._dp_comm is not None:
+            return pytree.tree_map(self._dp_comm.all_reduce, grads)
+        if self.dp_axis and self.dp_size > 1:
+            return pytree.tree_map(
+                lambda g: self.mesh.all_reduce(g, self.dp_axis), grads)
+        return grads
+
+    def metrics_reduce(self, sums: Dict[str, torch.Tensor],
+                       means: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """ONE small all-reduce of every step metric stacked in a float32
+        vector over the data axis: ``sums`` come back summed over the
+        ranks (the loss, pre-scaled per rank), ``means`` divided by the
+        rank count (values replicated after the gradient sync).  Without
+        a data axis the inputs pass through."""
+        means = means or {}
+        if not (self.dp_axis and self.dp_size > 1):
+            return {**sums, **means}
+        vals = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                            device=self.mesh.device
+                                            ).reshape(())
+                            for v in list(sums.values())
+                            + list(means.values())])
+        red = self.mesh.all_reduce(vals, self.dp_axis)
+        out = {k: red[i] for i, k in enumerate(sums)}
+        for j, k in enumerate(means):
+            out[k] = red[len(sums) + j] / self.dp_size
+        return out
 
 
 def single_device_ctx() -> ParallelCtx:

@@ -1,8 +1,14 @@
-"""The LM engine's serving half for the dense family.
+"""The LM engine for the dense family: training forward and loss, and
+serving.
 
 Port of ``src/repro/models/transformer.py``: ``init_params``,
-``embed_tokens``, ``lm_logits_local``, the dense decode cache and
-``decode_step``, and the paged pool and ``paged_decode_step``.  The
+``embed_tokens``, ``lm_logits_local``, ``vocab_parallel_xent`` (its
+tp = 1 path), the train/prefill ``forward`` and ``lm_loss``, the dense
+decode cache and ``decode_step``, and the paged pool and
+``paged_decode_step``.  Activation checkpointing (the reference's
+``jax.checkpoint`` around each scanned block, ``remat=True``) is
+``torch.utils.checkpoint`` around each layer; the reference's selective
+``remat="dots"`` policy has no counterpart yet and raises.  The
 parameter tree keeps the reference's keys and GLOBAL shapes, with layers
 stacked on a leading [L] dim, so a reference tree carries over 1:1
 (``convert.py``).  ``lax.scan`` over layers becomes a Python loop over the
@@ -20,6 +26,7 @@ import dataclasses
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
@@ -91,6 +98,70 @@ def lm_logits_local(p, x: torch.Tensor, cfg: ArchConfig,
         gid = ctx.tp_index() * v_l + torch.arange(v_l, device=x.device)
         logits = torch.where(gid < cfg.vocab, logits, -torch.inf)
     return logits
+
+
+def vocab_parallel_xent(logits_l: torch.Tensor, labels: torch.Tensor,
+                        ctx: ParallelCtx, vocab: int) -> torch.Tensor:
+    """Cross-entropy over the vocab logits -> per-token NLL [B,S] in
+    float32: the reference's distributed log-sum-exp on one vocab shard
+    (tp = 1, so its max, sum and label picks need no collective).  The max
+    is a stability shift whose gradient cancels, so it is detached as the
+    reference's ``stop_gradient``."""
+    v_l = logits_l.shape[-1]
+    lf = logits_l.float()
+    m = lf.detach().amax(dim=-1)                               # [B,S]
+    z = torch.exp(lf - m[..., None]).sum(-1)                   # [B,S]
+    local_id = labels.long() - ctx.tp_index() * v_l
+    valid = (local_id >= 0) & (local_id < v_l)
+    picked = torch.gather(lf, -1, local_id.clamp(0, v_l - 1)[..., None]
+                          )[..., 0]
+    label_logit = torch.where(valid, picked, 0.0)
+    return torch.log(z) + m - label_logit
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _dense_block(lp, x: torch.Tensor, cfg: ArchConfig,
+                 ctx: ParallelCtx) -> torch.Tensor:
+    h, _ = L.attention_block(lp["attn"], L.rms_norm(x, lp["ln1"],
+                                                    cfg.norm_eps), cfg, ctx)
+    x = x + h
+    return x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                           ctx)
+
+
+def forward(p, tokens: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx, *,
+            remat=True):
+    """Train/prefill forward -> (hidden [B,S,D], aux loss scalar).
+
+    ``remat=True`` recomputes each layer's activations in the backward
+    pass (one checkpoint per layer); ``False`` keeps them."""
+    _require_ported(cfg)
+    if remat not in (True, False):
+        raise NotImplementedError(f"remat={remat!r}: only True (per-layer "
+                                  f"checkpointing) and False are ported")
+    x = embed_tokens(p, tokens, cfg, ctx)
+    for i in range(cfg.n_layers):                 # lax.scan in the reference
+        lp = _layer(p["layers"], i)
+        if remat:
+            x = checkpoint(_dense_block, lp, x, cfg, ctx,
+                           use_reentrant=False)
+        else:
+            x = _dense_block(lp, x, cfg, ctx)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.rms_norm(x, p["final_norm"], cfg.norm_eps), aux
+
+
+def lm_loss(p, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            ctx: ParallelCtx, *, remat=True) -> torch.Tensor:
+    """Mean next-token NLL over the local batch shard (the dense family
+    has no auxiliary loss)."""
+    x, _ = forward(p, batch["tokens"], cfg, ctx, remat=remat)
+    logits_l = lm_logits_local(p, x, cfg, ctx)
+    return vocab_parallel_xent(logits_l, batch["labels"], ctx,
+                               cfg.vocab).mean()
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ Usage::
     program = StepProgram(builder, ctx)        # builder: () -> step callable
     out = program(*args)                       # build on demand
     program.observe()                          # Stage-2 feedback
+    out = program.step(*args)                  # or: both in one call
     program.issue(*args); program.await_all()  # or: in flight, then joined
 """
 
@@ -169,6 +170,12 @@ class StepProgram:
         moved (the next call re-keys)."""
         elapsed, self._last_elapsed_s = self._last_elapsed_s, None
         return self.ctx.observe_program(self.name, elapsed_s=elapsed)
+
+    def step(self, *args, **kwargs):
+        """Execute + observe in one call — the common host-loop tick."""
+        out = self(*args, **kwargs)
+        self.observe()
+        return out
 
     def close(self) -> None:
         """Retire the program: drop its recorders and cached callables."""

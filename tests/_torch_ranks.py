@@ -17,7 +17,8 @@ from repro_torch.core import routing
 from repro_torch.launch.mesh import Mesh
 
 #: mesh name -> (shape, axes); the test modules share these
-MESHES = {"2d": ((4, 2), ("data", "model")), "1d": ((8,), ("data",))}
+MESHES = {"2d": ((4, 2), ("data", "model")), "1d": ((8,), ("data",)),
+          "2x4": ((2, 4), ("data", "model"))}
 
 
 def local_block(x: np.ndarray, spec: str, mesh: Mesh) -> np.ndarray:
@@ -64,6 +65,29 @@ def collectives(cases):
         x = torch.from_numpy(local_block(c["x"], c["in_spec"], mesh))
         x = x.to(getattr(torch, c["dtype"]))
         out[name] = as_bits(_collective(c["op"], x, mesh, c["kw"]))
+    return out
+
+
+def codec_collectives(cases):
+    """Every case of tests/test_torch_codec_collectives.py on this rank: a
+    plan with wire codecs through ``routing.execute``, or the butterfly
+    all-reduce with a codec."""
+    from repro_torch.core.topology import Collective
+    meshes = {k: Mesh(*v, device="cpu") for k, v in MESHES.items()}
+    out = {}
+    for name, c in cases.items():
+        mesh = meshes[c["mesh"]]
+        x = torch.from_numpy(local_block(c["x"], c["in_spec"], mesh))
+        x = x.to(getattr(torch, c["dtype"]))
+        if c["op"] == "tree_all_reduce":
+            y = cx.tree_all_reduce(x, mesh, "data", codec=c["codec"])
+        else:
+            plan = routing.build_plan(
+                Collective(c["op"]), "data", c["shares"], "model",
+                staged_substeps=c["substeps"],
+                path_codecs={"staged": c["codec"], "ortho": c["codec"]})
+            y = routing.execute(plan, x, mesh)
+        out[name] = as_bits(y)
     return out
 
 
@@ -145,4 +169,79 @@ def communicator(tuning_cache, payloads, steps, save_dir):
                        "report": prog.report(),
                        "saved": (ctx.save_tuning_profile(saved), saved)}
     prog.close()
+    return out
+
+
+#: gradient-bucket sizes whose error-feedback gate tests/test_torch_train.py
+#: compares with the reference's
+EF_SIZES = (64 * 1024, 2 << 20, 4 << 20, 16 << 20)
+
+
+def flat_leaves(tree, prefix=""):
+    """A nested dict of tensors (or arrays) -> {"a/b/c": float32 numpy}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(as_bits(v) if torch.is_tensor(v)
+                                         else v, dtype=np.float32)
+    return out
+
+
+def train(params_np, runs, steps, ckpt_dir):
+    """tests/test_torch_train.py on this rank: 3-step data-parallel
+    training runs of reduced glm4-9b on the (data=2, model=1) mesh, each
+    from the reference's initial params, through build_train_program and
+    run_loop.  On rank 0 the runs marked ``state`` return their final
+    params and AdamW moments, and the run marked ``ckpt`` checkpoints its
+    final state."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_reference
+    from repro_torch.core.communicator import CommConfig
+    from repro_torch.core.links import PROFILES, degrade_profile
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.launch.steps import build_train_program
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.loop import LoopConfig, run_loop
+    mesh = Mesh((2, 1), ("data", "model"), device="cpu")
+    out = {}
+    for name, run in runs.items():
+        base, _, spec = run["comm"]["profile"].partition("!")
+        if spec:                    # a degraded profile registers by use
+            degrade_profile(PROFILES[base], spec)
+        cfg = get_config("glm4-9b").reduced(d_model=run["d_model"])
+        params = params_from_reference(params_np)
+        opt_state = init_state(params)
+        program, ctx = build_train_program(
+            cfg, mesh, comm=CommConfig(**run["comm"]),
+            opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+            device="cpu", name=name)
+        loop = LoopConfig(total_steps=steps, log_every=0,
+                          ckpt_dir=ckpt_dir if (run.get("ckpt")
+                                                and mesh.rank == 0) else None)
+        params, opt_state, hist = run_loop(
+            program, params, opt_state,
+            make_batches(cfg, seq_len=32, batch_per_shard=4, seed=7), ctx,
+            loop)
+        codecs = sorted({c for _, _, p in ctx.comms()[0].plan_signature()
+                         for c in p.path_codecs})
+        out[name] = {"losses": hist, "codecs": codecs,
+                     "signature": plain_signature(
+                         ctx.comms()[0].plan_signature()),
+                     "ef": (ctx.ef_codec_name(),
+                            [ctx.ef_active_for(nb, dt)
+                             for nb in EF_SIZES
+                             for dt in (torch.float32, torch.bfloat16)])}
+        program.close()
+        if run.get("state") and mesh.rank == 0:
+            out[name]["state"] = {
+                "params": flat_leaves(params),
+                "mu": flat_leaves(opt_state.mu),
+                "nu": flat_leaves(opt_state.nu)}
+        if run.get("ckpt"):
+            out["final"] = {k: as_bits(v) for k, v in
+                            (("embed", params["embed"]),
+                             ("mu_wq", opt_state.mu["layers"]["attn"]["wq"]),
+                             ("step", opt_state.step))}
     return out

@@ -84,7 +84,7 @@ def test_cpu_dispatch_is_the_plain_version(reference, case):
     """ops.accumulate on CPU tensors runs the plain version and launches
     nothing; the ring closure is the same function."""
     a, b, j_kernel, _ = reference[case]
-    before = ca.launch_count
+    before = dict(ca.launch_count)
     got = tops.accumulate(a, b)
     assert ca.launch_count == before
     np.testing.assert_array_equal(_bits(got), j_kernel)
@@ -112,18 +112,23 @@ def test_backward_passes_the_cotangent_to_both_operands(dtype):
 
 
 def test_operands_must_agree():
+    """One dtype, or the bf16_pack decode's float32 + bfloat16 (the only
+    mixed call); anything else, or two shapes, raises."""
     a, b = _operands(1, (16,), "float32")
     with pytest.raises(ValueError, match="differ"):
-        tops.accumulate(a, b.to(torch.bfloat16))
+        tops.accumulate(a.to(torch.bfloat16), b)
+    with pytest.raises(ValueError, match="differ"):
+        tops.accumulate(a, b.to(torch.float16))
     with pytest.raises(ValueError, match="differ"):
         tops.accumulate(a, b[:8])
+    assert tops.accumulate(a, b.to(torch.bfloat16)).dtype == torch.float32
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
     """The kernel wrapper never computes on the CPU: it raises before any
     build or launch."""
     a, b = _operands(1, (16,), "float32")
-    before = ca.launch_count
+    before = dict(ca.launch_count)
     with pytest.raises(ValueError, match="CUDA"):
         ca.chunk_accumulate(a, b)
     assert ca.launch_count == before
@@ -141,9 +146,9 @@ def test_cuda_kernel_matches_plain_version(dtype, n):
     a, b = a.to(dt).cuda(), b.to(dt).cuda()
     for off in (0, 1):
         x, y = a[off:off + n], b[off:off + n]
-        before = ca.launch_count
+        before = ca.launch_count[dt, dt]
         got = tops.accumulate(x, y)
         torch.cuda.synchronize()
-        assert ca.launch_count == before + 1
+        assert ca.launch_count[dt, dt] == before + 1
         want = tref.chunk_accumulate_ref(x, y)
         np.testing.assert_array_equal(_bits(got), _bits(want))

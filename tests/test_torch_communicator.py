@@ -122,10 +122,18 @@ def test_cold_save_warm_runs_zero_stage1_iterations(tmp_path):
 
 
 def test_default_profile_is_h100_and_compress_raises():
+    """The default profile is h100; a compress spec is validated when the
+    communicator is built (a bad one raises there, as the reference's
+    does), and a good one yields codec-carrying plans."""
     assert t_comm.CommConfig().profile == "h100"
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_comm.FlexCommunicator("data", 4,
-                                t_comm.CommConfig(compress="secondary=fp8"))
+    for bad in ("primary=fp8", "secondary=fp9", "fp8"):
+        with pytest.raises(ValueError):
+            t_comm.FlexCommunicator("data", 4,
+                                    t_comm.CommConfig(compress=bad))
+    comp = t_comm.FlexCommunicator(
+        "data", 4, t_comm.CommConfig(compress="secondary=fp8"))
+    assert comp._bucket_plan(TColl.ALL_REDUCE, 1024 * MiB).path_codecs == \
+        (("staged", "fp8_e4m3"),)
     comm = t_comm.FlexCommunicator("data", 4)
     with pytest.raises(RuntimeError, match="no mesh"):
         comm.all_reduce(torch.zeros(8))

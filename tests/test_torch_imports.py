@@ -53,3 +53,15 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert len(MODULES) >= 20
+
+
+def test_the_training_slice_is_checked():
+    """The data-parallel train step's modules are among those checked
+    above, the codec kernels and their wrappers included."""
+    for m in ("repro_torch.kernels.codec", "repro_torch.optim.adamw",
+              "repro_torch.data.pipeline",
+              "repro_torch.checkpoint.checkpointer",
+              "repro_torch.train.train_step", "repro_torch.train.loop",
+              "repro_torch.launch.steps", "repro_torch.launch.train"):
+        assert m in MODULES, m
+    assert (PORT / "kernels" / "csrc" / "codec.cu").exists()
