@@ -7,8 +7,8 @@ Phases, each printing its own lines; any failure raises and exits
 non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
-   kernel from the checkout's CUDA sources (K6 and K1, one ``nvcc`` per
-   source, all at once), timed;
+   kernel from the checkout's CUDA sources (K6, K1, K2-K5 and K7, one
+   ``nvcc`` per source, all at once), timed;
 2. K6, the paged flash-decode kernel, against its plain PyTorch version at
    glm4-9b shapes (Hq 32, Hkv 2, hd 128, block 16; T in {1, 8, 32}, max
    blocks in {6, 256}; float32 and bfloat16; padding rows and a sliding
@@ -79,15 +79,37 @@ non-zero:
    versions, the memory bound and, for K5 and the mixed K1, the one
    PyTorch call that computes the same function.  Each timed call works
    on its own copy of the operands, rotated so that none is still in L2
-   (as in phase 8).
+   (as in phase 8).  Phase 12 runs after phase 13, and its check (a)
+   also covers every length phase 13 gave K1;
+13. tensor-parallel training of full-width glm4-9b (depth cut 40 -> 2,
+   bf16, random weights from seed 0, each rank keeping its model-axis
+   shards of the global init) on (data=2, model=2): 4 gloo ranks sharing
+   this card, seq 128, global batch 8, 3 steps each with the ``nccl``
+   backend and ``flexlink``, AdamW at lr 1e-4, the model axis's
+   all-reduce slot pinned by a TuningProfile to primary/staged/ortho
+   50/25/25 (the tuner would give these 4 MiB combines the primary route
+   only): finite losses, equal on all 4 ranks, falling, flexlink within
+   5e-3 of nccl; recorded calls a step (3 on the model axis, one a leaf
+   on the data axis: the reference's per-trace counts); model-axis
+   all-reduces executed a step (5 forward, 2 in the checkpoint
+   recompute, 5 backward); K1 launches equal to what the executed plans
+   imply; peak memory and wall time;
+14. K7a/K7b, the payload split and merge, against their plain versions
+   in float32 and bfloat16 at the reference test's cases, at lengths and
+   offsets one element off its blocks and at 64 MiB (the second half of a
+   128 MiB payload; four segments of 1/2, 1/4, 1/8, 1/8 of 64 MiB): bit
+   for bit; timed at 64 MiB beside their plain versions,
+   ``x[a:b].clone()`` / ``torch.cat`` and the memory bound, on rotated
+   operand copies.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  The launches in that line are the
 ranks' own counts from each kernel's path, summed: K1 from phase 7, K2-K4
 from the fp8 training run of phase 11, K5 and the mixed K1 from phase
-10 (c); each rank process sets its counts to 0 just before that path and
-reports them just after it.  Without a CUDA card, or without the rest of
-the checkout beside this file, it prints no result and exits 1.
+10 (c), K7 from phase 13 (0: no path calls it); each rank process sets
+its counts to 0 just before that path and reports them just after it.
+Without a CUDA card, or without the rest of the checkout beside this
+file, it prints no result and exits 1.
 """
 
 from __future__ import annotations
@@ -198,8 +220,9 @@ def phase1_card_and_build():
     from repro_torch.kernels import chunk_accumulate as ca
     from repro_torch.kernels import codec
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import payload_partition as pp
     t0 = time.perf_counter()
-    built = _nvcc.build_all([fd.SOURCE, ca.SOURCE, codec.SOURCE])
+    built = _nvcc.build_all([fd.SOURCE, ca.SOURCE, codec.SOURCE, pp.SOURCE])
     build_s = time.perf_counter() - t0
     for src, (lib, log) in built.items():
         for line in log.splitlines():
@@ -838,16 +861,21 @@ def codec_launches(plan, n: int, dtype) -> collections.Counter:
 
 
 def _kernel_counts(reset=False):
-    """This process's K1-K5 launch counts (set to 0 first with reset)."""
+    """This process's K1-K5 and K7 launch counts (set to 0 first with
+    reset)."""
     from repro_torch.kernels import chunk_accumulate as ca
     from repro_torch.kernels import codec
+    from repro_torch.kernels import payload_partition as pp
     if reset:
-        for k in codec.launch_count:
-            codec.launch_count[k] = 0
+        for counts in (codec.launch_count, pp.launch_count):
+            for k in counts:
+                counts[k] = 0
         ca.launch_count.clear()
     mixed = ca.launch_count[ca.MIXED]
     return collections.Counter({**codec.launch_count, "k1_mixed": mixed,
-                                "k1": sum(ca.launch_count.values()) - mixed})
+                                "k1": sum(ca.launch_count.values()) - mixed,
+                                "k7a": pp.launch_count["extract"],
+                                "k7b": pp.launch_count["merge"]})
 
 
 @contextlib.contextmanager
@@ -1187,6 +1215,201 @@ def phase11_training():
     return launches, plans, calls
 
 
+# phase 13: tensor-parallel training of full-width glm4-9b (depth cut to
+# TRAIN_LAYERS) on (data=2, model=2): 4 gloo ranks on the card.  The h100
+# tuner gives the model axis's 4 MiB activation combines the primary route
+# only; a TuningProfile pins that slot to three routes, so the staged ring
+# (and K1) and the ortho detour run inside the forward, the recompute and
+# the backward of every combine
+TP_MESH = (2, 2)
+TP_RUNS = (("nccl", {"backend": "nccl"}), ("flexlink", {}))
+TP_SHARES = {"nvlink": 50, "pcie": 25, "rdma": 25}
+TP_SEQ = 128
+TP_BATCH = 8                   # global: 4 rows a data rank
+
+
+def _pin_model_axis(path: str, d_model: int) -> int:
+    """Write the TuningProfile that pins the model axis's all-reduce slot
+    (one [4, 128, d_model] bf16 combine) to TP_SHARES; returns its
+    bucket."""
+    from repro_torch.control.profile import TuningProfile
+    from repro_torch.core.communicator import bucket_for
+    from repro_torch.core.topology import Collective
+    from repro_torch.core.tuner import SHARE_GRID
+    nbytes = TP_BATCH // TP_MESH[0] * TP_SEQ * d_model * 2
+    prof = TuningProfile(path)
+    prof.record("h100", "ring", Collective.ALL_REDUCE, TP_MESH[1],
+                bucket_for(nbytes), SHARE_GRID, TP_SHARES)
+    prof.save(path)
+    return bucket_for(nbytes)
+
+
+def _step_phase() -> str:
+    """Where an executed collective runs: the forward, the checkpoint
+    recompute (inside the backward, grad mode on) or the backward."""
+    if torch._C._current_graph_task_id() == -1:
+        return "forward"
+    return "recompute" if torch.is_grad_enabled() else "backward"
+
+
+def tp_train_rank(pinned: str):
+    """One rank of phase 13: two 3-step runs of full-width glm4-9b (depth
+    cut) on the (data=2, model=2) mesh through build_train_program +
+    run_loop, from the global init's model-axis shards.  Every executed
+    collective's plan and step phase is recorded, and the kernel counts
+    are set to 0 just before each run and read just after it."""
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_params
+    from repro_torch.core import routing
+    from repro_torch.core.communicator import CommConfig
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import build_train_program
+    from repro_torch.models.transformer import init_params, param_specs
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.loop import LoopConfig, run_loop
+    from torch.utils import _pytree as pytree
+    cfg = dataclasses.replace(get_config("glm4-9b"), n_layers=TRAIN_LAYERS)
+    mesh = Mesh(TP_MESH, ("data", "model"))
+    specs = param_specs(cfg)
+    calls = []
+    execute = routing.execute
+
+    def recorded(plan, x, m, **kw):
+        calls.append((plan, m.axis_size(plan.axis_name), x.dtype,
+                      x.numel(), _step_phase()))
+        return execute(plan, x, m, **kw)
+
+    routing.execute = recorded
+    out = {}
+    try:
+        for name, comm in TP_RUNS:
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = shard_params(init_params(cfg, gen, "cuda"), specs,
+                                  mesh.axis_index("model"), TP_MESH[1])
+            torch.cuda.empty_cache()
+            opt_state = init_state(params)
+            program, ctx = build_train_program(
+                cfg, mesh, comm=CommConfig(profile="h100",
+                                           tuning_cache=pinned, **comm),
+                opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                total_steps=TRAIN_STEPS), name=name)
+            batches = make_batches(cfg, seq_len=TP_SEQ,
+                                   batch_per_shard=TP_BATCH)
+            calls.clear()
+            seen = set()
+            torch.cuda.synchronize()
+            _kernel_counts(reset=True)
+            t0 = time.perf_counter()
+            with recorded_calls(seen):
+                params, opt_state, hist = run_loop(
+                    program, params, opt_state, batches, ctx,
+                    LoopConfig(total_steps=TRAIN_STEPS, log_every=0))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _kernel_counts()
+            rec = {c.axis_name: len(c.recorder(name).issued_calls())
+                   for c in ctx.comms()}
+            program.close()
+            want = collections.Counter()
+            for plan, n, dtype, _, _ in calls:
+                want += codec_launches(plan, n, dtype)
+            model = collections.Counter(ph for p, *_, ph in calls
+                                        if p.axis_name == "model")
+            out[name] = {
+                "losses": hist, "wall_s": wall,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "launches": dict(launches), "want": dict(want),
+                "recorded": rec, "model_exec": dict(model),
+                "model_plans": sorted({(p.chunk_units, p.staged_substeps,
+                                        numel) for p, _, _, numel, _ in calls
+                                       if p.axis_name == "model"}),
+                "leaves": len(pytree.tree_leaves(params)),
+                "kernel_calls": seen}
+            del params, opt_state, program, ctx
+            torch.cuda.empty_cache()
+    finally:
+        routing.execute = execute
+    return out
+
+
+def phase13_tp_training():
+    from repro_torch.launch.mesh import run_ranks
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        pinned = f"{tmp}/pinned.json"
+        bucket = _pin_model_axis(pinned, 4096)
+        t0 = time.perf_counter()
+        res = run_ranks(tp_train_rank, 4, backend="gloo", device="cuda",
+                        timeout_s=900, args=(pinned,))
+    print(f"phase 13: full-width glm4-9b (depth cut 40 -> {TRAIN_LAYERS}), "
+          f"bf16, seed 0, seq {TP_SEQ}, global batch {TP_BATCH}, AdamW lr "
+          f"{TRAIN_LR}, mesh (data=2, model=2), 4 gloo ranks on one card, "
+          f"model-axis all-reduce slot ({bucket} B bucket) pinned to "
+          f"{TP_SHARES}; ranks ran {time.perf_counter() - t0:.1f} s")
+    # a step executes the embedding's and each layer's two combines in
+    # the forward and their transposes in the backward; the recompute of
+    # each checkpointed layer stops after its last saved activation, so
+    # it repeats the attention combine and not the MLP's
+    per_step = {"forward": 1 + 2 * TRAIN_LAYERS, "recompute": TRAIN_LAYERS,
+                "backward": 1 + 2 * TRAIN_LAYERS}
+    losses = {}
+    for name, _ in TP_RUNS:
+        hist = [r[name]["losses"] for r in res]
+        check(all(np.isfinite(h).all() for h in hist),
+              f"{name}: loss not finite: {hist}")
+        check(all(h == hist[0] for h in hist), f"{name}: the ranks' losses "
+              f"differ: {hist}")
+        check(hist[0][-1] < hist[0][0], f"{name}: loss did not fall: "
+              f"{hist[0]}")
+        for r, got in enumerate(res):
+            g = got[name]
+            check(collections.Counter(g["launches"]) ==
+                  collections.Counter(g["want"]),
+                  f"rank {r} {name}: launches {g['launches']}, the step's "
+                  f"plans imply {g['want']}")
+            want_exec = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+            check(g["model_exec"] == want_exec, f"rank {r} {name}: "
+                  f"model-axis all-reduces {g['model_exec']}, want "
+                  f"{want_exec}")
+            if name == "flexlink":
+                check(g["recorded"] == {"model": 3, "data": g["leaves"]},
+                      f"rank {r}: recorded {g['recorded']}, want 3 model-"
+                      f"axis calls and {g['leaves']} data-axis calls")
+                units = {u for plan in g["model_plans"] for u, _ in plan[0]}
+                check(units == {"primary", "staged", "ortho"},
+                      f"rank {r}: model-axis plans {g['model_plans']}")
+        losses[name] = hist[0]
+        rec = res[0][name]
+        print(f"phase 13: {name}: losses {hist[0]}; recorded a step "
+              f"{rec['recorded']}; model-axis all-reduces executed a step "
+              f"{ {k: v // TRAIN_STEPS for k, v in rec['model_exec'].items()} }"
+              f"; launches a rank {rec['launches']}; "
+              f"{max(r[name]['wall_s'] for r in res):.1f} s for "
+              f"{TRAIN_STEPS} steps; peak "
+              f"{max(r[name]['peak_gib'] for r in res):.2f} GiB a rank")
+    for i in range(TRAIN_STEPS):
+        d = abs(losses["flexlink"][i] - losses["nccl"][i])
+        check(d < 5e-3, f"step {i}: flexlink {losses['flexlink'][i]} vs "
+              f"nccl {losses['nccl'][i]}")
+    for plan in res[0]["flexlink"]["model_plans"]:
+        print(f"phase 13: flexlink model-axis plan: units {plan[0]}, "
+              f"substeps {plan[1]}, {plan[2]} elements")
+    total = sum((collections.Counter(r[name]["launches"]) for r in res
+                 for name, _ in TP_RUNS), collections.Counter())
+    k1 = sum(collections.Counter(r["flexlink"]["launches"])["k1"]
+             for r in res)
+    print(f"phase 13: flexlink within 5e-3 of nccl a step; K1 launches over "
+          f"4 ranks {k1} = the sum over the executed plans; the model "
+          f"axis records 3 calls a step (the reference's per-trace count) "
+          f"and executes {per_step} a step")
+    calls = set().union(*(r["flexlink"]["kernel_calls"] for r in res))
+    return k1, {k: total[k] for k in ("k7a", "k7b")}, calls
+
+
 # float32 operations each kernel does per element (abs, max, divide and
 # convert for K2; convert and a multiply or fused multiply-add for K3 and
 # K4; a convert for K5; a convert and an add for the mixed K1)
@@ -1360,6 +1583,134 @@ def _codec_row(name, cuda_name, source, replaces, launches, rows,
             "kernel": cuda_name}
 
 
+# phase 14: K7, the payload split and merge.  No path launches them
+# (routing.execute partitions with views and torch.cat, as the reference's
+# execute does with lax.dynamic_slice), so they are held against their
+# plain versions and timed here only
+K7_SPLITS = ((1,), (2, 1), (1, 3, 2), (4, 1, 2, 3))
+K7_BIG = 64 * MiB                      # bytes a timed call copies
+
+
+def _k7_cases(dtype, err):
+    """K7a and K7b vs plain versions at the reference test's cases and at
+    one element off its blocks; returns the max abs error."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import payload_partition as pp
+    blk = ref.BLOCK
+    x = (torch.arange(10 * blk + 4, device="cuda", dtype=torch.float32)
+         * 0.5).to(dtype)
+
+    def same(got, want, tag):
+        torch.cuda.synchronize()
+        check(torch.equal(_bits(got), _bits(want)), f"K7 {tag} {dtype}: "
+              f"not bit-identical to its plain version")
+        return max(err, (got.float() - want.float()).abs().max().item())
+
+    for n_blocks, start in ((1, 0), (2, 1), (3, 5)):
+        err = same(ops.extract_segment(x[:8 * blk], start, n_blocks),
+                   ref.extract_segment_ref(x[:8 * blk], start, n_blocks),
+                   f"extract ({n_blocks}, {start})")
+        a, n = start * blk + 1, n_blocks * blk - 1
+        err = same(pp.extract(x, a, n), x[a:a + n].clone(),
+                   f"extract [{a}, {a + n})")
+    for sizes in K7_SPLITS:
+        for extra in (0, 1):
+            segs, off = [], 0
+            for s in sizes:
+                segs.append(x[off:off + s * blk + extra].clone())
+                off += s * blk + extra
+            got = ops.merge_segments(segs) if extra == 0 else pp.merge(segs)
+            err = same(got, ref.merge_segments_ref(segs),
+                       f"merge {sizes} + {extra}")
+    return err
+
+
+def phase14_k7(card):
+    from repro_torch.kernels import payload_partition as pp
+    from repro_torch.kernels import ref
+    key, (mem_bps, _) = card_peaks(card)
+    before = dict(pp.launch_count)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[dtype] = _k7_cases(dtype, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    blk = ref.BLOCK
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        n = K7_BIG // torch.finfo(dtype).bits * 8         # elements
+        nb = n // blk
+        k = rotations(2 * K7_BIG)
+        # K7a: the second half of a 2n payload; K7b: four segments of
+        # 1/2, 1/4, 1/8, 1/8 of n
+        xs = [torch.randn(2 * n, generator=gen, device="cuda").to(dtype)
+              for _ in range(k)]
+        parts = (nb // 2, nb // 4, nb // 8, nb // 8)
+        segs = [[torch.randn(p * blk, generator=gen, device="cuda").to(dtype)
+                 for p in parts] for _ in range(k)]
+        got = pp.extract(xs[0], n, n)
+        check(torch.equal(_bits(got), _bits(ref.extract_segment_ref(
+            xs[0], nb, nb))), f"K7a 64 MiB {dtype}: not bit-identical")
+        got = pp.merge(segs[0])
+        check(torch.equal(_bits(got), _bits(ref.merge_segments_ref(
+            segs[0]))), f"K7b 64 MiB {dtype}: not bit-identical")
+        del got
+        calls = {
+            "extract_segment": (lambda i: pp.extract(xs[i], n, n),
+                                lambda i: ref.extract_segment_ref(
+                                    xs[i], nb, nb),
+                                lambda i: xs[i][n:2 * n].clone()),
+            "merge_segments": (lambda i: pp.merge(segs[i]),
+                               lambda i: ref.merge_segments_ref(segs[i]),
+                               lambda i: torch.cat(segs[i]))}
+        for name, (kern, plain, lib) in calls.items():
+            ms = time_ms(kern, sets=k)
+            plain_ms = time_ms(plain, sets=k)
+            lib_ms = time_ms(lib, sets=k)
+            bound_ms = 2 * K7_BIG / mem_bps * 1e3
+            rows[name, dtype] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, bound_ms=bound_ms,
+                                     bound_by="bytes", n=n)
+            lib_name = ("x[a:b].clone()" if name == "extract_segment"
+                        else "torch.cat")
+            print(f"phase 14: {name} {str(dtype)[6:]} {n} elements "
+                  f"(64 MiB): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"{lib_name} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                  f"bytes ({2 * K7_BIG} B at {mem_bps / 1e12:.2f} TB/s: "
+                  f"{key} datasheet); {bound_ms / ms:.1%} of bound; "
+                  f"operands rotated over {k} copies, out of L2")
+        del xs, segs
+        torch.cuda.empty_cache()
+    # timing and checking launches are not a path's
+    pp.launch_count.update(before)
+    print(f"phase 14: K7a/K7b vs plain versions, float32 and bfloat16, at "
+          f"the reference test's cases, one element off its blocks and at "
+          f"64 MiB: bit for bit (max abs err {max(errs.values())}); no "
+          f"path launches them (launches 0)")
+    return max(errs.values()), rows
+
+
+def _k7_row(name, line, err, rows):
+    main = rows[name, torch.bfloat16]
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/payload_partition.cu",
+            "replaces": f"src/repro/kernels/payload_partition.py:{line}",
+            "launches": 0,
+            "launches_from": "no path calls it: routing.execute slices "
+                             "with views, as the reference's does with "
+                             "lax.dynamic_slice",
+            "max_abs_err": err,
+            "max_abs_err_at": "the reference test's cases, one element "
+                              "off, 64 MiB; float32 and bfloat16, phase 14",
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "shape": f"{main['n']} bf16 elements (64 MiB copied)",
+            "float32": {k: rows[name, torch.float32][k]
+                        for k in ("n", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms")},
+            "kernel": {"extract_segment": "K7a",
+                       "merge_segments": "K7b"}[name]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -1389,9 +1740,11 @@ def main() -> int:
     bf16_launches, bf16_calls = phase10_codec_collectives()
     train_launches, train_plans, train_calls = phase11_training()
     fp8_launches = train_launches["fp8"]
-    path_errs, path_lengths = phase12_main_path_check(train_calls
-                                                      | bf16_calls)
+    tp_k1, k7_launches, tp_calls = phase13_tp_training()
+    path_errs, path_lengths = phase12_main_path_check(
+        train_calls | bf16_calls | tp_calls)
     codec_rows = phase12_codec_times(card, train_plans, path_lengths)
+    k7_err, k7_rows = phase14_k7(card)
     kernels = [{
         "name": "paged_flash_decode",
         "route": "cuda",
@@ -1426,6 +1779,7 @@ def main() -> int:
         "chunk_64MiB": {k: k1_big[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
         "launches_train_flexlink": train_launches["flexlink"]["k1"],
+        "launches_train_tp_flexlink": tp_k1,
         "mixed_f32_bf16": {
             "launches": bf16_launches["k1_mixed"],
             "max_abs_err": path_errs["k1_mixed"],
@@ -1453,8 +1807,18 @@ def main() -> int:
             ("fp8_decode", "K4", 110, fp8_launches, fp8_from),
             ("bf16_pack", "K5", 55, bf16_launches,
              "phase 10 (c), 4 ranks"))]
+    kernels += [_k7_row(name, line, k7_err, k7_rows)
+                for name, line in (("extract_segment", 36),
+                                   ("merge_segments", 59))]
     for row in kernels:
-        check(row["launches"] > 0, f"{row['name']}: no launch on its path")
+        if row.get("kernel") in ("K7a", "K7b"):
+            got = k7_launches[row["kernel"].lower()]
+            check(got == 0, f"{row['name']}: {got} launches on the "
+                  f"training path, which never calls it")
+            row["launches"] = got
+        else:
+            check(row["launches"] > 0, f"{row['name']}: no launch on its "
+                  f"path")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

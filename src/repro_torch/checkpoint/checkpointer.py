@@ -8,6 +8,16 @@ tree's paths joined by ``/`` (``params/layers/attn/wq``,
 ``opt/mu/embed``, ``opt/step``), bf16 leaves stored as their uint16 bit
 patterns under ``<key>@bf16``, and a JSON ``__meta__`` entry.  A
 checkpoint written by either package restores in the other.
+
+On a model axis (a ctx with tp > 1, and the ``param_specs`` tree) every
+rank holds local shards, and the file still holds the reference's GLOBAL
+layout: ``save`` is collective over the rank's model line, which
+all-gathers each sharded leaf of the params and the AdamW moments, and
+model rank 0 writes; replicated leaves are model rank 0's own copy, which
+is what the reference's ``np.asarray`` of a leaf whose per-device copies
+differ saves.  ``restore`` reads the global file on every rank and cuts
+the rank's shard (convert.py), so every rank gets the same replicated
+copy, as the reference's ``device_put`` gives.
 """
 
 from __future__ import annotations
@@ -21,6 +31,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.convert import gather_params, shard_params, sharded_dim
 
 _SEP = "/"
 
@@ -80,9 +92,20 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray], prefix=""):
 
 
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, *, ctx=None,
+                 specs=None):
+        """``ctx`` with a model axis wider than 1 (and ``specs``, the
+        ``transformer.param_specs`` tree) makes the params and moments
+        rank-local shards; every rank of the model line must then call
+        ``save``, and model rank 0 writes."""
         self.dir = directory
         self.keep = keep
+        self.ctx = ctx if ctx is not None and ctx.tp_size > 1 else None
+        if self.ctx is not None and specs is None:
+            raise ValueError("Checkpointer: a model axis needs the param "
+                             "specs")
+        self.specs = specs
+        self.writer = self.ctx is None or self.ctx.tp_index() == 0
         os.makedirs(directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -90,6 +113,14 @@ class Checkpointer:
 
     def save(self, step: int, params, opt_state=None,
              extra: Optional[Dict[str, Any]] = None) -> str:
+        if self.ctx is not None:
+            params = self._gather(params, self.specs)
+            if opt_state is not None:
+                opt_state = opt_state._replace(
+                    mu=self._gather(opt_state.mu, self.specs),
+                    nu=self._gather(opt_state.nu, self.specs))
+            if not self.writer:
+                return self._path(step)
         tree = {"params": params}
         if opt_state is not None:
             tree["opt"] = opt_state
@@ -106,6 +137,36 @@ class Checkpointer:
                 os.remove(tmp)
         self._gc()
         return path
+
+    def _gather(self, tree, specs):
+        """The global tree at model rank 0 (collective over the model
+        line; other ranks get a tree they do not use)."""
+        if isinstance(specs, dict):
+            return {k: self._gather(tree[k], specs[k]) for k in tree}
+        if sharded_dim(specs) < 0:
+            return tree
+        g = self.ctx.mesh.all_gather(tree.contiguous(), self.ctx.tp_axis)
+        return gather_params(list(g), specs)
+
+    def _shard_flat(self, flat: Dict[str, np.ndarray]
+                    ) -> Dict[str, np.ndarray]:
+        """This rank's shards of the global params and moments of a file."""
+        out = {}
+        for key, arr in flat.items():
+            path = key.removesuffix("@bf16").split(_SEP)
+            if path[0] == "params":
+                path = path[1:]
+            elif path[:2] in (["opt", "mu"], ["opt", "nu"]):
+                path = path[2:]
+            else:
+                out[key] = arr
+                continue
+            spec = self.specs
+            for part in path:
+                spec = spec[part]
+            out[key] = shard_params(arr, spec, self.ctx.tp_index(),
+                                    self.ctx.tp_size)
+        return out
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -126,13 +187,16 @@ class Checkpointer:
 
     def restore(self, params_template, opt_template=None,
                 step: Optional[int] = None) -> Tuple[Any, Any, Dict]:
-        """New tensors shaped, typed and placed like the templates'."""
+        """New tensors shaped, typed and placed like the templates' (on a
+        model axis, the rank's local shards)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         with np.load(self._path(step), allow_pickle=False) as z:
             flat = {k: z[k] for k in z.files if k != "__meta__"}
             meta = json.loads(str(z["__meta__"]))
+        if self.ctx is not None:
+            flat = self._shard_flat(flat)
         params = _unflatten_into(params_template, flat, "params" + _SEP)
         opt = None
         if opt_template is not None:

@@ -38,11 +38,11 @@ bf16 pack's decode being K1 itself.  The fp8 values cross the wire as
 uint8 and their float32 scales ride the same point-to-point batch.  The
 compressed all-gather encodes each row ONCE at its source and forwards
 the payload unchanged; every rank decodes every row, its own included,
-so the gathered rows are equal on every rank.  These composites are
-forward only: the reference's straight-through VJPs
-(collectives.py:198, 227, 272) come with the differentiable mesh
-collectives of the tensor-parallel slice (ROADMAP queue 1 item 7b); the
-data-parallel step never differentiates through a collective.
+so the gathered rows are equal on every rank.  The primitives here are
+forward only; ``routing.execute`` differentiates a whole plan instead,
+its backward running the transpose collective over the same routes with
+the codecs stripped.  That is the reference's straight-through VJPs
+(collectives.py:198, 227, 272) taken at the plan level.
 """
 
 from __future__ import annotations

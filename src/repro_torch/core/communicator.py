@@ -54,6 +54,7 @@ lets an oscillation back to a known plan reuse its compiled step.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Mapping, Optional, Tuple
@@ -337,6 +338,8 @@ class FlexCommunicator:
         self._window_seq = 0
         self._open_window: Optional[int] = None
         self._active_window: Optional[int] = None
+        #: depth of open :meth:`unrecorded` scopes
+        self._unrecorded = 0
 
     # -- replay recorders ------------------------------------------------------
 
@@ -390,6 +393,21 @@ class FlexCommunicator:
         traces land in its own recorder.  ``name`` lets nested issue
         scopes derive their ``name/tag`` sub-recorders."""
         return _ActiveRecorder(self, rec, name)
+
+    @contextlib.contextmanager
+    def unrecorded(self):
+        """Calls inside repeat calls the step already made: ``plan_for``
+        neither touches nor records them, and takes the slot's current plan
+        without a plan-cache lookup.  The reference records a collective
+        once per TRACE (``lax.scan`` traces its layer body once, and the
+        backward and the remat recompute trace nothing new); an eager step
+        runs every call, so the layer loop's later layers and the
+        checkpoint recompute run inside this scope."""
+        self._unrecorded += 1
+        try:
+            yield
+        finally:
+            self._unrecorded -= 1
 
     # -- issue/await windows (DESIGN.md §11) -----------------------------------
 
@@ -810,6 +828,9 @@ class FlexCommunicator:
         after the step via ``observe_executed_step``)."""
         nbytes = x.numel() * x.element_size()
         bucket = bucket_for(nbytes)
+        if self._unrecorded:
+            plan = self.plan_cache.current(op, bucket)
+            return plan if plan is not None else self._bucket_plan(op, bucket)
         # footprint tracking is unconditional (even nccl / balancing-off):
         # the executable-cache signature needs to know which slots this
         # program's step closes over
@@ -849,6 +870,10 @@ class FlexCommunicator:
                      if (r[0], r[1]) in want)
 
     # -- data plane (NCCL-shaped; every rank of the axis calls it) ------------
+    #
+    # all_reduce, all_gather and reduce_scatter are differentiable
+    # (routing.execute): the backward runs the transpose collective over
+    # the same plan, codecs stripped, unrecorded.
 
     def _data_mesh(self):
         if self.mesh is None:

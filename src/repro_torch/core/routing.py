@@ -425,7 +425,18 @@ def execute(plan: RoutePlan, x: torch.Tensor, mesh, *,
     PATH_ORDER, one after the other, so every rank issues the same
     sequence of collectives.  Primary-only plans short-circuit to the
     native collective.
+
+    An all-reduce, all-gather or reduce-scatter is differentiable: see
+    :class:`_Execute`.
     """
+    if plan.collective in _TRANSPOSE:
+        return _Execute.apply(x, plan, mesh, accumulate)
+    return _run(plan, x, mesh, accumulate)
+
+
+def _run(plan: RoutePlan, x: torch.Tensor, mesh,
+         accumulate: Optional[Callable]) -> torch.Tensor:
+    """The forward-only body of :func:`execute`."""
     spec = _SPECS[plan.collective]
     if plan.is_primary_only:
         # whole payload through the ONE registered primary executor — the
@@ -456,6 +467,57 @@ def execute(plan: RoutePlan, x: torch.Tensor, mesh, *,
     merged = cx.merge_columns(outs, PATH_ORDER, pad)
     out_lead = lead // n if spec.scatters_lead else lead
     return merged.reshape((out_lead,) + tuple(x.shape[1:]))
+
+
+#: each differentiable collective's transpose: the collective its
+#: backward runs on the cotangent
+_TRANSPOSE = {Collective.ALL_REDUCE: Collective.ALL_REDUCE,
+              Collective.ALL_GATHER: Collective.REDUCE_SCATTER,
+              Collective.REDUCE_SCATTER: Collective.ALL_GATHER}
+
+
+def transpose_plan(plan: RoutePlan) -> RoutePlan:
+    """The plan a collective's backward runs: its transpose collective
+    over the SAME routes, units, grain, substeps and accumulate policy,
+    with the wire codecs stripped (the straight-through estimator of the
+    reference's codec composites, collectives.py:198, 227, 272)."""
+    return dataclasses.replace(plan, collective=_TRANSPOSE[plan.collective],
+                               path_codecs=())
+
+
+class _Execute(torch.autograd.Function):
+    """One multi-path collective under autograd, with the reference's
+    transposes under ``shard_map(check_vma=False)``:
+
+    * all-reduce: the cotangent all-reduced (psum's transpose is psum);
+    * all-gather ([n, *x] stacked): the stacked cotangent reduce-scattered
+      over the rank dim, so rank r gets sum_k g_k[r] (psum the whole
+      cotangent, then take the rank's own row, the codec all-gather VJP
+      of reference collectives.py:272-282); the reduce-scatter's column
+      groups are the gather's payload segments, route for route;
+    * reduce-scatter: the cotangent all-gathered back to x's shape.
+
+    The forward runs the plan as it is, codecs included; the backward runs
+    :func:`transpose_plan` through :func:`execute`, on the routes the
+    forward took.  Nothing here records a call: the backward reuses the
+    forward's plan and never asks a communicator for one.  Every rank
+    builds the same graph, so their backwards issue the same collectives
+    in the same order; on CUDA they run on autograd's device thread, on
+    the stream the forward used.
+    """
+
+    @staticmethod
+    def forward(ctx, x, plan, mesh, accumulate):
+        ctx.plan, ctx.mesh, ctx.accumulate = plan, mesh, accumulate
+        ctx.shape = x.shape
+        with torch.no_grad():
+            return _run(plan, x, mesh, accumulate)
+
+    @staticmethod
+    def backward(ctx, g):
+        gx = execute(transpose_plan(ctx.plan), g.contiguous(), ctx.mesh,
+                     accumulate=ctx.accumulate)
+        return gx.reshape(ctx.shape), None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -587,6 +649,13 @@ class PlanCache:
         rows = [(op.value, bucket, key[2])
                 for (op, bucket), key in self._slot.items()]
         return tuple(sorted(rows, key=lambda r: (r[0], r[1])))
+
+    def current(self, collective: Collective,
+                bucket: int) -> Optional[RoutePlan]:
+        """The plan the slot last resolved to (None before its first
+        lookup), without touching the stats."""
+        key = self._slot.get((collective, bucket))
+        return None if key is None else key[2]
 
     def lookup(self, collective: Collective, bucket: int,
                builder: Callable[[], RoutePlan]) -> RoutePlan:

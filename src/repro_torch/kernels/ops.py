@@ -1,9 +1,9 @@
 """Public entry points of the port's kernels.
 
-Port of ``src/repro/kernels/ops.py`` (the entry points the ported slices
-run).  Each dispatches on the device of its input: a CPU tensor goes to
-the plain PyTorch version in ``kernels/ref.py``; a CUDA tensor goes to the
-hand-written kernel, which launches or raises — there is no fallback.
+Port of ``src/repro/kernels/ops.py``.  Each entry point dispatches on the
+device of its input: a CPU tensor goes to the plain PyTorch version in
+``kernels/ref.py``; a CUDA tensor goes to the hand-written kernel, which
+launches or raises — there is no fallback.
 
 The reference pads every payload to [rows % 8, 128]-lane tiles
 (``_pad_2d``) for the TPU's BlockSpecs; the port's kernels walk flat
@@ -17,7 +17,9 @@ import torch
 from repro_torch.kernels import chunk_accumulate as _ca
 from repro_torch.kernels import codec as _codec
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import payload_partition as _pp
 from repro_torch.kernels import ref
+
 
 def _cuda_only(x: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda":
@@ -66,6 +68,36 @@ def ring_accumulate_fn(acc_dtype=torch.float32):
     """An ``accumulate(a, b)`` closure for collectives.ring_reduce_scatter /
     ring_all_reduce — this is how the kernel plugs into the staged path."""
     return lambda a, b: accumulate(a, b, acc_dtype=acc_dtype)
+
+
+# -- payload split / merge (K7) ------------------------------------------------
+#
+# The reference's entry points, signatures and block-alignment asserts.
+# No path calls them: routing.execute partitions with views and
+# ``torch.cat``, as the reference's does with ``lax.dynamic_slice``.
+
+def extract_segment(x: torch.Tensor, start_block: int, n_blocks: int,
+                    block: int = ref.BLOCK) -> torch.Tensor:
+    """Aligned segment copy (payload split): ``x[start_block * block :
+    (start_block + n_blocks) * block]`` of a flat, block-aligned payload."""
+    assert x.ndim == 1 and x.shape[0] % block == 0
+    assert (start_block + n_blocks) * block <= x.shape[0]
+    if x.device.type == "cpu":
+        return ref.extract_segment_ref(x, start_block, n_blocks, block=block)
+    _cuda_only(x, "extract_segment")
+    return _pp.extract(x.contiguous(), start_block * block, n_blocks * block)
+
+
+def merge_segments(segments, block: int = ref.BLOCK) -> torch.Tensor:
+    """Per-route result reassembly (payload merge): block-aligned flat
+    segments concatenated."""
+    segs = list(segments)
+    assert all(s.ndim == 1 and s.shape[0] % block == 0 for s in segs)
+    if all(s.device.type == "cpu" for s in segs):
+        return ref.merge_segments_ref(segs)
+    for s in segs:
+        _cuda_only(s, "merge_segments")
+    return _pp.merge([s.contiguous() for s in segs])
 
 
 # -- wire codecs (DESIGN.md §12) ----------------------------------------------

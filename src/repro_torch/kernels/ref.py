@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels: the CPU path of
 ``kernels/ops.py`` and the check every kernel is held against on the card.
 
-Port of ``src/repro/kernels/ref.py`` (the kernels this slice ports).
+Port of ``src/repro/kernels/ref.py``.
 """
 
 from __future__ import annotations
@@ -151,3 +151,22 @@ def fp8_decode_accumulate_ref(vals: torch.Tensor, scales: torch.Tensor,
     prod = v * _per_element(scales, v.numel()).double()
     out = _round_to_odd_f32(prod, bf.double())
     return out.to(b.dtype).reshape(b.shape)
+
+
+# -- payload split / merge (kernels/payload_partition.py: K7) ----------------
+
+#: elements per block of the reference's payload partition (1024 rows of
+#: 128 lanes: 512 KiB of float32)
+BLOCK = 1024 * 128
+
+
+def extract_segment_ref(x: torch.Tensor, start_block: int, n_blocks: int, *,
+                        block: int = BLOCK) -> torch.Tensor:
+    """K7a: a copy of ``x[start_block * block : (start_block + n_blocks) *
+    block]`` of a flat payload."""
+    return x[start_block * block:(start_block + n_blocks) * block].clone()
+
+
+def merge_segments_ref(segments) -> torch.Tensor:
+    """K7b: the flat segments concatenated in order."""
+    return torch.cat(list(segments))

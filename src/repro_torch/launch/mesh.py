@@ -145,6 +145,12 @@ class Mesh:
         dist.all_reduce(h, op=red, group=self.group(axis))
         return self._wire_out(h, x)
 
+    def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``lax.psum`` under autograd: the sum over ``axis`` on the primary
+        group, whose backward all-reduces the cotangent (psum's transpose
+        under ``shard_map(check_vma=False)``)."""
+        return _PSum.apply(x, self, axis)
+
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """[n, *x.shape], entry j from axis index j: ``lax.all_gather``."""
         n = self.axis_size(axis)
@@ -221,6 +227,19 @@ class Mesh:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         return [self._wire_out(r, x) for r, x in zip(recvs, xs)]
+
+
+class _PSum(torch.autograd.Function):
+    """:meth:`Mesh.psum`: all-reduce forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.axis), None, None
 
 
 # ---------------------------------------------------------------------------

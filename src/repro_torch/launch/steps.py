@@ -1,13 +1,16 @@
 """Step builders: wire a step function to the rank's mesh and its
 ParallelCtx (and therefore to the FlexLink RoutePlan engine).
 
-Port of ``src/repro/launch/steps.py`` for the data-parallel train step.
-The reference wraps each step in ``shard_map`` and ``jax.jit``; here each
-rank runs the step eagerly on its own shard: the builder's callable takes
-the GLOBAL batch (numpy, as ``data.pipeline.make_batches`` yields it) and
-moves this rank's rows of it to the rank's device, the
-``in_specs=P("data", None)`` of the reference.  Params and the optimizer
-state are replicated (every rank holds them whole).  Communicators are
+Port of ``src/repro/launch/steps.py`` for the train step on a (data,
+model) mesh.  The reference wraps each step in ``shard_map`` and
+``jax.jit``; here each rank runs the step eagerly on its own shard: the
+builder's callable takes the GLOBAL batch (numpy, as
+``data.pipeline.make_batches`` yields it) and moves this rank's rows of
+it to the rank's device, split over data and the same on every rank of
+a model line, the ``in_specs=P("data", None)`` of the reference.  The
+params and the optimizer state it takes are RANK-LOCAL: whole on a mesh
+without a model axis, this rank's ``param_specs`` shards on one with it
+(``convert.shard_params``), the reference's in_specs.  Communicators are
 memoized per (axis, config, mesh) by ``comm_init_rank``, so a rebuilt
 step after a Stage-2 share move runs against the SAME balancer state.
 

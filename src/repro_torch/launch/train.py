@@ -6,9 +6,12 @@
 Port of ``src/repro/launch/train.py``.  ``--smoke`` swaps in the reduced
 config (2 layers, d_model 256).  The mesh shape is (data, model); every
 rank is a process (``launch.mesh.run_ranks``) that builds the same
-weights from seed 0, takes its rows of the global batch and reduces its
-gradients through the data axis's FlexCommunicator.  The flags are the
-reference's, plus:
+global weights from seed 0 and keeps its model-axis shards of them
+(``convert.shard_params``), takes its rows of the global batch (the same
+rows on every rank of a model line), combines its tensor-parallel
+partial results through the model axis's FlexCommunicator and reduces
+its gradients through the data axis's.  The flags are the reference's,
+plus:
 
 * ``--device`` (default ``cuda``): without a card, ``cuda`` exits 2 —
   never a silent CPU run;
@@ -20,8 +23,8 @@ reference's, plus:
 The communicator's default profile is ``h100`` (the reference's launcher
 uses ``tpu_v5e``).  Flags of tiers not ported yet exit 2 and name the
 ROADMAP item that lifts them: ``--nodes``/``--cluster`` (queue 1 item
-12), ``--pods`` (item 14), ``--degrade``/``--fault`` (item 13),
-``--bucket-mb`` > 0 (item 8), and a model axis wider than 1 (item 7b).
+12), ``--pods`` (item 14), ``--degrade``/``--fault`` (item 13) and
+``--bucket-mb`` > 0 (item 8).
 """
 
 from __future__ import annotations
@@ -35,10 +38,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ALIASES, get_config
+from repro_torch.convert import shard_params
 from repro_torch.core.communicator import CommConfig
 from repro_torch.data.pipeline import make_batches
 from repro_torch.launch.steps import build_train_program
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import init_params, param_specs
 from repro_torch.optim.adamw import AdamWConfig, init_state
 from repro_torch.train.loop import LoopConfig, run_loop
 
@@ -59,8 +63,10 @@ def _unported(args) -> str:
 
 def train_rank(args: argparse.Namespace, dims, world: int) -> dict:
     """One rank's training run (or the only one, with ``world == 1``):
-    weights from seed 0, the global synthetic batch stream, this rank's
-    rows of it.  Rank 0 logs, checkpoints and saves the tuning cache."""
+    weights from seed 0 (this rank's model-axis shards), the global
+    synthetic batch stream, this rank's rows of it.  Rank 0 logs and saves
+    the tuning cache; the ranks of data row 0 checkpoint (model rank 0
+    writes)."""
     from repro_torch.launch.mesh import Mesh
     cfg = get_config(args.arch)
     if args.smoke:
@@ -77,13 +83,18 @@ def train_rank(args: argparse.Namespace, dims, world: int) -> dict:
                       total_steps=args.steps)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device)
-    opt_state = init_state(params)
     program, ctx = build_train_program(cfg, mesh, comm=comm, opt=opt,
                                        device=device)
+    specs = param_specs(cfg)
+    if ctx.tp_size > 1:
+        params = shard_params(params, specs, ctx.tp_index(), ctx.tp_size)
+    opt_state = init_state(params)
     lead = rank == 0
+    data_row0 = mesh is None or mesh.axis_index("data") == 0
     loop = LoopConfig(total_steps=args.steps, log_every=5 if lead else 0,
                       ckpt_every=args.ckpt_every,
-                      ckpt_dir=(args.ckpt_dir or None) if lead else None,
+                      ckpt_dir=(args.ckpt_dir or None) if data_row0
+                      else None, param_specs=specs,
                       tuning_cache=(args.tuning_cache or None) if lead
                       else None)
     batches = make_batches(cfg, seq_len=args.seq_len,
@@ -152,10 +163,6 @@ def main(argv=None) -> int:
         if args.mesh_shape else (1, 1)
     if len(dims) != 2:
         print("error: --mesh-shape takes (data, model)", file=sys.stderr)
-        return 2
-    if dims[1] > 1:
-        print("error: not ported yet: a model axis wider than 1: ROADMAP "
-              "queue 1 item 7b (tensor-parallel training)", file=sys.stderr)
         return 2
     world = int(np.prod(dims))
     if args.batch % dims[0]:

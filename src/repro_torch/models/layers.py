@@ -1,21 +1,28 @@
 """Shared model layers: RMSNorm, RoPE, chunked (flash-style) attention with
 GQA/SWA, SwiGLU MLP.
 
-Port of ``src/repro/models/layers.py`` for one device (tp = 1).  Plain
-functions on tensors, with the reference's conventions:
+Port of ``src/repro/models/layers.py``.  Plain functions on tensors, with
+the reference's conventions:
 
   * activations are [B, S, D]; attention heads live in [B, S, H, hd];
   * attention is computed in chunks of ``ATTN_CHUNK`` over the KV axis with
     running max/denominator, the same -inf/isfinite guards and the same
     padding, so masked lanes contribute exact zeros;
-  * parameters are GLOBAL-shaped dict trees (K/V projections stored full);
-    ``init_*`` take an explicit ``torch.Generator`` and device and a
-    leading ``lead`` shape, so ``init_params`` draws stacked [L, ...]
-    layers in one call.
+  * ``init_*`` build GLOBAL-shaped dict trees (K/V projections stored
+    full) from an explicit ``torch.Generator`` and device and a leading
+    ``lead`` shape, so ``init_params`` draws stacked [L, ...] layers in one
+    call;
+  * tensor parallelism shards Q heads over the model axis: column-parallel
+    Q / gate / up projections, row-parallel out / down projections
+    combined by ``ctx.tp_all_reduce``; each shard slices the KV heads its
+    Q heads attend to out of the replicated K/V projections
+    (``_kv_slice``).  ``attention_specs`` / ``mlp_specs`` name the sharded
+    dim of each leaf (convert.py cuts a rank's shard by them).
 
-The sequence-sharded decode path (the reference's ``seq_shard``) and
-cross-attention come with the communicator and encoder-decoder slices
-(ROADMAP queue 1, items 9 and 11).
+Training and prefill run at any tp.  The decode paths (dense cache and
+paged pool) run at tp = 1 and raise above it: the sequence-sharded decode
+(the reference's ``seq_shard``) and serving across devices come with
+ROADMAP queue 1 item 11; cross-attention with item 9.
 """
 
 from __future__ import annotations
@@ -208,10 +215,37 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype, device,
     return p
 
 
+def attention_specs(cfg: ArchConfig, model_axis: str = "model"):
+    """Per leaf of init_attention, the mesh axis of each dim (None:
+    replicated), as the reference's PartitionSpecs: Q/O sharded over the
+    heads, K/V replicated."""
+    p = {"wq": (None, model_axis), "wk": (None, None), "wv": (None, None),
+         "wo": (model_axis, None)}
+    if cfg.qkv_bias:
+        p.update(bq=(model_axis,), bk=(None,), bv=(None,))
+    return p
+
+
 def _kv_slice(p, cfg: ArchConfig, ctx: ParallelCtx, which: str):
-    """The KV-projection weight and bias for this shard's KV heads: at
-    tp = 1 every shard holds every KV head."""
-    return p["w" + which], p.get("b" + which)
+    """The KV-projection weight and bias columns of this shard's KV heads:
+    ``kv_w`` heads from ``first_kv = idx * hq_l * n_kv // n_heads``."""
+    hd = cfg.head_dim_
+    hq_l, kv_w, _ = head_layout(cfg, ctx)
+    w, bias = p["w" + which], p.get("b" + which)
+    if ctx.tp_size <= 1 or kv_w == cfg.n_kv_heads:
+        return w, bias
+    first = ctx.tp_index() * hq_l * cfg.n_kv_heads // cfg.n_heads * hd
+    w = w[..., first:first + kv_w * hd]
+    if bias is not None:
+        bias = bias[..., first:first + kv_w * hd]
+    return w, bias
+
+
+def _one_shard(ctx: ParallelCtx, what: str) -> None:
+    if ctx.tp_size > 1:
+        raise NotImplementedError(
+            f"{what} at tp = {ctx.tp_size}: serving across devices is not "
+            f"ported yet (ROADMAP queue 1 item 11)")
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
@@ -259,6 +293,7 @@ def attention_block(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx,
     if kv_cache is None:
         out = chunked_attention(q, k, v, causal=causal, window=window)
     else:
+        _one_shard(ctx, "the dense decode path")
         ck, cv = kv_cache
         pos_arr = torch.as_tensor(cache_pos, device=x.device)
         if pos_arr.ndim:                     # per-slot positions [B]
@@ -315,6 +350,7 @@ def paged_attention_block(p, x: torch.Tensor, cfg: ArchConfig,
 
     Returns (out [T, 1, D], (k_pool, v_pool)).
     """
+    _one_shard(ctx, "paged attention")
     b, s, d = x.shape
     assert s == 1, "paged attention packs single-token rows"
     hd = cfg.head_dim_
@@ -375,6 +411,13 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, dtype, device,
         "w_up": _normal(gen, lead + (d, f), dtype, device),
         "w_down": _normal(gen, lead + (f, d), dtype, device),
     }
+
+
+def mlp_specs(model_axis: str = "model"):
+    """Per leaf of init_mlp, the mesh axis of each dim: gate/up column-,
+    down row-parallel."""
+    return {"w_gate": (None, model_axis), "w_up": (None, model_axis),
+            "w_down": (model_axis, None)}
 
 
 def mlp_block(p, x: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:

@@ -1,24 +1,31 @@
 """Parallelism context — how model code reaches the communication backend.
 
-Port of ``src/repro/models/tp.py`` for one device and for the data axis.
-Model layers call collectives only through a ``ParallelCtx``.  On one
-device every collective is the identity and there are no communicators:
-constant signature, no Stage-2 feedback, empty reports.  With a data axis
-wider than 1 the ctx holds the rank's :class:`~repro_torch.launch.mesh.Mesh`
-and takes that axis's :class:`FlexCommunicator` from the memoized
-``comm_init_rank`` registry, so ``grad_all_reduce`` runs the multi-path
-all-reduce and the program API (``register_program``, ``recording``,
-``observe_program``, ``plan_signature``, ``comm_report``,
-``tuning_status``, ``save_tuning_profile``) reads and feeds that
-communicator as the reference's does.  ``metrics_reduce`` sums the step's
-metrics over the data axis in one small all-reduce, and
+Port of ``src/repro/models/tp.py`` for one device and for a (data, model)
+mesh.  Model layers call collectives only through a ``ParallelCtx``.  On
+one device every collective is the identity and there are no
+communicators: constant signature, no Stage-2 feedback, empty reports.
+With an axis wider than 1 the ctx holds the rank's
+:class:`~repro_torch.launch.mesh.Mesh` and takes that axis's
+:class:`FlexCommunicator` from the memoized ``comm_init_rank`` registry,
+the model axis's first and the data axis's second, each with the other as
+its ortho axis, as the reference's.  The model axis carries the
+tensor-parallel combines (``tp_all_reduce``, ``tp_all_gather``,
+``tp_reduce_scatter``), differentiable through ``routing.execute``, and
+the small softmax statistics (``tp_psum_small`` / ``tp_pmax_small`` on
+the mesh's primary group); ``grad_all_reduce`` runs the data axis's
+multi-path all-reduce.  The program API (``register_program``,
+``recording``, ``observe_program``, ``plan_signature``, ``comm_report``,
+``tuning_status``, ``save_tuning_profile``) reads and feeds those
+communicators as the reference's does, and :meth:`unrecorded` keeps
+repeated calls of one step out of their replay logs.  ``metrics_reduce``
+sums the step's metrics over the data axis in one small all-reduce, and
 ``ef_codec_name`` / ``ef_active_for`` answer whether a gradient reduce
 crosses a lossy wire codec.  Issue scopes for in-flight gradient buckets
 come with the bucketer (ROADMAP queue 1 item 8).
 
-Still raising, each with the ROADMAP queue 1 item that lifts it: a tensor
-axis wider than 1 (item 7b trains with it, item 11 serves with it), a
-node axis (item 12) and a pod axis (item 14).
+Still raising, each with the ROADMAP queue 1 item that lifts it: a node
+axis (item 12) and a pod axis (item 14).  Serving across devices (item
+11) raises in the decode paths (models/layers.py).
 """
 
 from __future__ import annotations
@@ -33,10 +40,7 @@ from torch.utils import _pytree as pytree
 from repro_torch.core.communicator import (CommConfig, FlexCommunicator,
                                            comm_init_rank)
 
-_LATER = (("tp_size", "a tensor-parallel axis wider than 1 is not ported "
-           "yet (ROADMAP queue 1 item 7b for training, item 11 for "
-           "serving)"),
-          ("node_size", "a node axis is not ported yet (ROADMAP queue 1 "
+_LATER = (("node_size", "a node axis is not ported yet (ROADMAP queue 1 "
            "item 12)"),
           ("pod_size", "a pod axis is not ported yet (ROADMAP queue 1 "
            "item 14)"))
@@ -46,8 +50,9 @@ _LATER = (("tp_size", "a tensor-parallel axis wider than 1 is not ported "
 class ParallelCtx:
     """Axis names, sizes and communicators for one step function.
 
-    dp_axis : data-parallel axis ("data"); with dp_size > 1 the ctx needs
-              the rank's ``mesh`` and builds the axis's communicator
+    tp_axis : tensor-parallel axis ("model"); with tp_size > 1 the ctx
+              needs the rank's ``mesh`` and builds the axis's communicator
+    dp_axis : data-parallel axis ("data"), likewise
     mesh    : this rank's Mesh (launch/mesh.py); None on one device
     """
 
@@ -61,24 +66,42 @@ class ParallelCtx:
     pod_size: int = 1
     comm_config: CommConfig = dataclasses.field(default_factory=CommConfig)
     mesh: Optional[object] = None
+    _tp_comm: Optional[FlexCommunicator] = None
     _dp_comm: Optional[FlexCommunicator] = None
 
     def __post_init__(self):
         for field, msg in _LATER:
             if getattr(self, field) > 1:
                 raise NotImplementedError(f"ParallelCtx: {msg}")
-        if self.dp_axis and self.dp_size > 1:
-            if self.mesh is None:
-                raise ValueError("ParallelCtx: a data axis wider than 1 "
-                                 "needs the rank's mesh")
-            self._dp_comm = comm_init_rank(self.dp_axis, self.dp_size,
-                                           self.comm_config, mesh=self.mesh)
+        tp = bool(self.tp_axis) and self.tp_size > 1
+        dp = bool(self.dp_axis) and self.dp_size > 1
+        if (tp or dp) and self.mesh is None:
+            raise ValueError("ParallelCtx: an axis wider than 1 needs the "
+                             "rank's mesh")
+        if tp:
+            self._tp_comm = comm_init_rank(
+                self.tp_axis, self.tp_size, self.comm_config,
+                ortho_name=self.dp_axis if dp else None, mesh=self.mesh)
+        if dp:
+            self._dp_comm = comm_init_rank(
+                self.dp_axis, self.dp_size, self.comm_config,
+                ortho_name=self.tp_axis if tp else None, mesh=self.mesh)
 
     # -- plan-engine plumbing -------------------------------------------------
 
     def comms(self) -> Tuple[FlexCommunicator, ...]:
-        """The live communicators behind this ctx (the data axis's)."""
-        return tuple(c for c in (self._dp_comm,) if c is not None)
+        """The live communicators behind this ctx (tp, then dp)."""
+        return tuple(c for c in (self._tp_comm, self._dp_comm)
+                     if c is not None)
+
+    @contextlib.contextmanager
+    def unrecorded(self):
+        """Every communicator's :meth:`FlexCommunicator.unrecorded` scope:
+        the calls inside repeat ones the step's trace already recorded."""
+        with contextlib.ExitStack() as stack:
+            for comm in self.comms():
+                stack.enter_context(comm.unrecorded())
+            yield
 
     # -- StepProgram registration (runtime/program.py, DESIGN.md §7) ----------
 
@@ -170,10 +193,40 @@ class ParallelCtx:
     # -- tensor-parallel collectives (identity without a tensor axis) ---------
 
     def tp_all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        if self._tp_comm is None:
+            return x
+        return self._tp_comm.all_reduce(x)
+
+    def tp_all_gather(self, x: torch.Tensor, tiled: bool = True
+                      ) -> torch.Tensor:
+        if self._tp_comm is None:
+            return x
+        return self._tp_comm.all_gather(x, tiled=tiled)
+
+    def tp_reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        if self._tp_comm is None:
+            return x
+        return self._tp_comm.reduce_scatter(x)
+
+    # small latency-bound reductions (softmax stats) stay on the primary
+    # group, as the reference's plain lax.psum / lax.pmax
+    def tp_psum_small(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_axis is None or self.tp_size <= 1:
+            return x
+        return self.mesh.psum(x, self.tp_axis)
+
+    def tp_pmax_small(self, x: torch.Tensor) -> torch.Tensor:
+        """Max over the model axis of a value that carries no gradient
+        (the reference applies it to a ``stop_gradient``)."""
+        if self.tp_axis is None or self.tp_size <= 1:
+            return x
+        return self.mesh.all_reduce(x.detach(), self.tp_axis, op="max")
 
     def tp_index(self) -> int:
-        return 0
+        """This rank's coordinate on the model axis."""
+        if self.tp_axis is None or self.tp_size <= 1:
+            return 0
+        return self.mesh.axis_index(self.tp_axis)
 
     # -- data-parallel collectives --------------------------------------------
 
@@ -209,6 +262,13 @@ class ParallelCtx:
         for j, k in enumerate(means):
             out[k] = red[len(sums) + j] / self.dp_size
         return out
+
+    # -- sizing helpers --------------------------------------------------------
+
+    def shard(self, n: int, what: str = "dim") -> int:
+        assert n % max(self.tp_size, 1) == 0, \
+            f"{what}={n} not divisible by tp={self.tp_size}"
+        return n // max(self.tp_size, 1)
 
 
 def single_device_ctx() -> ParallelCtx:

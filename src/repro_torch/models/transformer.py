@@ -2,19 +2,25 @@
 serving.
 
 Port of ``src/repro/models/transformer.py``: ``init_params``,
-``embed_tokens``, ``lm_logits_local``, ``vocab_parallel_xent`` (its
-tp = 1 path), the train/prefill ``forward`` and ``lm_loss``, the dense
-decode cache and ``decode_step``, and the paged pool and
-``paged_decode_step``.  Activation checkpointing (the reference's
-``jax.checkpoint`` around each scanned block, ``remat=True``) is
-``torch.utils.checkpoint`` around each layer; the reference's selective
-``remat="dots"`` policy has no counterpart yet and raises.  The
-parameter tree keeps the reference's keys and GLOBAL shapes, with layers
-stacked on a leading [L] dim, so a reference tree carries over 1:1
-(``convert.py``).  ``lax.scan`` over layers becomes a Python loop over the
-[L] dim.  The caches are updated IN PLACE: ``decode_step`` writes each
-layer's new K/V into the [L, ...] cache tensors it was given, and
-``paged_decode_step`` scatters into the pool (models/layers.py).
+``param_specs``, the vocab-parallel ``embed_tokens`` (masked local
+lookup + ``ctx.tp_all_reduce``), ``lm_logits_local``,
+``vocab_parallel_xent`` (the distributed log-sum-exp), the train/prefill
+``forward`` and ``lm_loss``, the dense decode cache and ``decode_step``,
+and the paged pool and ``paged_decode_step`` (both at tp = 1, item 11).
+Activation checkpointing (the reference's ``jax.checkpoint`` around each
+scanned block, ``remat=True``) is ``torch.utils.checkpoint`` around each
+layer; the reference's selective ``remat="dots"`` policy has no
+counterpart yet and raises.  ``init_params`` builds the GLOBAL tree with
+the reference's keys and shapes, layers stacked on a leading [L] dim, so
+a reference tree carries over 1:1 (``convert.py``); a rank of a model
+axis holds the local shards ``convert.shard_params`` cuts from it by
+``param_specs``.  ``lax.scan`` over layers becomes a Python loop over the
+[L] dim.  The reference records a collective once per trace, and scan
+traces its body once: here layer 0 records its calls and the later
+layers and the checkpoint recompute run under ``ctx.unrecorded()``.  The
+caches are updated IN PLACE: ``decode_step`` writes each layer's new K/V
+into the [L, ...] cache tensors it was given, and ``paged_decode_step``
+scatters into the pool (models/layers.py).
 
 Families other than dense raise until their slices land (ROADMAP queue 1:
 items 9 and 14 for moe, ssm, hybrid, encdec and vlm).
@@ -22,6 +28,7 @@ items 9 and 14 for moe, ssm, hybrid, encdec and vlm).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict
 
@@ -71,6 +78,28 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device):
     return p
 
 
+def _stack_specs(specs):
+    """Prepend the [L] stack dim (never sharded) to every leaf's spec."""
+    return {k: _stack_specs(v) if isinstance(v, dict) else (None,) + v
+            for k, v in specs.items()}
+
+
+def param_specs(cfg: ArchConfig, model_axis: str = "model"):
+    """The mesh axis of each dim of every leaf of ``init_params`` (None:
+    replicated), as the reference's PartitionSpec tree: the vocabulary
+    sharded over the model axis in the embedding and the LM head, the
+    layers' Q/O and MLP as in models/layers.py, norms and K/V
+    replicated."""
+    _require_ported(cfg)
+    sp: Dict[str, Any] = {"embed": (model_axis, None), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        sp["lm_head"] = (None, model_axis)
+    sp["layers"] = _stack_specs({
+        "ln1": (None,), "attn": L.attention_specs(cfg, model_axis),
+        "ln2": (None,), "mlp": L.mlp_specs(model_axis)})
+    return sp
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked [L, ...] subtree (views, no copies)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
@@ -83,8 +112,17 @@ def _layer(tree, i: int):
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ArchConfig,
                  ctx: ParallelCtx) -> torch.Tensor:
-    """Embedding lookup (the whole vocabulary is local at tp = 1)."""
-    return p["embed"][tokens.long()]
+    """Vocab-parallel embedding: masked lookup in the local vocabulary
+    shard, summed over the model axis by ``ctx.tp_all_reduce``."""
+    table = p["embed"]                           # local [V_l, D]
+    if ctx.tp_size <= 1:
+        return table[tokens.long()]
+    v_l = table.shape[0]
+    local_id = tokens.long() - ctx.tp_index() * v_l
+    valid = (local_id >= 0) & (local_id < v_l)
+    emb = torch.where(valid[..., None], table[local_id.clamp(0, v_l - 1)],
+                      0.0)
+    return ctx.tp_all_reduce(emb)
 
 
 def lm_logits_local(p, x: torch.Tensor, cfg: ArchConfig,
@@ -102,20 +140,20 @@ def lm_logits_local(p, x: torch.Tensor, cfg: ArchConfig,
 
 def vocab_parallel_xent(logits_l: torch.Tensor, labels: torch.Tensor,
                         ctx: ParallelCtx, vocab: int) -> torch.Tensor:
-    """Cross-entropy over the vocab logits -> per-token NLL [B,S] in
-    float32: the reference's distributed log-sum-exp on one vocab shard
-    (tp = 1, so its max, sum and label picks need no collective).  The max
-    is a stability shift whose gradient cancels, so it is detached as the
-    reference's ``stop_gradient``."""
+    """Cross-entropy over model-axis-sharded vocab logits -> per-token NLL
+    [B,S] in float32: the distributed log-sum-exp.  The max is a
+    stability shift whose gradient cancels, so it is detached (the
+    reference's ``stop_gradient``) before its max over the model axis; the
+    exp-sum and the label's logit are summed over the axis."""
     v_l = logits_l.shape[-1]
     lf = logits_l.float()
-    m = lf.detach().amax(dim=-1)                               # [B,S]
-    z = torch.exp(lf - m[..., None]).sum(-1)                   # [B,S]
+    m = ctx.tp_pmax_small(lf.detach().amax(dim=-1))            # [B,S]
+    z = ctx.tp_psum_small(torch.exp(lf - m[..., None]).sum(-1))
     local_id = labels.long() - ctx.tp_index() * v_l
     valid = (local_id >= 0) & (local_id < v_l)
     picked = torch.gather(lf, -1, local_id.clamp(0, v_l - 1)[..., None]
                           )[..., 0]
-    label_logit = torch.where(valid, picked, 0.0)
+    label_logit = ctx.tp_psum_small(torch.where(valid, picked, 0.0))
     return torch.log(z) + m - label_logit
 
 
@@ -137,7 +175,9 @@ def forward(p, tokens: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx, *,
     """Train/prefill forward -> (hidden [B,S,D], aux loss scalar).
 
     ``remat=True`` recomputes each layer's activations in the backward
-    pass (one checkpoint per layer); ``False`` keeps them."""
+    pass (one checkpoint per layer); ``False`` keeps them.  Layer 0's
+    collectives are recorded, the later layers' and the recompute's not
+    (``lax.scan`` traces the body once)."""
     _require_ported(cfg)
     if remat not in (True, False):
         raise NotImplementedError(f"remat={remat!r}: only True (per-layer "
@@ -145,11 +185,14 @@ def forward(p, tokens: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx, *,
     x = embed_tokens(p, tokens, cfg, ctx)
     for i in range(cfg.n_layers):                 # lax.scan in the reference
         lp = _layer(p["layers"], i)
-        if remat:
-            x = checkpoint(_dense_block, lp, x, cfg, ctx,
-                           use_reentrant=False)
-        else:
-            x = _dense_block(lp, x, cfg, ctx)
+        with ctx.unrecorded() if i else contextlib.nullcontext():
+            if remat:
+                x = checkpoint(_dense_block, lp, x, cfg, ctx,
+                               use_reentrant=False,
+                               context_fn=lambda: (contextlib.nullcontext(),
+                                                   ctx.unrecorded()))
+            else:
+                x = _dense_block(lp, x, cfg, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.rms_norm(x, p["final_norm"], cfg.norm_eps), aux
 
@@ -185,6 +228,7 @@ def init_cache(cfg: ArchConfig, ctx: ParallelCtx, dcfg: DecodeConfig,
                batch_local: int, dtype=None, device=None):
     """Zero cache: ``{"k", "v"}`` of [L, B, S, kv_w, hd]."""
     _require_ported(cfg)
+    L._one_shard(ctx, "the dense decode cache")
     dtype = dtype or cfg.dtype
     kv_w = L.head_layout(cfg, ctx)[1]
     shape = (cfg.n_layers, batch_local, dcfg.cache_len_local, kv_w,
@@ -248,6 +292,7 @@ def init_paged_pool(cfg: ArchConfig, ctx: ParallelCtx, pcfg: PagedConfig,
     and V.  Block contents are never zeroed again — reuse relies on
     kv_valid masking (serving/paged_kv.py)."""
     _require_ported(cfg)
+    L._one_shard(ctx, "the paged pool")
     dtype = dtype or cfg.dtype
     kv_w = L.head_layout(cfg, ctx)[1]
     shape = (cfg.n_layers, pcfg.n_blocks, pcfg.block_size, kv_w,

@@ -27,6 +27,9 @@ class LoopConfig:
     log_every: int = 10
     ckpt_every: int = 0           # 0 = only final
     ckpt_dir: Optional[str] = None
+    #: the ``transformer.param_specs`` tree: on a model axis the params
+    #: are rank-local shards, and the checkpointer gathers them by it
+    param_specs: Optional[dict] = None
     #: TuningProfile path: when set, the loop persists every axis'
     #: converged Stage-1 shares at the end so the next launch warm-starts
     #: with zero Algorithm-1 iterations (control/profile.py).
@@ -54,7 +57,8 @@ def run_loop(step: Union[StepProgram, Callable[[], Callable]],
     program = step if isinstance(step, StepProgram) \
         else StepProgram(step, ctx)
     owned = program is not step
-    ckpt = Checkpointer(loop.ckpt_dir) if loop.ckpt_dir else None
+    ckpt = (Checkpointer(loop.ckpt_dir, ctx=ctx, specs=loop.param_specs)
+            if loop.ckpt_dir else None)
     history = []
     t0 = time.time()
     try:

@@ -1,15 +1,21 @@
 """The training step: forward + backward + gradient sync + AdamW, built for
 a ParallelCtx and run on every rank by the launcher.
 
-Port of ``src/repro/train/train_step.py`` for the dense data-parallel
-step.  Params are replicated over the data axis, so every gradient
-reduces over it through ``ctx.grad_all_reduce``: the FlexLink
+Port of ``src/repro/train/train_step.py`` for the dense step on a
+(data, model) mesh.  Params are replicated over the data axis, so every
+gradient reduces over it through ``ctx.grad_all_reduce``: the FlexLink
 communicator's multi-path all-reduce, the "DP gradient all-reduce" the
 paper targets, with wire codecs on the secondary routes under
-``--compress``.  The local loss is pre-scaled by 1/dp so the reduce lands
-directly on the global-mean gradient.  The reference's ``jax.value_and_grad``
-is ``torch.autograd.grad`` over the param leaves; the optimizer updates
-the params and moments in place.
+``--compress``.  The local loss is pre-scaled by 1/(dp nodes pods), not
+by tp, so the reduce lands on the global-mean gradient.  The reference's
+``jax.value_and_grad`` inside ``shard_map(check_vma=False)`` is each
+rank's ``torch.autograd.grad`` over its local param leaves, through the
+model axis's differentiable combines, whose backward is the reference's
+transpose: sharded leaves get tp times their gradient and replicated
+leaves each model rank's own partial gradient, and neither reduces over
+the model axis, as in the reference.  ``metrics_reduce`` sums over the
+data axis only; the loss is the same on every rank of a model line.  The
+optimizer updates the params and moments in place.
 
 Bucketed, overlapped gradient sync (``bucket_mb > 0``) and its
 error-feedback residuals are not ported yet and raise (ROADMAP queue 1

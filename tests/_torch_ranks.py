@@ -245,3 +245,173 @@ def train(params_np, runs, steps, ckpt_dir):
                              ("mu_wq", opt_state.mu["layers"]["attn"]["wq"]),
                              ("step", opt_state.step))}
     return out
+
+
+def pinned_profile(path, profile, n_ranks, shares, ops=("all_reduce",),
+                   bucket=1 << 20):
+    """Write a TuningProfile that pins the ``ops`` slots of an axis of
+    ``n_ranks`` at ``bucket`` to ``shares`` (link name -> SHARE_GRID
+    units): the communicators of both packages warm-start those slots
+    from it and build multi-route plans for small payloads."""
+    from repro_torch.control.profile import TuningProfile
+    from repro_torch.core.topology import Collective
+    from repro_torch.core.tuner import SHARE_GRID
+    prof = TuningProfile(path)
+    for op in ops:
+        prof.record(profile, "ring", Collective(op), n_ranks, bucket,
+                    SHARE_GRID, shares)
+    prof.save(path)
+    return path
+
+
+def _rank_rows(x: np.ndarray, mesh: Mesh) -> torch.Tensor:
+    """Rank r's block of a global array split over every rank on dim 0 (a
+    shard_map in_spec of P(("data", "model")))."""
+    n = x.shape[0] // mesh.world
+    return torch.from_numpy(np.ascontiguousarray(
+        x[mesh.rank * n:(mesh.rank + 1) * n]))
+
+
+def tp_collectives(cases, comm, codec_cases):
+    """tests/test_torch_tp_collectives.py on this rank: each model-axis
+    collective of a (data=2, model=4) ctx forward and backward (the loss
+    sum(out * out * (rank + 1))), with the calls its communicator recorded
+    before and after the backward and inside ``unrecorded``; then the
+    staged-only codec plans' gradients on the (8,) mesh."""
+    from repro_torch.core.communicator import CommConfig
+    from repro_torch.core.topology import Collective
+    from repro_torch.models.tp import ParallelCtx
+    mesh = Mesh((2, 4), ("data", "model"), device="cpu")
+    ctx = ParallelCtx(tp_axis="model", dp_axis="data", tp_size=4, dp_size=2,
+                      comm_config=CommConfig(**comm), mesh=mesh)
+    tp_comm = ctx.comms()[0]
+    w = float(mesh.rank + 1)
+    out = {}
+    for name, c in cases.items():
+        fn = getattr(ctx, c["op"])
+        x = _rank_rows(c["x"], mesh).requires_grad_(True)
+        tp_comm.reset_issued()
+        y = fn(x)
+        recorded = len(tp_comm.issued_calls())
+        (y * y * w).sum().backward()
+        with ctx.unrecorded():
+            again = fn(x.detach())
+        out[name] = {"y": as_bits(y.detach()), "grad": as_bits(x.grad),
+                     "recorded": (recorded, len(tp_comm.issued_calls())),
+                     "unrecorded_equal": bool(torch.equal(again, y))}
+    out["signature"] = tuple((a, plain_signature(s))
+                             for a, s in ctx.plan_signature())
+    flat = Mesh((8,), ("data",), device="cpu")
+    for name, c in codec_cases.items():
+        plan = routing.build_plan(
+            Collective(c["op"]), "data", {"staged": 1}, staged_substeps=1,
+            path_codecs={"staged": c["codec"]} if c["codec"] else None)
+        x = _rank_rows(c["x"], flat).requires_grad_(True)
+        y = routing.execute(plan, x, flat)
+        (y * y * float(flat.rank + 1)).sum().backward()
+        out[name] = {"y": as_bits(y.detach()), "grad": as_bits(x.grad),
+                     "codecs": plan.path_codecs}
+    return out
+
+
+def recording(ctx, name, path):
+    """What the step's communicators recorded for program ``name``, their
+    plan signatures and the TuningProfile JSON they save to ``path`` (a
+    ctx of either package)."""
+    rec = {c.axis_name: {
+        "calls": [(op.value, n, win)
+                  for op, n, win in c.recorder(name).issued_calls()],
+        "signature": plain_signature(c.plan_signature())}
+        for c in ctx.comms()}
+    ctx.save_tuning_profile(path)
+    with open(path) as f:
+        rec["profile_json"] = f.read()
+    return rec
+
+
+def tp_train(params_np, runs, steps, grad_case, ckpt_dir, ref_ckpt_dir,
+             work_dir):
+    """tests/test_torch_tp_train.py on this rank of the (data=2, model=4)
+    mesh, reduced glm4-9b from the reference's initial params (by layer
+    count, ``params_np``):
+
+    * one ``lm_loss`` gradient of a model-axis-only ctx on the full batch
+      ``grad_case`` (both data rows compute the same);
+    * each run of ``runs``: ``steps`` train steps through
+      build_train_program, per-step losses, what its communicators
+      recorded after step 1, the final local state of runs marked
+      ``state``, and a checkpoint of the run marked ``ckpt`` (data row 0
+      saves, model rank 0 writes);
+    * the local shards this rank restores from the reference's
+      checkpoint in ``ref_ckpt_dir``."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_reference, shard_params
+    from repro_torch.core.communicator import CommConfig
+    from repro_torch.core.links import PROFILES, degrade_profile
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.launch.steps import build_train_program
+    from repro_torch.models.tp import ParallelCtx
+    from repro_torch.models.transformer import lm_loss, param_specs
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from torch.utils import _pytree as pytree
+    mesh = Mesh((2, 4), ("data", "model"), device="cpu")
+    tpi = mesh.axis_index("model")
+    out = {}
+    for run in runs.values():
+        base, _, spec = run["comm"]["profile"].partition("!")
+        if spec:                    # a degraded profile registers by use
+            degrade_profile(PROFILES[base], spec)
+
+    def local(n_layers):
+        cfg = get_config("glm4-9b").reduced(n_layers=n_layers)
+        specs = param_specs(cfg)
+        return cfg, specs, shard_params(
+            params_from_reference(params_np[n_layers]), specs, tpi, 4)
+
+    cfg, specs, params = local(2)
+    ctx = ParallelCtx(tp_axis="model", tp_size=4, mesh=mesh,
+                      comm_config=CommConfig(**grad_case["comm"]))
+    leaves, tree = pytree.tree_flatten(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v) for k, v in grad_case["batch"].items()}
+    loss = lm_loss(params, batch, cfg, ctx, remat=True)
+    grads = torch.autograd.grad(loss, leaves)
+    out["grad"] = {"loss": float(loss), "grads": flat_leaves(
+        pytree.tree_unflatten(list(grads), tree))}
+
+    for name, run in runs.items():
+        cfg, specs, params = local(run["layers"])
+        opt_state = init_state(params)
+        program, ctx = build_train_program(
+            cfg, mesh, comm=CommConfig(**run["comm"]),
+            opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+            device="cpu", name=name)
+        batches = make_batches(cfg, seq_len=32, batch_per_shard=4, seed=7)
+        losses, rec = [], None
+        for i in range(run["steps"]):
+            params, opt_state, m = program.step(params, opt_state,
+                                                next(batches))
+            losses.append(float(m["loss"]))
+            if i == 0 and run.get("record"):
+                rec = recording(ctx, name,
+                                 f"{work_dir}/{name}-rank{mesh.rank}.json")
+        program.close()
+        out[name] = {"losses": losses, "recording": rec}
+        if run.get("state"):
+            out[name]["state"] = {"params": flat_leaves(params),
+                                  "mu": flat_leaves(opt_state.mu),
+                                  "nu": flat_leaves(opt_state.nu)}
+        if run.get("ckpt") and mesh.axis_index("data") == 0:
+            Checkpointer(ckpt_dir, ctx=ctx, specs=specs).save(
+                run["steps"], params, opt_state)
+        if run.get("ckpt"):
+            got, got_opt, meta = Checkpointer(
+                ref_ckpt_dir, ctx=ctx, specs=specs).restore(
+                    params, init_state(params))
+            out["restored"] = {"step": meta["step"],
+                               "params": flat_leaves(got),
+                               "mu": flat_leaves(got_opt.mu),
+                               "nu": flat_leaves(got_opt.nu)}
+    return out

@@ -139,8 +139,7 @@ def test_default_profile_is_h100_and_compress_raises():
         comm.all_reduce(torch.zeros(8))
 
 
-@pytest.mark.parametrize("field,item", [("tp_size", "item 7"),
-                                        ("node_size", "item 12"),
+@pytest.mark.parametrize("field,item", [("node_size", "item 12"),
                                         ("pod_size", "item 14")])
 def test_parallel_ctx_names_what_still_raises(field, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -154,6 +153,8 @@ def test_parallel_ctx_one_device_and_data_axis_without_mesh():
     assert ctx.grad_all_reduce(grads) is grads
     with pytest.raises(ValueError, match="mesh"):
         ParallelCtx(dp_axis="data", dp_size=4)
+    with pytest.raises(ValueError, match="mesh"):
+        ParallelCtx(tp_axis="model", tp_size=2)
 
 
 # ---------------------------------------------------------------------------

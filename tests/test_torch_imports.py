@@ -65,3 +65,74 @@ def test_the_training_slice_is_checked():
               "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert m in MODULES, m
     assert (PORT / "kernels" / "csrc" / "codec.cu").exists()
+
+
+def test_the_tensor_parallel_slice_is_checked():
+    """The modules the tensor-parallel train step added or changed are
+    among those checked above: K7's wrapper and source, the differentiable
+    collectives (routing, the mesh's psum) and the model-axis ctx."""
+    for m in ("repro_torch.kernels.payload_partition",
+              "repro_torch.core.routing", "repro_torch.core.communicator",
+              "repro_torch.launch.mesh", "repro_torch.models.tp",
+              "repro_torch.convert"):
+        assert m in MODULES, m
+    assert (PORT / "kernels" / "csrc" / "payload_partition.cu").exists()
+
+
+class _TensorParallel:
+    """The part of a model-axis ParallelCtx the decode paths read: tp = 2,
+    this rank model index 0, combines that pass through."""
+    tp_size = 2
+
+    def tp_index(self):
+        return 0
+
+    def tp_all_reduce(self, x):
+        return x
+
+
+def test_decode_paths_refuse_tensor_parallel():
+    """Serving across devices is ROADMAP queue 1 item 11: the dense decode
+    path, paged attention, and the caches behind both raise at tp > 1 and
+    name it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_params
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = get_config("glm4-9b").reduced()
+    ctx = _TensorParallel()
+    gen = torch.Generator().manual_seed(0)
+    p = shard_params(L.init_attention(gen, cfg, torch.float32, "cpu"),
+                     L.attention_specs(cfg), 0, ctx.tp_size)
+    x = torch.zeros(1, 1, cfg.d_model)
+    hd = cfg.head_dim_
+    cache = (torch.zeros(1, 8, 1, hd), torch.zeros(1, 8, 1, hd))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        L.attention_block(p, x, cfg, ctx, kv_cache=cache, cache_pos=0)
+    pools = (torch.zeros(4, 16, 1, hd), torch.zeros(4, 16, 1, hd))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        L.paged_attention_block(p, x, cfg, ctx,
+                                positions=torch.zeros(1, dtype=torch.long),
+                                kv_valid=torch.ones(1, dtype=torch.long),
+                                pools=pools,
+                                block_tables=torch.zeros(1, 1,
+                                                         dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        T.init_cache(cfg, ctx, T.DecodeConfig(cache_len_local=8), 1)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        T.init_paged_pool(cfg, ctx, T.PagedConfig())
+    # training and prefill attention (no cache) run at tp > 1
+    out, _ = L.attention_block(p, torch.zeros(1, 3, cfg.d_model), cfg, ctx)
+    assert out.shape == (1, 3, cfg.d_model)
+
+
+@pytest.mark.parametrize("paged", ["on", "off"])
+def test_serve_launcher_refuses_tensor_parallel(monkeypatch, paged):
+    """The serve launcher's engines refuse a ctx with a model axis wider
+    than 1, naming item 11 (the launcher itself builds one device's)."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(serve, "single_device_ctx", _TensorParallel)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        serve.main(["--smoke", "--device", "cpu", "--paged", paged,
+                    "--requests", "1"])

@@ -11,6 +11,7 @@ paths that must raise until ported, and the launcher.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +33,6 @@ from repro_torch import configs as t_configs
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.convert import params_from_reference, tensor_from_numpy
 from repro_torch.launch import serve as t_serve
-from repro_torch.models import ParallelCtx as TParallelCtx
 from repro_torch.models import single_device_ctx as t_ctx
 from repro_torch.models import transformer as TT
 from repro_torch.runtime.program import StepProgram as TStepProgram
@@ -93,8 +93,14 @@ def test_step_program_counters_match_reference():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TParallelCtx(tp_axis="model", tp_size=2)
+    """Serving across devices (a model axis, item 11) and the families of
+    item 9 raise."""
+    tp2 = types.SimpleNamespace(tp_size=2)
+    cfg = t_get_config("glm4-9b").reduced()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TT.init_cache(cfg, tp2, TT.DecodeConfig(cache_len_local=8), 1)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TT.init_paged_pool(cfg, tp2, TT.PagedConfig())
     gen = torch.Generator().manual_seed(0)
     for arch in ("mixtral-8x7b", "mamba2-1.3b", "whisper-medium"):
         with pytest.raises(NotImplementedError, match="not ported"):

@@ -324,7 +324,7 @@ def test_train_launcher_refuses_what_is_not_ported():
     assert train.main(["--smoke", "--device", "cpu", "--dist", "gloo",
                        "--nodes", "2", "--mesh-shape", "2,1"]) == 2
     assert train.main(["--smoke", "--device", "cpu", "--dist", "gloo",
-                       "--mesh-shape", "1,2"]) == 2
+                       "--pods", "2", "--mesh-shape", "2,1"]) == 2
     assert train.main(["--smoke", "--device", "cpu", "--mesh-shape",
                        "2,1"]) == 2                   # nccl on the CPU
     if not torch.cuda.is_available():
