@@ -8,22 +8,32 @@ non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    kernel from the checkout's CUDA sources (K6, K1, K2-K5 and K7, one
-   ``nvcc`` per source, all at once), timed;
+   ``nvcc`` per source, all at once), timed, with ptxas's registers and
+   spills of each kernel and K6's dynamic shared memory;
 2. K6, the paged flash-decode kernel, against its plain PyTorch version at
-   glm4-9b shapes (Hq 32, Hkv 2, hd 128, block 16; T in {1, 8, 32}, max
-   blocks in {6, 256}; float32 and bfloat16; padding rows and a sliding
-   window) at atol 3e-5 (f32) / 2e-2 (bf16), padding rows exact zeros;
+   glm4-9b shapes (Hq 32, Hkv 2, hd 128, block 16) and at GQA groups 1,
+   2, 4, 8, 12 and 16 with hd 64 and 128 (T in {1, 8, 32}, max blocks in
+   {6, 64, 256}; float32 and bfloat16; padding rows and a sliding window)
+   at atol 3e-5 (f32) / 2e-2 (bf16), padding rows exact zeros; the
+   n_split each call took is printed;
 3. reduced glm4-9b in float32 (TF32 off throughout): the paged engine
    with the kernel, the paged engine with the dense-gather reference and
    the wave engine give equal greedy streams;
 4. full-width glm4-9b in bfloat16 (random weights from seed 0) through
    the serving launcher, ``--paged on --attn-impl kernel --requests 8
    --mixed``: every request served, K6 launched 40 x packed steps; then
-   one packed step's logits with the kernel against the reference path;
-5. K6 timed by CUDA events (median) at the phase-4 shape and at 256
-   blocks, beside its plain version, ``F.scaled_dot_product_attention``
-   on the gathered dense K/V (a yardstick the port never calls) and the
-   memory bound of the card named in phase 1;
+   one packed step's logits with the kernel against the reference path,
+   and the workload once more under ``torch.profiler`` (the device's busy
+   share, the top kernels, K6's device time a packed step);
+5. K6 timed by CUDA events (median) at the phase-4 shape and at 256 and
+   1024 blocks, beside its plain version,
+   ``F.scaled_dot_product_attention`` on the gathered dense K/V,
+   head-expanded and with ``enable_gqa`` (the yardsticks the port never
+   calls; the faster is the library time), a streaming read of as many
+   bytes (``torch.sum`` over a contiguous buffer: what a plain kernel
+   reaches at that size) and the memory bound of the card named in phase
+   1, each call on its own copy of the operands, rotated out of L2 (the
+   L2-warm reading that PRs 11-14 reported is printed beside it);
 6. K1, the staged ring's chunk accumulate, against its plain version in
    float32 and bfloat16 at lengths {1, 1000, 2^20+7, 2^26}, aligned and
    one element off alignment: bit for bit, and equal to ``a + b`` in
@@ -154,13 +164,13 @@ def card_peaks(name: str):
     raise RuntimeError(f"chip_smoke: no datasheet figures for {name!r}")
 
 
-def make_case(gen, t_rows, maxb, dtype, n_pads=0):
+def make_case(gen, t_rows, maxb, dtype, n_pads=0, hq=HQ, hkv=HKV, hd=HD):
     """q, pools, block tables (each row its own blocks) and kv_valid."""
     dev = "cuda"
     nb = t_rows * maxb
-    q = torch.randn((t_rows, HQ, HD), generator=gen, device=dev).to(dtype)
-    kp = torch.randn((nb, BS, HKV, HD), generator=gen, device=dev).to(dtype)
-    vp = torch.randn((nb, BS, HKV, HD), generator=gen, device=dev).to(dtype)
+    q = torch.randn((t_rows, hq, hd), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((nb, BS, hkv, hd), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((nb, BS, hkv, hd), generator=gen, device=dev).to(dtype)
     tables = torch.randperm(nb, generator=gen, device=dev).to(
         torch.int32).reshape(t_rows, maxb)
     kv_valid = torch.randint(1, maxb * BS + 1, (t_rows,), generator=gen,
@@ -226,45 +236,75 @@ def phase1_card_and_build():
     build_s = time.perf_counter() - t0
     for src, (lib, log) in built.items():
         for line in log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            spills = "spill" in line and "0 bytes spill stores, 0 bytes " \
+                "spill loads" not in line
+            if spills or "registers" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
         print(f"phase 1: built {lib.relative_to(ROOT)} from "
               f"{src.relative_to(ROOT)}")
+    smem = {f"{str(dt)[6:]} hd {hd}": fd.smem_bytes(dt, hd)
+            for dt in (torch.float32, torch.bfloat16) for hd in (64, 128)}
+    print(f"phase 1: K6 split kernel dynamic shared memory (bytes a CTA of "
+          f"128 threads): {smem}")
     print(f"phase 1: card {torch.cuda.get_device_name(0)}; "
           f"{len(built)} kernels built in parallel in {build_s:.1f} s")
     return smi[0]
 
 
+# (Hq, Hkv, hd) of phase 2: glm4-9b first, then GQA groups 1 (whisper,
+# zamba2), 2, 4 (mixtral), 8 (deepseek, qwen2), 12 (starcoder2) and 16 at
+# hd 64
+K6_SHAPES = [(HQ, HKV, HD), (16, 16, 64), (8, 4, 128), (32, 8, 128),
+             (16, 2, 128), (24, 2, 128), (32, 2, 64)]
+
+
 def phase2_kernel_vs_plain(gen):
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ref
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        for t_rows in (1, 8, 32):
-            for maxb in (6, 256):
-                n_pads = 0 if t_rows == 1 else 2
-                windows = [None] + ([8 if maxb == 6 else 1000]
-                                    if t_rows > 1 else [])
-                case = make_case(gen, t_rows, maxb, dtype, n_pads)
-                for window in windows:
-                    got = fd.paged_flash_decode_pool(*case, window=window)
-                    want = ref.paged_flash_decode_ref(*case, window=window)
-                    torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
-                    check(err <= ATOL[dtype],
-                          f"K6 {dtype} T={t_rows} maxb={maxb} "
-                          f"window={window}: max err {err} > {ATOL[dtype]}")
-                    if n_pads:
-                        check(bool(torch.all(got[-n_pads:] == 0)),
-                              "K6 padding rows are not exact zeros")
-                    check(bool(torch.all(torch.isfinite(got))),
-                          "K6 output not finite")
-                    errs[dtype] = max(errs[dtype], err)
-    print(f"phase 2: K6 vs plain version at Hq {HQ} Hkv {HKV} hd {HD} "
-          f"block {BS}, T {{1,8,32}} x maxb {{6,256}}, with padding rows and "
-          f"windows: max abs err f32 {errs[torch.float32]:.3g} (atol 3e-5), "
-          f"bf16 {errs[torch.bfloat16]:.3g} (atol 2e-2); padding rows exact "
-          f"zeros")
+    for hq, hkv, hd in K6_SHAPES:
+        shape_errs = {}
+        splits = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for t_rows in (1, 8, 32):
+                for maxb in (6, 64, 256):
+                    n_pads = 0 if t_rows == 1 else 2
+                    windows = [None] + ([8 if maxb == 6 else 1000]
+                                        if t_rows > 1 else [])
+                    case = make_case(gen, t_rows, maxb, dtype, n_pads, hq,
+                                     hkv, hd)
+                    splits[t_rows, maxb] = fd.split_plan(t_rows, hkv, maxb,
+                                                         BS, n_sm)[0]
+                    for window in windows:
+                        got = fd.paged_flash_decode_pool(*case,
+                                                         window=window)
+                        want = ref.paged_flash_decode_ref(*case,
+                                                          window=window)
+                        torch.cuda.synchronize()
+                        err = (got.float() - want.float()).abs().max().item()
+                        check(err <= ATOL[dtype],
+                              f"K6 {dtype} Hq={hq} Hkv={hkv} hd={hd} "
+                              f"T={t_rows} maxb={maxb} window={window}: max "
+                              f"err {err} > {ATOL[dtype]}")
+                        if n_pads:
+                            check(bool(torch.all(got[-n_pads:] == 0)),
+                                  "K6 padding rows are not exact zeros")
+                        check(bool(torch.all(torch.isfinite(got))),
+                              "K6 output not finite")
+                        errs[dtype] = max(errs[dtype], err)
+                        shape_errs[dtype] = max(shape_errs.get(dtype, 0.0),
+                                                err)
+                    del case
+        print(f"phase 2: K6 Hq {hq} Hkv {hkv} (group {hq // hkv}) hd {hd}: "
+              f"max abs err f32 {shape_errs[torch.float32]:.3g}, bf16 "
+              f"{shape_errs[torch.bfloat16]:.3g}; n_split by (T, maxb) "
+              f"{splits}")
+    print(f"phase 2: K6 vs plain version at {len(K6_SHAPES)} head shapes, "
+          f"block {BS}, T {{1,8,32}} x maxb {{6,64,256}}, with padding rows "
+          f"and windows: max abs err f32 {errs[torch.float32]:.3g} (atol "
+          f"3e-5), bf16 {errs[torch.bfloat16]:.3g} (atol 2e-2); padding "
+          f"rows exact zeros")
     return errs
 
 
@@ -424,6 +464,13 @@ def profile_serve(cfg, params):
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         print(f"  device {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} "
               f"{e.key[:100]}")
+    k6 = [e for e in kernels if "fd_split_kernel" in e.key
+          or "fd_merge_kernel" in e.key]
+    k6_ms = sum(dev_us(e) for e in k6) / 1e3
+    print(f"phase 4: K6 in the profiled drain: {k6_ms:.3f} ms of device "
+          f"time over {sum(e.count for e in k6)} launches, "
+          f"{k6_ms / steps:.3f} ms a packed step ({k6_ms / busy_ms:.1%} of "
+          f"the device's busy time)")
     host = [e for e in avgs if e.device_type == DeviceType.CPU]
     for e in sorted(host, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:10]:
@@ -431,30 +478,34 @@ def profile_serve(cfg, params):
               f"x{e.count:<6d} {e.key[:100]}")
 
 
+def _dense_kv(case, expand):
+    """SDPA's operands for one K6 case: q [T, Hq, 1, hd], the K/V of each
+    row's blocks gathered dense ([T, H, S, hd], H = Hq if ``expand`` else
+    Hkv) and the kv_valid mask."""
+    q, kp, vp, tables, kv_valid = case
+    t_rows, maxb = tables.shape
+    flat = (tables[:, :, None].long() * BS +
+            torch.arange(BS, device="cuda")).reshape(t_rows, maxb * BS)
+    kd = kp.reshape(-1, HKV, HD)[flat].permute(0, 2, 1, 3)
+    vd = vp.reshape(-1, HKV, HD)[flat].permute(0, 2, 1, 3)
+    if expand:
+        kd = kd.repeat_interleave(HQ // HKV, dim=1)
+        vd = vd.repeat_interleave(HQ // HKV, dim=1)
+    mask = (torch.arange(maxb * BS, device="cuda")[None, :]
+            < kv_valid[:, None])[:, None, None, :]
+    return q[:, :, None, :], kd.contiguous(), vd.contiguous(), mask
+
+
 def phase5_times(card):
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ref
     key, (mem_bps, bf16_flops) = card_peaks(card)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = {}
-    for maxb in (6, 256):
-        case = make_case(gen, 32, maxb, torch.bfloat16)
-        q, kp, vp, tables, kv_valid = case
-        # the library yardstick: SDPA over the gathered dense K/V with the
-        # kv_valid mask (gather and head expansion outside the timing)
-        flat = (tables[:, :, None].long() * BS +
-                torch.arange(BS, device="cuda")).reshape(32, maxb * BS)
-        kd = kp.reshape(-1, HKV, HD)[flat].permute(0, 2, 1, 3)
-        vd = vp.reshape(-1, HKV, HD)[flat].permute(0, 2, 1, 3)
-        kd = kd.repeat_interleave(HQ // HKV, dim=1).contiguous()
-        vd = vd.repeat_interleave(HQ // HKV, dim=1).contiguous()
-        mask = (torch.arange(maxb * BS, device="cuda")[None, :]
-                < kv_valid[:, None])[:, None, None, :]
-        q4 = q[:, :, None, :]
-        ms = time_ms(lambda: fd.paged_flash_decode_pool(*case))
-        plain_ms = time_ms(lambda: ref.paged_flash_decode_ref(*case))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kd, vd, attn_mask=mask))
+    for maxb in (6, 256, 1024):
+        base = make_case(gen, 32, maxb, torch.bfloat16)
+        q, kp, vp, tables, kv_valid = base
         # the bound: K/V of the positions < kv_valid read once, q read and
         # out written once, tables and kv_valid read once
         n_pos = int(kv_valid.sum().item())
@@ -465,15 +516,69 @@ def phase5_times(card):
         bound_ms = max(nbytes / mem_bps, flops / bf16_flops) * 1e3
         bound_by = "bytes" if nbytes / mem_bps >= flops / bf16_flops \
             else "operations"
-        rows[maxb] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          bytes=nbytes, flops=flops)
-        print(f"phase 5: K6 bf16 T=32 maxb={maxb} ({n_pos} cached positions):"
-              f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes} B at {mem_bps / 1e12:.2f} TB/s, {flops} flop at "
+        # every timed call on its own copy of the same inputs
+        k = rotations(nbytes)
+        cases = [base] + [tuple(x.clone() for x in base)
+                          for _ in range(k - 1)]
+        n_split = fd.split_plan(32, HKV, maxb, BS, n_sm)[0]
+        before = fd.launch_count
+        ms = time_ms(lambda i: fd.paged_flash_decode_pool(*cases[i]),
+                     sets=k)
+        warm_ms = time_ms(lambda: fd.paged_flash_decode_pool(*base))
+        want = ref.paged_flash_decode_ref(*base).float()
+        fd.launch_count = before    # timing launches are not the path's
+        plain_ms = time_ms(lambda i: ref.paged_flash_decode_ref(*cases[i]),
+                           sets=k)
+        # the library yardsticks: SDPA over the gathered dense K/V with the
+        # kv_valid mask (gather and head expansion outside the timing),
+        # head-expanded, and unexpanded with enable_gqa where this torch
+        # takes it with a mask
+        lib = {}
+        for name, expand, extra in (("SDPA", True, {}),
+                                    ("SDPA enable_gqa", False,
+                                     {"enable_gqa": True})):
+            try:
+                dense = [_dense_kv(c, expand) for c in cases]
+                got = F.scaled_dot_product_attention(
+                    *dense[0][:3], attn_mask=dense[0][3], **extra)
+            except (RuntimeError, TypeError) as exc:
+                print(f"phase 5: {name} not taken by torch "
+                      f"{torch.__version__}: {str(exc)[:120]}")
+                continue
+            err = (got[:, :, 0].float() - want).abs().max().item()
+            check(err <= ATOL[torch.bfloat16],
+                  f"{name} yardstick off the plain version by {err}")
+            lib[name] = time_ms(
+                lambda i: F.scaled_dot_product_attention(
+                    *dense[i][:3], attn_mask=dense[i][3], **extra), sets=k)
+            del dense, got
+            torch.cuda.empty_cache()
+        lib_name = min(lib, key=lib.get)
+        # what a plain streaming kernel reaches on as many bytes
+        flat = [torch.ones(nbytes // 2, dtype=torch.bfloat16, device="cuda")
+                for _ in range(k)]
+        stream_ms = time_ms(lambda i: flat[i].sum(dtype=torch.float32),
+                            sets=k)
+        del flat
+        rows[maxb] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib[lib_name],
+                          library_call=lib_name, library_all=lib,
+                          ms_l2_warm=warm_ms, stream_ms=stream_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                          flops=flops, n_split=n_split, copies=k)
+        print(f"phase 5: K6 bf16 T=32 maxb={maxb} ({n_pos} cached positions,"
+              f" n_split {n_split}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, "
+              + ", ".join(f"{n} {t:.4f} ms" for n, t in lib.items())
+              + f", bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B at "
+              f"{mem_bps / 1e12:.2f} TB/s, {flops} flop at "
               f"{bf16_flops / 1e12:.0f} TFLOP/s: {key} datasheet); "
-              f"{bound_ms / ms:.1%} of bound")
+              f"{bound_ms / ms:.1%} of bound; operands rotated over {k} "
+              f"copies, out of L2 (L2-warm, as PRs 11-14 timed it: "
+              f"{warm_ms:.4f} ms); a streaming read of {nbytes} B "
+              f"(torch.sum) {stream_ms:.4f} ms, {bound_ms / stream_ms:.1%} "
+              f"of bound")
+        del cases
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1731,7 +1836,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         launches, _ = phase4_full_width(pathlib.Path(tmp))
     times = phase5_times(card)
-    main_row, long_row = times[6], times[256]
+    main_row, long_row, longer_row = times[6], times[256], times[1024]
     k1_errs = phase6_k1_vs_plain()
     k1_launches, plans = phase7_collectives()
     k1_rows = phase8_k1_times(card, plans)
@@ -1758,9 +1863,15 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "library_call": main_row["library_call"],
+        "n_split": main_row["n_split"],
+        "ms_l2_warm": main_row["ms_l2_warm"],
         "shape": "T=32 Hq=32 Hkv=2 hd=128 block=16 maxb=6 bf16",
-        "maxb256": {k: long_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")},
+        **{f"maxb{m}": {k: row[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call", "n_split", "ms_l2_warm", "stream_ms")}
+           for m, row in ((256, long_row), (1024, longer_row))},
+        "stream_ms": main_row["stream_ms"],
     }, {
         "name": "chunk_accumulate",
         "route": "cuda",

@@ -4,14 +4,19 @@ The same inputs, made with numpy from a seed, go through the JAX
 ``ops.paged_flash_decode`` (the Pallas kernel in interpret mode, as
 tests/test_serving.py runs it) and ``ref.paged_flash_decode_ref``, and
 through the port's plain version and its CPU dispatch.  Tolerances are
-the reference's own: atol 3e-5 in float32, 2e-2 in bfloat16.  The CUDA
-kernel itself is held against the plain version on the card; JAX is
-imported only by the reference fixture, so that test also runs where
-there is no JAX:
+the reference's own: atol 3e-5 in float32, 2e-2 in bfloat16.  The
+kernel's split-KV scheme (``flash_decode.split_plan`` and the log-sum-exp
+merge of the splits' partials) is held against the plain version here
+through a plain model of it kept in this file.  The CUDA kernel itself is
+held against the plain version on the card; JAX is imported only by the
+reference fixture, so those tests also run where there is no JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
         tests/test_torch_flash_decode.py
 """
+
+import inspect
+import math
 
 import numpy as np
 import pytest
@@ -24,15 +29,19 @@ from repro_torch.kernels import ref as tref
 ATOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
 
-def _case(seed, t_rows, hq, hkv, hd, nb, bs, maxb, dtype, n_pads=1):
+def _case(seed, t_rows, hq, hkv, hd, nb, bs, maxb, dtype, n_pads=1,
+          kv_valid=None):
     """CPU tensors made with numpy from ``seed``: q, pools (rounded to
-    ``dtype`` once), tables, kv_valid (the last n_pads rows padding)."""
+    ``dtype`` once), tables, kv_valid (random, or as given; the last
+    n_pads rows padding)."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((t_rows, hq, hd), np.float32)
     kp = rng.standard_normal((nb, bs, hkv, hd), np.float32)
     vp = rng.standard_normal((nb, bs, hkv, hd), np.float32)
     tables = rng.integers(0, nb, (t_rows, maxb)).astype(np.int32)
-    kv_valid = rng.integers(1, maxb * bs + 1, t_rows).astype(np.int32)
+    if kv_valid is None:
+        kv_valid = rng.integers(1, maxb * bs + 1, t_rows)
+    kv_valid = np.array(kv_valid, np.int32)
     if n_pads:
         kv_valid[-n_pads:] = 0
     dt = getattr(torch, dtype)
@@ -54,6 +63,23 @@ CASES["float32-window8"] = (dict(seed=1, t_rows=5, hq=4, hkv=2, hd=64, nb=12,
                                  bs=8, maxb=4, dtype="float32"), 8)
 CASES["float32-pads"] = (dict(seed=2, t_rows=6, hq=4, hkv=2, hd=64, nb=10,
                               bs=8, maxb=3, dtype="float32", n_pads=3), None)
+for _dt in ("float32", "bfloat16"):
+    # groups 8 (deepseek, qwen2), 12 (starcoder2) and 16 at hd 64
+    CASES[f"{_dt}-gqa16:2"] = (dict(seed=4, t_rows=5, hq=16, hkv=2, hd=128,
+                                    nb=20, bs=16, maxb=4, dtype=_dt), None)
+    CASES[f"{_dt}-gqa24:2"] = (dict(seed=5, t_rows=5, hq=24, hkv=2, hd=128,
+                                    nb=24, bs=8, maxb=5, dtype=_dt), None)
+    CASES[f"{_dt}-gqa32:2-hd64"] = (dict(seed=6, t_rows=5, hq=32, hkv=2,
+                                         hd=64, nb=20, bs=16, maxb=4,
+                                         dtype=_dt), None)
+    # a long table the kernel splits (split_plan: 3 splits of 256
+    # positions at 132 SMs), with a window whose first position falls
+    # inside a split (700 - 100 = 600 in [512, 768); 400 - 100 in
+    # [256, 512)), one row that ends inside the window's reach, and a pad
+    CASES[f"{_dt}-long-window100"] = (dict(seed=7, t_rows=4, hq=8, hkv=2,
+                                           hd=64, nb=200, bs=16, maxb=48,
+                                           dtype=_dt,
+                                           kv_valid=[700, 400, 37, 0]), 100)
 
 
 @pytest.fixture(scope="module")
@@ -130,6 +156,147 @@ def test_kernel_wrapper_rejects_cpu_tensors(reference):
     assert fd.launch_count == before
 
 
+# -- the split-KV scheme ------------------------------------------------------
+
+#: (T, Hkv, max_blocks, block_size, n_sm): the phase-4 serve shape, the
+#: phase-5 long shape, the tests' shapes, and edge cases
+SPLIT_SHAPES = [(32, 2, 6, 16, 132), (32, 2, 256, 16, 132),
+                (32, 2, 64, 16, 132), (1, 2, 256, 16, 132),
+                (1, 1, 1, 16, 132), (6, 2, 3, 8, 132), (4, 2, 48, 8, 132),
+                (512, 8, 256, 16, 132), (8, 16, 1000, 1, 132),
+                (3, 1, 7, 5, 114), (1, 1, 4096, 16, 132),
+                (2, 2, 97, 64, 132)]
+
+
+def _split_ranges(max_blocks, n_split, bps):
+    return [(s * bps, min((s + 1) * bps, max_blocks))
+            for s in range(n_split)]
+
+
+def test_split_plan_reads_shapes_only():
+    """The split is chosen from shapes and the SM count: kv_valid is no
+    argument, so the host never waits for the device to choose it."""
+    assert list(inspect.signature(fd.split_plan).parameters) == [
+        "t_rows", "hkv", "max_blocks", "block_size", "n_sm"]
+    for shape in SPLIT_SHAPES:
+        n_split, bps = fd.split_plan(*shape)
+        assert isinstance(n_split, int) and isinstance(bps, int)
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=str)
+def test_split_plan_covers_the_table_with_nonempty_splits(shape):
+    t_rows, hkv, maxb, bs, n_sm = shape
+    n_split, bps = fd.split_plan(*shape)
+    assert 1 <= n_split <= maxb
+    ranges = _split_ranges(maxb, n_split, bps)
+    assert ranges[0][0] == 0 and ranges[-1][1] == maxb
+    assert all(a < b for a, b in ranges)                 # non-empty
+    assert all(b == a2 for (_, b), (a2, _) in zip(ranges, ranges[1:]))
+    if n_split > 1:     # no split but the last shorter than the minimum
+        assert min(b - a for a, b in ranges[:-1]) * bs >= \
+            fd.MIN_SPLIT_POSITIONS
+        # and no more splits than the SMs ask for
+        assert t_rows * hkv * (n_split - 1) < fd.CTAS_PER_SM * n_sm
+
+
+def test_split_plan_at_the_serving_shapes():
+    """The phase-4 packed step (6 blocks) runs one split, one launch; the
+    256-block table fills the card with about CTAS_PER_SM CTAs an SM."""
+    assert fd.split_plan(32, 2, 6, 16, 132) == (1, 6)
+    n_split, bps = fd.split_plan(32, 2, 256, 16, 132)
+    assert n_split > 1 and 32 * 2 * n_split >= fd.CTAS_PER_SM * 132
+    assert fd.split_plan(4, 2, 48, 16, 132) == (3, 16)
+
+
+def _split_model(q, k_pool, v_pool, tables, kv_valid, window, n_split):
+    """Plain model of the kernel's split-KV scheme, on no path: split s
+    takes logical blocks [s*bps, (s+1)*bps) and makes a partial (m, l,
+    acc) over its unmasked positions with _fd_kernel's isfinite guards;
+    the partials fold with the log-sum-exp rule.  Returns (out, m of every
+    split [n_split, T, Hkv, group])."""
+    t_rows, hq, hd = q.shape
+    nb, bs, hkv, _ = k_pool.shape
+    maxb = tables.shape[1]
+    bps = -(-maxb // n_split)
+    assert -(-maxb // bps) == n_split
+    s_len = maxb * bs
+    flat = (tables[:, :, None].long() * bs + torch.arange(bs)
+            ).reshape(t_rows, s_len)
+    k = k_pool.reshape(nb * bs, hkv, hd)[flat].double()
+    v = v_pool.reshape(nb * bs, hkv, hd)[flat].double()
+    qg = (q.double() / math.sqrt(hd)).reshape(t_rows, hkv, hq // hkv, hd)
+    s = torch.einsum("tkgd,tskd->tkgs", qg, k)
+    pos = torch.arange(s_len)[None, :]
+    kvv = kv_valid[:, None].long()
+    keep = pos < kvv
+    if window is not None:
+        keep = keep & ((kvv - 1 - pos) < window)
+    ms, ls, accs = [], [], []
+    for a, b in _split_ranges(maxb, n_split, bps):
+        mine = keep & (pos >= a * bs) & (pos < b * bs)
+        ss = torch.where(mine[:, None, None, :], s, -math.inf)
+        m = ss.amax(dim=-1)
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        p = torch.where(torch.isfinite(ss), torch.exp(ss - m_safe[..., None]),
+                        0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("tkgs,tskd->tkgd", p, v))
+    m_all = torch.stack(ms)
+    m_top = m_all.amax(dim=0)
+    m_top = torch.where(torch.isfinite(m_top), m_top, 0.0)
+    f = torch.where(torch.isfinite(m_all), torch.exp(m_all - m_top), 0.0)
+    denom = (f * torch.stack(ls)).sum(dim=0)
+    acc = (f[..., None] * torch.stack(accs)).sum(dim=0)
+    out = acc / torch.clamp(denom, min=1e-30)[..., None]
+    return out.reshape(t_rows, hq, hd).to(q.dtype), m_all
+
+
+@pytest.mark.parametrize("name", ["float32-long-window100", "float32-pads",
+                                  "float32-window8", "float32-gqa24:2"])
+def test_split_merge_model_matches_plain_version_at_every_split(name):
+    """At every n_split from 1 to max_blocks (each one split_plan could
+    give), the split partials merged by log-sum-exp equal the plain
+    version within the float32 atol; padding rows are exact zeros; and
+    the long case does have empty splits (past kv_valid, and before the
+    window)."""
+    kw, window = CASES[name]
+    t_in = _case(**kw)
+    want = tref.paged_flash_decode_ref(*t_in, window=window)
+    pads = kw.get("n_pads", 1)
+    maxb = kw["maxb"]
+    n_empty = 0
+    for n_split in range(1, maxb + 1):
+        bps = -(-maxb // n_split)
+        if -(-maxb // bps) != n_split:   # no bps gives this many splits
+            continue
+        got, m_all = _split_model(*t_in, window, n_split)
+        np.testing.assert_allclose(_f64(got), _f64(want), atol=ATOL["float32"],
+                                   rtol=0, err_msg=f"n_split={n_split}")
+        assert torch.all(got[-pads:] == 0), n_split
+        n_empty += int((~torch.isfinite(m_all[:, :-pads])).sum())
+    if name.startswith("float32-long"):
+        assert n_empty > 0
+
+
+def test_split_model_empty_splits_before_the_window():
+    """Rows 0 and 1 of the long case start their window inside a split:
+    the splits wholly before it and wholly past kv_valid are empty, the
+    rest are not."""
+    kw, window = CASES["float32-long-window100"]
+    t_in = _case(**kw)
+    n_split, bps = fd.split_plan(kw["t_rows"], kw["hkv"], kw["maxb"],
+                                 kw["bs"], 132)
+    _, m_all = _split_model(*t_in, window, n_split)
+    span = bps * kw["bs"]
+    for t, kvv in enumerate(kw["kv_valid"]):
+        lo = max(0, kvv - window)
+        for s in range(n_split):
+            live = s * span < kvv and (s + 1) * span > lo
+            assert bool(torch.isfinite(m_all[s, t]).all()) == live, (t, s)
+    assert (kw["kv_valid"][0] - window) % span != 0     # inside a split
+
+
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card: the kernel has no CPU mode")
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -145,3 +312,30 @@ def test_cuda_kernel_matches_plain_version(name):
                                atol=ATOL[CASES[name][0]["dtype"]], rtol=0)
     pads = CASES[name][0].get("n_pads", 1)
     assert torch.all(got[-pads:] == 0)
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card: the kernel has no CPU mode")
+@pytest.mark.parametrize("name", ["float32-long-window100",
+                                  "bfloat16-long-window100",
+                                  "bfloat16-gqa24:2", "float32-gqa16:2"])
+def test_cuda_kernel_at_forced_splits(name, monkeypatch):
+    """The kernel with split_plan forced to 1, 2, 3, ... splits (and the
+    merge launch that n_split > 1 adds) equals the plain version."""
+    kw, window = CASES[name]
+    t_in = [x.cuda() for x in _case(**kw)]
+    want = tref.paged_flash_decode_ref(*t_in, window=window)
+    maxb = kw["maxb"]
+    pads = kw.get("n_pads", 1)
+    for bps in sorted({max(1, maxb // n) for n in (1, 2, 3, 5, maxb)}):
+        n_split = -(-maxb // bps)
+        monkeypatch.setattr(fd, "split_plan",
+                            lambda *a, _p=(n_split, bps): _p)
+        before = fd.launch_count
+        got = tops.paged_flash_decode(*t_in, window=window)
+        torch.cuda.synchronize()
+        assert fd.launch_count == before + 1
+        np.testing.assert_allclose(_f64(got.cpu()), _f64(want.cpu()),
+                                   atol=ATOL[kw["dtype"]], rtol=0,
+                                   err_msg=f"n_split={n_split}")
+        assert torch.all(got[-pads:] == 0)
