@@ -30,14 +30,34 @@
 //
 // Bound.  Each is an elementwise pass of a few operations per element
 // against 2-10 bytes moved, far below the H100's ridge: all four are
-// bound by device-memory bytes.  What the design does about it: K2 gives
-// one warp to each 128-element group, 4 elements a lane with one 16-byte
-// (f32) or 8-byte (bf16) load when the input is aligned, the abs-max by
-// warp shuffle, and one 4-byte store of the lane's fp8 values; K3, K4 and
-// K5 take 4 consecutive elements a thread per grid-stride step, with
-// vector loads and stores when every pointer is aligned, and a scalar
-// loop otherwise (a sub-chunk sliced at an odd offset).  Grids are a few
-// waves of the 132 SMs, so the loop, not the launch, covers long arrays.
+// bound by device-memory bytes.  What the design does about it:
+// - K2 gives each 128-element group 16 lanes (bf16 input) or 32 (float32),
+//   each lane one 16-byte load, and a warp issues the loads of kEncUnroll
+//   such units (2 or 1 groups each) before it computes any: 32 bytes a
+//   lane in flight (64 were slower).  The abs-max is an unsigned max of
+//   the |x| bit patterns (4 or 5 shuffle steps inside the group's lanes),
+//   x / scale stays a true division, and pairs convert with the hardware
+//   cvt.rn.satfinite e4m3x2/e5m2x2.  satfinite gives __NV_NOSAT's bytes
+//   here: a group's largest quotient fl(amax / scale) stays below the
+//   format's overflow midpoint (464 e4m3, 61440 e5m2; checked
+//   exhaustively on the CPU by tests/test_torch_codec_quotient.py), and a
+//   NaN quotient needs a non-finite scale, so only such groups take the
+//   canonical-NaN fix-up.  A group of zeros skips the division.  A lane
+//   stores its fp8 bytes with one 8- or 4-byte store.
+// - K3/K4 give each thread units of 8 (bf16 output) or 4 (float32) fp8
+//   values, so that a unit's output is one 16-byte store, kDecUnroll units
+//   a thread and a chunk of consecutive units a block, each warp
+//   instruction on one contiguous span (16 fp8 values a thread, stored as
+//   32 or 64 bytes with that stride between lanes, were slower than the
+//   old kernel).  Pairs decode with the exact hardware
+//   cvt.rn.f16x2.e4m3x2 / e5m2x2; K3 loads b as one 16-byte load a unit.
+// - Operands that are not 16-byte aligned (a sub-chunk sliced at an odd
+//   offset) take the scalar loops, as do K2's partial last group and the
+//   n % 8 (or % 4) tail of K3/K4, inside the same launch.  K2-K4 launch
+//   a block for each chunk of work (loops over chunks only past 2^20
+//   blocks); K5 takes 4 consecutive elements a thread, with vector loads
+//   and stores when every pointer is aligned, on a grid of a few waves of
+//   the 132 SMs with a grid-stride loop.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -49,8 +69,11 @@ namespace {
 
 constexpr int kGroup = 128;
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 8;
+constexpr int kMaxBlocks = 132 * 8;     // K5: a few waves of 132 SMs
+constexpr int64_t kChunkBlocks = 1 << 20;  // K2-K4: blocks before a loop
 constexpr float kScaleTiny = 1e-30f;
+constexpr int kEncUnroll = 2;   // K2: 16-byte loads a lane issues at once
+constexpr int kDecUnroll = 4;   // K3/K4: 16-byte output units a thread
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -71,25 +94,46 @@ __device__ __forceinline__ float nanmax(float a, float b) {
   return (isnan(a) || a > b) ? a : b;
 }
 
-struct Fmt {
-  __nv_fp8_interpretation_t interp;
-  float inv_max;      // fp32(1 / FP8_MAX)
-  uint8_t nan_byte;
+// fmt codes: 0 = e4m3, 1 = e5m2
+template <int FMT> struct Fmt;
+template <> struct Fmt<0> {
+  static constexpr __nv_fp8_interpretation_t kInterp = __NV_E4M3;
+  static constexpr float kInvMax = 1.0f / 448.0f;     // fp32(1 / FP8_MAX)
+  static constexpr uint8_t kNanByte = 0x7F;
+};
+template <> struct Fmt<1> {
+  static constexpr __nv_fp8_interpretation_t kInterp = __NV_E5M2;
+  static constexpr float kInvMax = 1.0f / 57344.0f;
+  static constexpr uint8_t kNanByte = 0x7E;
 };
 
-__device__ __forceinline__ Fmt fmt_of(int code) {
-  if (code == 0) return {__NV_E4M3, 1.0f / 448.0f, 0x7F};
-  return {__NV_E5M2, 1.0f / 57344.0f, 0x7E};
+template <int FMT>
+__device__ __forceinline__ uint8_t quantize(float q) {
+  if (isnan(q)) return Fmt<FMT>::kNanByte;
+  return (uint8_t)__nv_cvt_float_to_fp8(q, __NV_NOSAT, Fmt<FMT>::kInterp);
 }
 
-__device__ __forceinline__ uint8_t quantize(float q, const Fmt& f) {
-  if (isnan(q)) return f.nan_byte;
-  return (uint8_t)__nv_cvt_float_to_fp8(q, __NV_NOSAT, f.interp);
+// two quotients at once (a in the low byte), by cvt.rn.satfinite: the
+// bytes of quantize() for every |q| below the overflow midpoint (header)
+template <int FMT>
+__device__ __forceinline__ uint32_t quantize2(float a, float b) {
+  return __nv_cvt_float2_to_fp8x2(make_float2(a, b), __NV_SATFINITE,
+                                  Fmt<FMT>::kInterp);
 }
 
-__device__ __forceinline__ float dequant(uint8_t v, const Fmt& f) {
-  __half_raw h = __nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)v, f.interp);
+template <int FMT>
+__device__ __forceinline__ float dequant(uint8_t v) {
+  __half_raw h = __nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)v,
+                                         Fmt<FMT>::kInterp);
   return __half2float(__half(h));       // exact: fp8 fits in half
+}
+
+// the two fp8 values of a 16-bit word (the low byte first), exactly
+template <int FMT>
+__device__ __forceinline__ float2 dequant2(uint32_t pair) {
+  __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      (__nv_fp8x2_storage_t)(pair & 0xFFFFu), Fmt<FMT>::kInterp);
+  return __half22float2(__half2(h));
 }
 
 // four consecutive elements as f32, from one vector load
@@ -97,22 +141,52 @@ __device__ __forceinline__ void load4(const float* p, float* v) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&q);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) v[k] = __bfloat162float(e[k]);
-}
 
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
   uint2 q;
   __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&q);
 #pragma unroll
   for (int k = 0; k < 4; ++k) e[k] = from_f32<__nv_bfloat16>(v[k]);
   *reinterpret_cast<uint2*>(p) = q;
+}
+
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// 32-bit word j of a 16-byte vector (j a compile-time index once unrolled)
+__device__ __forceinline__ uint32_t word(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// 16 bytes of input as f32: 4 floats, or 8 bf16 (the low half of a word
+// first, as they lie in memory)
+__device__ __forceinline__ void unpack16(const uint4& w, float (&v)[4]) {
+  v[0] = __uint_as_float(w.x); v[1] = __uint_as_float(w.y);
+  v[2] = __uint_as_float(w.z); v[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& w, float (&v)[8]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(u[k] << 16);
+    v[2 * k + 1] = __uint_as_float(u[k] & 0xFFFF0000u);
+  }
+}
+
+// max |x| of 16 bytes of input, as f32 bits.  For floats of one sign the
+// unsigned order of the bit patterns is the numeric order, with NaN above
+// inf, so an unsigned max of the |x| patterns is the NaN-keeping abs-max.
+__device__ __forceinline__ uint32_t absmax_bits(const uint4& w, float) {
+  constexpr uint32_t kAbs = 0x7FFFFFFFu;
+  return max(max(w.x & kAbs, w.y & kAbs), max(w.z & kAbs, w.w & kAbs));
+}
+__device__ __forceinline__ uint32_t absmax_bits(const uint4& w,
+                                                __nv_bfloat16) {
+  constexpr uint32_t kHi = 0x7FFF0000u, kLo = 0x7FFFu;
+  const uint32_t hi = max(max(w.x & kHi, w.y & kHi), max(w.z & kHi, w.w & kHi));
+  const uint32_t lo = max(max(w.x & kLo, w.y & kLo), max(w.z & kLo, w.w & kLo));
+  return max(hi, lo << 16);
 }
 
 int grid_for(int64_t work_items) {
@@ -128,38 +202,94 @@ bool aligned(const void* p, int bytes) {
 
 // -- K2 -----------------------------------------------------------------------
 
-template <typename T>
-__global__ void fp8_encode_kernel(const T* __restrict__ x,
-                                  uint8_t* __restrict__ vals,
-                                  float* __restrict__ scales, int64_t n,
-                                  int64_t n_groups, int fmt_code, bool vec) {
-  const Fmt f = fmt_of(fmt_code);
+// The first n_full groups (0 unless x is 16-byte aligned) by the vector
+// path; the rest (the partial last group, or every group of an unaligned
+// x) by the scalar path, one warp a group, 4 elements a lane.
+template <typename T, int FMT>
+__global__ void __launch_bounds__(kThreads)
+fp8_encode_kernel(const T* __restrict__ x, uint8_t* __restrict__ vals,
+                  float* __restrict__ scales, int64_t n, int64_t n_groups,
+                  int64_t n_full) {
+  constexpr int kPer = 16 / sizeof(T);       // elements a lane: 8 or 4
+  constexpr int kLanes = kGroup / kPer;      // lanes a group: 16 or 32
+  constexpr int kGpw = 32 / kLanes;          // groups a warp-wide unit
+  constexpr int kStep = kGpw * kEncUnroll;   // groups a warp a pass
+  constexpr float kInvMax = Fmt<FMT>::kInvMax;
   const int lane = threadIdx.x & 31;
+  const int sub = lane / kLanes, l = lane % kLanes;
   const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
-  // g is the same on every lane of a warp, so the shuffles below see
-  // the whole warp
-  for (int64_t g = warp; g < n_groups; g += n_warps) {
-    const int64_t base = g * kGroup + lane * 4;
-    const bool full = (g + 1) * kGroup <= n;
-    float v[4];
-    if (full && vec) {
-      load4(x + base, v);
-    } else {
+  // g0 is the same on every lane of a warp, so every lane reaches the
+  // shuffles; a lane past n_full shuffles zeros and stores nothing
+  for (int64_t g0 = warp * kStep; g0 < n_full; g0 += n_warps * kStep) {
+    uint4 w[kEncUnroll];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        v[k] = base + k < n ? to_f32(x[base + k]) : 0.0f;   // zero padding
+    for (int u = 0; u < kEncUnroll; ++u) {
+      const int64_t g = g0 + u * kGpw + sub;
+      w[u] = g < n_full ? ld16(x + g * kGroup + l * kPer)
+                        : make_uint4(0u, 0u, 0u, 0u);
     }
+#pragma unroll
+    for (int u = 0; u < kEncUnroll; ++u) {
+      const int64_t g = g0 + u * kGpw + sub;
+      uint32_t m = absmax_bits(w[u], T());
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off >>= 1)
+        m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+      // max(amax, 1e-30) as bits: both are non-negative
+      const float scale = __fmul_rn(
+          __uint_as_float(max(m, __float_as_uint(kScaleTiny))), kInvMax);
+      float v[kPer];
+      unpack16(w[u], v);
+      float q[kPer];
+      // a group of zeros (and a lane past n_full) divides by the clamped
+      // scale, which sends __fdiv_rn down its slow path; x / scale is x
+      // there (signed zeros), so the division is skipped
+      if (m == 0u) {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) q[k] = v[k];
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) q[k] = __fdiv_rn(v[k], scale);
+      }
+      uint32_t out[kPer / 4];
+#pragma unroll
+      for (int k = 0; k < kPer; k += 4)
+        out[k / 4] = quantize2<FMT>(q[k], q[k + 1]) |
+                     (quantize2<FMT>(q[k + 2], q[k + 3]) << 16);
+      if (!isfinite(scale)) {   // a NaN or inf in the group: NaN fix-up
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+          if (isnan(q[k]))
+            out[k / 4] = (out[k / 4] & ~(0xFFu << (8 * (k % 4)))) |
+                         ((uint32_t)Fmt<FMT>::kNanByte << (8 * (k % 4)));
+      }
+      if (g < n_full) {
+        uint8_t* dst = vals + g * kGroup + l * kPer;
+        if constexpr (kPer == 8)
+          *reinterpret_cast<uint2*>(dst) = make_uint2(out[0], out[1]);
+        else
+          *reinterpret_cast<uint32_t*>(dst) = out[0];
+        if (l == 0) scales[g] = scale;
+      }
+    }
+  }
+  for (int64_t g = n_full + warp; g < n_groups; g += n_warps) {
+    const int64_t base = g * kGroup + lane * 4;
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = base + k < n ? to_f32(x[base + k]) : 0.0f;   // zero padding
     float m = nanmax(nanmax(fabsf(v[0]), fabsf(v[1])),
                      nanmax(fabsf(v[2]), fabsf(v[3])));
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       m = nanmax(m, __shfl_xor_sync(0xffffffffu, m, off));
-    const float scale = __fmul_rn(nanmax(m, kScaleTiny), f.inv_max);
+    const float scale = __fmul_rn(nanmax(m, kScaleTiny), kInvMax);
     uint8_t q[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) q[k] = quantize(__fdiv_rn(v[k], scale), f);
-    if (full) {
+    for (int k = 0; k < 4; ++k) q[k] = quantize<FMT>(__fdiv_rn(v[k], scale));
+    if ((g + 1) * kGroup <= n) {   // vals is the wrapper's: 4-byte aligned
       *reinterpret_cast<uint32_t*>(vals + base) =
           (uint32_t)q[0] | ((uint32_t)q[1] << 8) | ((uint32_t)q[2] << 16) |
           ((uint32_t)q[3] << 24);
@@ -175,53 +305,114 @@ __global__ void fp8_encode_kernel(const T* __restrict__ x,
 // -- K3 and K4 ----------------------------------------------------------------
 
 // K3 (ACCUM = true): out = cast(fma(v, s, b));  K4: out = cast(v * s)
-template <typename TO, bool ACCUM, bool VEC>
-__global__ void fp8_decode_kernel(const uint8_t* __restrict__ vals,
-                                  const float* __restrict__ scales,
-                                  const TO* __restrict__ b,
-                                  TO* __restrict__ out, int64_t n,
-                                  int fmt_code) {
-  const Fmt f = fmt_of(fmt_code);
+template <typename TO, bool ACCUM, int FMT>
+__device__ __forceinline__ float decode1(uint8_t q, float s, const TO* b,
+                                         int64_t i) {
+  const float d = dequant<FMT>(q);
+  return ACCUM ? __fmaf_rn(d, s, to_f32(b[i])) : __fmul_rn(d, s);
+}
+
+// VEC: every pointer 16-byte aligned.  A unit is the kOut values whose
+// output is one 16-byte store (8 bf16 or 4 float32), read by one 8- or
+// 4-byte load of fp8 values (and one 16-byte load of b).  A block takes
+// chunks of kDecUnroll * kThreads consecutive units, thread t units
+// t + u * kThreads of its chunk, so that each load and store
+// instruction of a warp covers one contiguous span and a block one
+// contiguous chunk.  Then the tail, one element a thread.  Otherwise 4
+// consecutive elements a thread by scalar loads, then the n % 4 tail.
+template <typename TO, bool ACCUM, int FMT, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+fp8_decode_kernel(const uint8_t* __restrict__ vals,
+                  const float* __restrict__ scales, const TO* __restrict__ b,
+                  TO* __restrict__ out, int64_t n) {
+  constexpr int kOut = 16 / sizeof(TO);            // values a unit: 8 or 4
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t n4 = n / 4;
-  for (int64_t i4 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i4 < n4;
-       i4 += stride) {
-    const int64_t i = i4 * 4;
-    const float s = scales[i / kGroup];     // 4 | 128: one group per quad
-    uint8_t q[4];
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (VEC) {
-      const uint32_t w = *reinterpret_cast<const uint32_t*>(vals + i);
+  int64_t done = 0;
+  if constexpr (VEC) {
+    const int64_t n_units = n / kOut;
+    constexpr int64_t kChunk = (int64_t)kDecUnroll * kThreads;
+    for (int64_t c = blockIdx.x; c * kChunk < n_units; c += gridDim.x) {
+      const int64_t i0 = c * kChunk + threadIdx.x;
+      uint32_t w[kDecUnroll][kOut / 4];            // the unit's fp8 bytes
+      float s[kDecUnroll];
+      uint4 bw[ACCUM ? kDecUnroll : 1];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) q[k] = (uint8_t)(w >> (8 * k));
-      if (ACCUM) load4(b + i, acc);
-    } else {
+      for (int u = 0; u < kDecUnroll; ++u) {
+        const int64_t i = i0 + u * kThreads;
+        if (i < n_units) {
+          if constexpr (kOut == 8) {
+            const uint2 v = __ldg(reinterpret_cast<const uint2*>(vals) + i);
+            w[u][0] = v.x;
+            w[u][1] = v.y;
+          } else {
+            w[u][0] = __ldg(reinterpret_cast<const unsigned int*>(vals) + i);
+          }
+          s[u] = __ldg(scales + i * kOut / kGroup);  // kOut | 128
+          if constexpr (ACCUM) bw[u] = ld16(b + i * kOut);
+        }
+      }
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        q[k] = vals[i + k];
-        if (ACCUM) acc[k] = to_f32(b[i + k]);
+      for (int u = 0; u < kDecUnroll; ++u) {
+        const int64_t i = i0 + u * kThreads;
+        if (i >= n_units) break;
+        float r[kOut];
+#pragma unroll
+        for (int k = 0; k < kOut; k += 2) {
+          const float2 d = dequant2<FMT>(w[u][k / 4] >> (8 * (k % 4)));
+          if constexpr (ACCUM) {
+            float b0, b1;
+            if constexpr (kOut == 4) {
+              b0 = __uint_as_float(word(bw[u], k));
+              b1 = __uint_as_float(word(bw[u], k + 1));
+            } else {
+              const uint32_t h = word(bw[u], k / 2);
+              b0 = __uint_as_float(h << 16);
+              b1 = __uint_as_float(h & 0xFFFF0000u);
+            }
+            r[k] = __fmaf_rn(d.x, s[u], b0);
+            r[k + 1] = __fmaf_rn(d.y, s[u], b1);
+          } else {
+            r[k] = __fmul_rn(d.x, s[u]);
+            r[k + 1] = __fmul_rn(d.y, s[u]);
+          }
+        }
+        uint4 o;
+        if constexpr (kOut == 4) {
+          o = make_uint4(__float_as_uint(r[0]), __float_as_uint(r[1]),
+                         __float_as_uint(r[2]), __float_as_uint(r[3]));
+        } else {
+          uint32_t h[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const __nv_bfloat162 v = __floats2bfloat162_rn(r[2 * k],
+                                                           r[2 * k + 1]);
+            h[k] = *reinterpret_cast<const uint32_t*>(&v);
+          }
+          o = make_uint4(h[0], h[1], h[2], h[3]);
+        }
+        *reinterpret_cast<uint4*>(out + i * kOut) = o;
       }
     }
-    float r[4];
+    done = n_units * kOut;
+  } else {
+    const int64_t n4 = n / 4;
+    for (int64_t i4 = tid; i4 < n4; i4 += stride) {
+      const int64_t i = i4 * 4;
+      const float s = scales[i / kGroup];     // 4 | 128: one group per quad
+      float r[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      r[k] = ACCUM ? __fmaf_rn(dequant(q[k], f), s, acc[k])
-                   : __fmul_rn(dequant(q[k], f), s);
-    if (VEC) {
-      store4(out + i, r);
-    } else {
+      for (int k = 0; k < 4; ++k)
+        r[k] = decode1<TO, ACCUM, FMT>(vals[i + k], s, b, i + k);
 #pragma unroll
       for (int k = 0; k < 4; ++k) out[i + k] = from_f32<TO>(r[k]);
     }
+    done = n4 * 4;
   }
-  // tail of n % 4 elements
-  for (int64_t i = n4 * 4 + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const float s = scales[i / kGroup];
-    const float d = dequant(vals[i], f);
-    out[i] = from_f32<TO>(ACCUM ? __fmaf_rn(d, s, to_f32(b[i]))
-                                : __fmul_rn(d, s));
-  }
+  // the tail
+  for (int64_t i = done + tid; i < n; i += stride)
+    out[i] = from_f32<TO>(decode1<TO, ACCUM, FMT>(vals[i], scales[i / kGroup],
+                                                  b, i));
 }
 
 // -- K5 -----------------------------------------------------------------------
@@ -257,22 +448,51 @@ __global__ void bf16_copy_kernel(const uint16_t* __restrict__ x,
     out[i] = x[i];
 }
 
-template <typename TO, bool ACCUM>
-int launch_decode(const void* vals, const void* scales, const void* b,
-                  void* out, int64_t n, int fmt, cudaStream_t s) {
-  const bool vec = aligned(vals, 4) && aligned(out, 4 * sizeof(TO)) &&
-                   (!ACCUM || aligned(b, 4 * sizeof(TO)));
-  const int grid = grid_for(n / 4 > 0 ? n / 4 : 1);
+template <typename TO, bool ACCUM, int FMT>
+int launch_decode_fmt(const void* vals, const void* scales, const void* b,
+                      void* out, int64_t n, cudaStream_t s) {
+  const bool vec = aligned(vals, 16) && aligned(out, 16) &&
+                   (!ACCUM || aligned(b, 16));
+  const int64_t items = vec ? n / (16 / sizeof(TO) * kDecUnroll) : n / 4;
+  int64_t blocks = (items + kThreads - 1) / kThreads;
+  blocks = blocks < 1 ? 1 : blocks > kChunkBlocks ? kChunkBlocks : blocks;
+  const int grid = (int)blocks;
   const uint8_t* v = static_cast<const uint8_t*>(vals);
   const float* sc = static_cast<const float*>(scales);
   const TO* tb = static_cast<const TO*>(b);
   TO* to = static_cast<TO*>(out);
   if (vec)
-    fp8_decode_kernel<TO, ACCUM, true><<<grid, kThreads, 0, s>>>(v, sc, tb,
-                                                                  to, n, fmt);
+    fp8_decode_kernel<TO, ACCUM, FMT, true><<<grid, kThreads, 0, s>>>(
+        v, sc, tb, to, n);
   else
-    fp8_decode_kernel<TO, ACCUM, false><<<grid, kThreads, 0, s>>>(v, sc, tb,
-                                                                   to, n, fmt);
+    fp8_decode_kernel<TO, ACCUM, FMT, false><<<grid, kThreads, 0, s>>>(
+        v, sc, tb, to, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename TO, bool ACCUM>
+int launch_decode(const void* vals, const void* scales, const void* b,
+                  void* out, int64_t n, int fmt, cudaStream_t s) {
+  return fmt == 0
+             ? launch_decode_fmt<TO, ACCUM, 0>(vals, scales, b, out, n, s)
+             : launch_decode_fmt<TO, ACCUM, 1>(vals, scales, b, out, n, s);
+}
+
+template <typename T, int FMT>
+int launch_encode(const void* x, void* vals, void* scales, int64_t n,
+                  cudaStream_t s) {
+  constexpr int kGroupsPerWarp = 32 / (kGroup * (int)sizeof(T) / 16);
+  const int64_t groups = (n + kGroup - 1) / kGroup;
+  const int64_t n_full = aligned(x, 16) ? n / kGroup : 0;
+  // warps: the vector path's passes, or one a group on the scalar path
+  int64_t warps = (n_full + kGroupsPerWarp * kEncUnroll - 1) /
+                  (kGroupsPerWarp * kEncUnroll);
+  if (groups - n_full > warps) warps = groups - n_full;
+  int64_t blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > kChunkBlocks) blocks = kChunkBlocks;
+  fp8_encode_kernel<T, FMT><<<(int)blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<uint8_t*>(vals),
+      static_cast<float*>(scales), n, groups, n_full);
   return (int)cudaGetLastError();
 }
 
@@ -290,26 +510,13 @@ int codec_fp8_encode(const void* x, void* vals, void* scales, int64_t n,
                      int dtype, int fmt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < 1 || (fmt != 0 && fmt != 1)) return (int)cudaErrorInvalidValue;
-  const int64_t groups = (n + kGroup - 1) / kGroup;
-  int64_t blocks = (groups + kThreads / 32 - 1) / (kThreads / 32);
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  uint8_t* v = static_cast<uint8_t*>(vals);
-  float* sc = static_cast<float*>(scales);
-  switch (dtype) {
-    case 0:
-      fp8_encode_kernel<float><<<(int)blocks, kThreads, 0, s>>>(
-          static_cast<const float*>(x), v, sc, n, groups, fmt,
-          aligned(x, 16));
-      break;
-    case 1:
-      fp8_encode_kernel<__nv_bfloat16><<<(int)blocks, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), v, sc, n, groups, fmt,
-          aligned(x, 8));
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  switch (dtype * 2 + fmt) {
+    case 0: return launch_encode<float, 0>(x, vals, scales, n, s);
+    case 1: return launch_encode<float, 1>(x, vals, scales, n, s);
+    case 2: return launch_encode<__nv_bfloat16, 0>(x, vals, scales, n, s);
+    case 3: return launch_encode<__nv_bfloat16, 1>(x, vals, scales, n, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // K4: (vals, scales) -> out [n] of dtype out_dtype

@@ -8,7 +8,7 @@
 // every position masked; pool rows past kv_valid contribute nothing.
 //
 // Layouts (all contiguous):
-//   q        [T, Hq, HD]             T = float or bf16, HD in {64, 128}
+//   q        [T, Hq, HD]             T = float or bf16, HD in {64, 112, 128}
 //   k/v pool [n_blocks, bs, Hkv, HD]
 //   tables   [T, maxb] int32         logical block j of row t -> pool block
 //   kv_valid [T] int32
@@ -36,8 +36,12 @@
 //   A position's head row is gathered with 16-byte copies (its pool row
 //   comes from the block table, read one tile ahead, and for the first
 //   tiles before kv_valid has arrived); positions past the range are
-//   zero-filled; shared-memory rows are padded by 16 bytes so that
-//   ldmatrix's 8 rows fall in 8 distinct bank quads.
+//   zero-filled.  A tile's copies are numbered e = lane + 32 i and copy
+//   chunk e % kChunks of row e / kChunks, so a row may span two lanes'
+//   passes (hd 112: 14 chunks a bf16 row, 7 copies a lane).  Shared-memory
+//   rows are padded by 16 bytes (a row stride of 9, 15 or 17 16-byte
+//   units at hd 64, 112, 128 in bf16: odd, so ldmatrix's 8 rows fall in 8
+//   distinct bank quads).
 // - bf16: the group's query heads are one m16 tile of mma.sync.m16n8k16
 //   (rows >= group are zero and never stored), held in registers for the
 //   whole split.  S = Q K^T takes K in its pool layout as the B operand
@@ -101,8 +105,10 @@ template <typename T, int HD> struct Smem {
   static constexpr int kQBytes = kF32 ? kRows * kQStride * 4 : 0;
   static constexpr int kPBytes = kF32 ? kWarps * kRows * kPStride * 4 : 0;
   static constexpr int kBytes = kMainBytes + kQBytes + kPBytes;
+  static constexpr int kCopies = kTile * kChunks / 32;  // 16-B copies a lane
   static_assert(kBytes <= kMaxSmem, "shared memory");
-  static_assert(32 % kChunks == 0, "a warp covers whole rows");
+  static_assert(kTile * kChunks % 32 == 0, "a tile is whole passes");
+  static_assert((kStride / 16) % 2 == 1, "ldmatrix rows on distinct quads");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -170,19 +176,18 @@ __device__ __forceinline__ int tile_row(const int* table, int p0, int p_lim,
 
 // Issue the copies of the K and V rows of positions [p0, p0 + kTile) into
 // one pipeline stage, from the rows tile_row gave each lane; positions >=
-// p_end are zero-filled.
+// p_end are zero-filled.  Copy e = lane + 32 i is chunk e % kChunks of
+// row e / kChunks.
 template <typename T, int HD>
 __device__ __forceinline__ void load_tile(uint32_t k_dst, uint32_t v_dst,
                                           const T* k_pool, const T* v_pool,
                                           int row, int p0, int p_end,
                                           int lane) {
   using S = Smem<T, HD>;
-  constexpr int kRowsPerPass = 32 / S::kChunks;
-  const int chunk = lane % S::kChunks;
-  const int sub = lane / S::kChunks;
 #pragma unroll
-  for (int r0 = 0; r0 < kTile; r0 += kRowsPerPass) {
-    const int r = r0 + sub;
+  for (int i = 0; i < S::kCopies; ++i) {
+    const int e = lane + 32 * i;
+    const int r = e / S::kChunks, chunk = e % S::kChunks;
     const bool valid = p0 + r < p_end;
     const int src_row = __shfl_sync(0xffffffffu, row, r);
     const size_t off = (valid ? (size_t)src_row * S::kRowBytes : 0) +
@@ -600,8 +605,10 @@ int fd_paged_flash_decode(const void* q, const void* k_pool,
                            t_rows, hkv, group, bs, maxb, n_split, bps,      \
                            window, scale, st)
   if (dtype == 0 && hd == 64) FD_CASE(float, 64);
+  if (dtype == 0 && hd == 112) FD_CASE(float, 112);
   if (dtype == 0 && hd == 128) FD_CASE(float, 128);
   if (dtype == 1 && hd == 64) FD_CASE(__nv_bfloat16, 64);
+  if (dtype == 1 && hd == 112) FD_CASE(__nv_bfloat16, 112);
   if (dtype == 1 && hd == 128) FD_CASE(__nv_bfloat16, 128);
 #undef FD_CASE
   return (int)cudaErrorInvalidValue;
@@ -611,8 +618,10 @@ int fd_paged_flash_decode(const void* q, const void* k_pool,
 // -1 for a pair this build does not take.
 int fd_smem_bytes(int dtype, int hd) {
   if (dtype == 0 && hd == 64) return Smem<float, 64>::kBytes;
+  if (dtype == 0 && hd == 112) return Smem<float, 112>::kBytes;
   if (dtype == 0 && hd == 128) return Smem<float, 128>::kBytes;
   if (dtype == 1 && hd == 64) return Smem<__nv_bfloat16, 64>::kBytes;
+  if (dtype == 1 && hd == 112) return Smem<__nv_bfloat16, 112>::kBytes;
   if (dtype == 1 && hd == 128) return Smem<__nv_bfloat16, 128>::kBytes;
   return -1;
 }

@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import _nvcc
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64, 112, 128)
 #: query heads of one KV head the kernel takes: one m16 tile of mma.sync
 MAX_GROUP = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -112,7 +112,7 @@ def paged_flash_decode_pool(q: torch.Tensor, k_pool: torch.Tensor,
     """Attention for T packed single-token rows over a paged pool, on the
     card.
 
-    q            : [T, Hq, hd]  float32 or bfloat16, hd in {64, 128},
+    q            : [T, Hq, hd]  float32 or bfloat16, hd in {64, 112, 128},
                    Hq / Hkv <= MAX_GROUP
     k/v_pool     : [n_blocks, block_size, Hkv, hd], q's dtype
     block_tables : [T, max_blocks] int32 — logical block j of row t lives

@@ -42,7 +42,7 @@ def _payload(n, dtype, seed, special=False):
         np.float32)
     if special:
         x[min(5, n - 1)] = np.nan
-        if n > 2 * 128:
+        if n > 2 * 128 + 7:
             x[2 * 128 + 7] = np.inf
             x[n - 1] = -np.inf
     t = torch.from_numpy(x).to(getattr(torch, dtype))
@@ -255,30 +255,49 @@ def _same(got: torch.Tensor, want: torch.Tensor) -> None:
     np.testing.assert_array_equal(_tbits(g), _tbits(w))
 
 
+#: lengths around the kernels' vector units (16 fp8 values a K3/K4 thread,
+#: one 128-group a K2 unit), a long ragged one, and the lm_head sub-chunk
+#: of the full-width fp8 training run (chip_smoke.py phase 12)
+CUDA_LENGTHS = [1, 15, 16, 17, 127, 129, 255, 257, 128 * 64 - 1,
+                128 * 64 + 1, 1000, (1 << 20) + 7, 7274496]
+#: operand offsets in elements: 0 and 4/8 keep 16-byte alignment (the
+#: vector paths), 1 and 2 break it (the scalar paths)
+CUDA_OFFSETS = [0, 1, 2, 4, 8]
+
+
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card: the kernels have no CPU mode")
+@pytest.mark.parametrize("off", CUDA_OFFSETS)
 @pytest.mark.parametrize("fmt", FMTS)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [1, 127, 1000, (1 << 20) + 7])
-def test_cuda_codec_kernels_match_plain_versions(n, dtype, fmt):
+@pytest.mark.parametrize("n", CUDA_LENGTHS)
+def test_cuda_codec_kernels_match_plain_versions(n, dtype, fmt, off):
     """K2, K4, K3 and K5 on the card against their plain versions on the
-    card, with aligned inputs (vector paths) and inputs one element off
-    alignment (scalar paths), NaN and inf groups included."""
-    x, _ = _payload(n + 1, dtype, n % 89, special=True)
-    b, _ = _payload(n + 1, dtype, n % 83)
-    x, b = x.cuda(), b.cuda()
-    for off in (0, 1):
-        xs, bs = x[off:off + n], b[off:off + n]
-        vals, scales = tcodec.fp8_encode(xs, fmt)
-        r_vals, r_scales = tref.fp8_encode_ref(xs, fmt=fmt)
-        _same(vals, r_vals)
-        _same(scales, r_scales)
-        _same(tcodec.fp8_decode(vals, scales, fmt, xs.dtype),
-              tref.fp8_decode_ref(vals, scales, out_dtype=xs.dtype))
-        _same(tcodec.fp8_decode_accumulate(vals, scales, bs, fmt),
-              tref.fp8_decode_accumulate_ref(vals, scales, bs))
-        _same(tcodec.bf16_pack(xs), tref.bf16_pack_ref(xs))
-        if dtype == "float32":
-            p = tref.bf16_pack_ref(bs)
-            _same(tops.accumulate(xs, p), tref.chunk_accumulate_ref(xs, p))
+    card, with operands at offsets that keep 16-byte alignment (vector
+    paths) and that break it (scalar paths), NaN, inf and all-zero groups
+    included: bit for bit, NaN at the same places."""
+    x, _ = _payload(n + max(CUDA_OFFSETS), dtype, n % 89, special=True)
+    b, _ = _payload(n + max(CUDA_OFFSETS), dtype, n % 83)
+    xs, bs = x.cuda()[off:off + n], b.cuda()[off:off + n]
+    if n >= 2 * 128:    # group 1 all signed zeros: K2 skips its division
+        xs[128:256] = torch.tensor([0.0, -0.0] * 64, dtype=xs.dtype)
+    vals, scales = tcodec.fp8_encode(xs, fmt)
+    r_vals, r_scales = tref.fp8_encode_ref(xs, fmt=fmt)
+    _same(vals, r_vals)
+    _same(scales, r_scales)
+    _same(tcodec.fp8_decode(vals, scales, fmt, xs.dtype),
+          tref.fp8_decode_ref(vals, scales, out_dtype=xs.dtype))
+    _same(tcodec.fp8_decode_accumulate(vals, scales, bs, fmt),
+          tref.fp8_decode_accumulate_ref(vals, scales, bs))
+    # the decoders on wire operands at the same offset
+    wide = torch.empty(n + off, dtype=vals.dtype, device="cuda")
+    wide[off:] = vals
+    _same(tcodec.fp8_decode(wide[off:], scales, fmt, xs.dtype),
+          tref.fp8_decode_ref(vals, scales, out_dtype=xs.dtype))
+    _same(tcodec.fp8_decode_accumulate(wide[off:], scales, bs, fmt),
+          tref.fp8_decode_accumulate_ref(vals, scales, bs))
+    _same(tcodec.bf16_pack(xs), tref.bf16_pack_ref(xs))
+    if dtype == "float32":
+        p = tref.bf16_pack_ref(bs)
+        _same(tops.accumulate(xs, p), tref.chunk_accumulate_ref(xs, p))
     torch.cuda.synchronize()

@@ -80,6 +80,12 @@ for _dt in ("float32", "bfloat16"):
                                            hd=64, nb=200, bs=16, maxb=48,
                                            dtype=_dt,
                                            kv_valid=[700, 400, 37, 0]), 100)
+    # head_dim 112 (kimi-k2: d_model 7168 over 64 heads, group 8), heads
+    # cut to 16 over 2; a bf16 row is 14 16-byte chunks, so a tile's
+    # copies do not map onto whole rows a warp pass
+    CASES[f"{_dt}-hd112"] = (dict(seed=8, t_rows=6, hq=16, hkv=2, hd=112,
+                                  nb=40, bs=16, maxb=20, dtype=_dt,
+                                  kv_valid=[320, 300, 17, 1, 160, 0]), None)
 
 
 @pytest.fixture(scope="module")
@@ -146,6 +152,21 @@ def test_window_bites_and_pad_rows_are_exact_zeros(reference):
     assert np.all(np.isfinite(out))
 
 
+def test_kernel_takes_every_served_configs_heads():
+    """Every ported config with attention (all families but ssm) has a
+    head_dim the kernel was built for and a GQA group it takes, so none of
+    them is refused when it serves with ``--attn-impl kernel``."""
+    from repro_torch.configs import all_configs
+    served = {name: cfg for name, cfg in all_configs().items()
+              if not cfg.is_attention_free}
+    assert len(served) == 9
+    for name, cfg in served.items():
+        assert cfg.head_dim_ in fd.SUPPORTED_HEAD_DIMS, name
+        assert cfg.n_heads % cfg.n_kv_heads == 0, name
+        assert cfg.n_heads // cfg.n_kv_heads <= fd.MAX_GROUP, name
+    assert served["kimi_k2_1t_a32b"].head_dim_ == 112
+
+
 def test_kernel_wrapper_rejects_cpu_tensors(reference):
     """The kernel wrapper never computes on the CPU: it raises before any
     build or launch."""
@@ -159,13 +180,14 @@ def test_kernel_wrapper_rejects_cpu_tensors(reference):
 # -- the split-KV scheme ------------------------------------------------------
 
 #: (T, Hkv, max_blocks, block_size, n_sm): the phase-4 serve shape, the
-#: phase-5 long shape, the tests' shapes, and edge cases
+#: phase-5 long shape, the tests' shapes, edge cases, and the phase-5
+#: shape at kimi-k2's Hkv of 8 (head_dim 112)
 SPLIT_SHAPES = [(32, 2, 6, 16, 132), (32, 2, 256, 16, 132),
                 (32, 2, 64, 16, 132), (1, 2, 256, 16, 132),
                 (1, 1, 1, 16, 132), (6, 2, 3, 8, 132), (4, 2, 48, 8, 132),
                 (512, 8, 256, 16, 132), (8, 16, 1000, 1, 132),
                 (3, 1, 7, 5, 114), (1, 1, 4096, 16, 132),
-                (2, 2, 97, 64, 132)]
+                (2, 2, 97, 64, 132), (32, 8, 256, 16, 132)]
 
 
 def _split_ranges(max_blocks, n_split, bps):
@@ -253,7 +275,8 @@ def _split_model(q, k_pool, v_pool, tables, kv_valid, window, n_split):
 
 
 @pytest.mark.parametrize("name", ["float32-long-window100", "float32-pads",
-                                  "float32-window8", "float32-gqa24:2"])
+                                  "float32-window8", "float32-gqa24:2",
+                                  "float32-hd112"])
 def test_split_merge_model_matches_plain_version_at_every_split(name):
     """At every n_split from 1 to max_blocks (each one split_plan could
     give), the split partials merged by log-sum-exp equal the plain
@@ -318,7 +341,8 @@ def test_cuda_kernel_matches_plain_version(name):
                     reason="needs a CUDA card: the kernel has no CPU mode")
 @pytest.mark.parametrize("name", ["float32-long-window100",
                                   "bfloat16-long-window100",
-                                  "bfloat16-gqa24:2", "float32-gqa16:2"])
+                                  "bfloat16-gqa24:2", "float32-gqa16:2",
+                                  "bfloat16-hd112", "float32-hd112"])
 def test_cuda_kernel_at_forced_splits(name, monkeypatch):
     """The kernel with split_plan forced to 1, 2, 3, ... splits (and the
     merge launch that n_split > 1 adds) equals the plain version."""
