@@ -5,9 +5,11 @@
 
 ``--baseline`` names an earlier checkout (``git archive`` of a commit,
 unpacked; only its ``src/repro_torch/kernels`` is read): its K6 runs
-phase 4's logits step beside this checkout's, and its K2-K4 are timed in
-turns with this checkout's in phase 12 (and its codec's SASS counted in
-phase 1).  Without it the script needs nothing but this checkout.
+phase 4's logits step beside this checkout's, its K2-K4 are timed in
+turns with this checkout's in phase 12, its K1 and K5 launched once a
+sub-chunk are timed in turns with this checkout's one launch a ring step
+in phases 8 and 12 (and its codec's and K1's SASS counted in phase 1).
+Without it the script needs nothing but this checkout.
 
 Phases, each printing its own lines; any failure raises and exits
 non-zero:
@@ -15,8 +17,8 @@ non-zero:
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    kernel from the checkout's CUDA sources (K6, K1, K2-K5 and K7, one
    ``nvcc`` per source, all at once), timed, with ptxas's registers and
-   spills of each kernel, the codec kernels' SASS instruction counts
-   (``cuobjdump -sass``) and K6's dynamic shared memory;
+   spills of each kernel, the codec and K1 kernels' SASS instruction
+   counts (``cuobjdump -sass``) and K6's dynamic shared memory;
 2. K6, the paged flash-decode kernel, against its plain PyTorch version at
    glm4-9b shapes (Hq 32, Hkv 2, hd 128, block 16), at GQA groups 1,
    2, 4, 8, 12 and 16 with hd 64 and 128, and at kimi-k2's full width
@@ -48,7 +50,12 @@ non-zero:
 6. K1, the staged ring's chunk accumulate, against its plain version in
    float32 and bfloat16 at lengths {1, 1000, 2^20+7, 2^26}, aligned and
    one element off alignment: bit for bit, and equal to ``a + b`` in
-   bfloat16;
+   bfloat16; then one segment-table launch each of K1 (f32, bf16, f16,
+   f32 + bf16) and K5 (f32, bf16) over tables of 1, 2, 3, 8 and 1
+   segments (K1_TABLES), every segment aligned, one element off, or every
+   other one off, NaN and inf included: bit for bit pair by pair, one
+   launch a table, and each segment on the vector path exactly when its
+   pointers are 16-byte aligned;
 7. the lossless multi-path collective through the communicator: 4 ranks
    (``launch.mesh.run_ranks``, gloo, all on this card, so their wire goes
    through host memory) with the ``h100`` profile:
@@ -60,12 +67,16 @@ non-zero:
    all-reduce, likewise; (c) mesh (data=4), shares 50/50 primary/staged
    on random bfloat16: the run with K1 bit-identical to the run with its
    plain version.  Every rank's ``plan_signature()`` agrees, and K1 ran
-   (n-1) x staged_substeps times per staged reduce.  Wall times are of
-   host-staged gloo on one card, not a link bandwidth;
-8. K1 timed by CUDA events at the staged sub-chunk of (b) and at a
-   64 MiB bfloat16 chunk, beside its plain version, ``a + b`` and the
-   memory bound (3 x bytes over the card's rate), with the operands
-   rotated over enough copies that each call reads device memory, not L2;
+   n - 1 times per staged reduce: one launch a ring step over all its
+   sub-chunks.  Wall times are of host-staged gloo on one card, not a
+   link bandwidth;
+8. K1 timed by CUDA events at the staged sub-chunk of (b) (2^20) and at a
+   64 MiB bfloat16 chunk (2^25), beside its plain version, ``a + b`` and
+   the memory bound (3 x bytes over the card's rate), and one ring step
+   of (b) (its s sub-chunks) as one segment-table launch against one
+   launch a sub-chunk (``--baseline``'s K1, else this checkout's), in
+   turns, with the operands rotated over enough copies that each call
+   reads device memory, not L2;
 9. the wire codecs K2-K5 and the mixed (float32 + bfloat16) K1 against
    their plain versions on the card at lengths {1, 127, 1000, 2^20+7,
    2^26}, aligned and one element off, float32 and bfloat16 input, both
@@ -81,7 +92,8 @@ non-zero:
    codecs' plain versions); gathered rows are equal on every rank of a
    line; the error against the exact sum stays within (n + 1) fp8 (or
    bf16) steps of each 128-element block's magnitude; K2-K5 and K1
-   launches equal what the plans imply;
+   launches equal what the plans imply (K1 and K5 once a ring step, the
+   fp8 codecs once a sub-chunk);
 11. full-width glm4-9b training (depth cut 40 -> 2, bf16, random weights
    from seed 0), ``build_train_program`` + ``run_loop`` on 2 gloo ranks
    sharing this card, seq 128, global batch 8, 3 steps each with the
@@ -91,19 +103,24 @@ non-zero:
    within 0.05 max(|loss|, 1); the fp8 step's codec plans printed and
    the K2/K3/K4 launches equal to what those plans imply, and how many of
    those calls took codec.cu's 16-byte vector path; peak memory;
-12. (a) K2-K5 and the mixed K1 against their plain versions at every
-   length, dtype and format their kernels were given in phase 11's fp8
-   run and phase 10 (c), aligned and one element off, NaN and inf groups
+12. (a) K1-K5 against their plain versions at every length, dtype and
+   format their kernels were given on the main path (phases 7, 10, 11
+   and 13), aligned and one element off, and the K1 and K5 segment-table
+   launches at every table of sub-chunk lengths those phases gave them,
+   aligned, one off and every other segment off, NaN and inf groups
    included: bit for bit (the ``max_abs_err`` of the kernels line); (b)
-   the same kernels timed by CUDA events at one staged sub-chunk of
-   their path (K2-K4: the lm_head gradient all-reduce of phase 11; K5 and
-   the mixed K1: phase 10 (c)) and at 64 MiB, beside their plain
-   versions, the memory bound and, for K5 and the mixed K1, the one
-   PyTorch call that computes the same function (with ``--baseline``,
-   the earlier K2-K4 beside them, in turns).  Each timed call works
-   on its own copy of the operands, rotated so that none is still in L2
-   (as in phase 8).  Phase 12 runs after phase 13, and its check (a)
-   also covers every length phase 13 gave K1;
+   K2-K5 and the mixed K1 timed by CUDA events at one staged sub-chunk
+   of their path (K2-K4: the lm_head gradient all-reduce of phase 11; K5
+   and the mixed K1: phase 10 (c), 131072) and at 64 MiB (2^25 elements
+   for K5), beside their plain versions, the memory bound and, for K5
+   and the mixed K1, the one PyTorch call that computes the same
+   function (with ``--baseline``, the earlier K2-K4 beside them, in
+   turns); then one ring step each of K5 and the mixed K1 (phase 10
+   (c)'s) and of K1 (phase 13's model-axis combine) as one segment-table
+   launch against one launch a sub-chunk, in turns (as in phase 8).
+   Each timed call works on its own copy of the operands, rotated so
+   that none is still in L2 (as in phase 8).  Phase 12 runs after phase
+   13;
 13. tensor-parallel training of full-width glm4-9b (depth cut 40 -> 2,
    bf16, random weights from seed 0, each rank keeping its model-axis
    shards of the global init) on (data=2, model=2): 4 gloo ranks sharing
@@ -116,7 +133,7 @@ non-zero:
    on the data axis: the reference's per-trace counts); model-axis
    all-reduces executed a step (5 forward, 2 in the checkpoint
    recompute, 5 backward); K1 launches equal to what the executed plans
-   imply; peak memory and wall time;
+   imply, n - 1 a staged ring; peak memory and wall time;
 14. K7a/K7b, the payload split and merge, against their plain versions
    in float32 and bfloat16 at the reference test's cases, at lengths and
    offsets one element off its blocks and at 64 MiB (the second half of a
@@ -131,6 +148,7 @@ ranks' own counts from each kernel's path, summed: K1 from phase 7, K2-K4
 from the fp8 training run of phase 11, K5 and the mixed K1 from phase
 10 (c), K7 from phase 13 (0: no path calls it); each rank process sets
 its counts to 0 just before that path and reports them just after it.
+A K1 or K5 segment-table launch counts once, whatever its segments.
 Without a CUDA card, or without the rest of the checkout beside this
 file, it prints no result and exits 1.
 """
@@ -279,15 +297,32 @@ def sass_counts(lib: pathlib.Path):
     return {k: (n, dict(c)) for k, (n, c) in out.items()}
 
 
+#: template arguments in a mangled kernel name
+_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32",
+          "Lb1E": "true", "Lb0E": "false"}
+
+
 def _short(mangled: str) -> str:
-    """A codec kernel's name and template arguments, from its mangled
+    """A K1-K5 kernel's name and template arguments, from its mangled
     name."""
+    m = re.search(r"segments_kernelI\w*?\d+(Accumulate|Bf16Pack)I(\w+?)EELi"
+                  r"(\d+)E", mangled)
+    if m:
+        args = []
+        for tok in re.findall(r"13__nv_bfloat16|6__half|S\d*_|f", m.group(2)):
+            args.append(args[-1] if tok.startswith("S") else _TYPES[tok])
+        return f"segments_kernel<{m.group(1)}<{', '.join(args)}>, " \
+               f"unroll {m.group(3)}>"
+    m = re.search(r"\d+(accum_(?:vec|scalar))I(\w+?)EEv", mangled)
+    if m:
+        args = [_TYPES[t] for t in re.findall(r"13__nv_bfloat16|6__half|f",
+                                               m.group(2))]
+        args += args[-1:] * (2 - len(args))
+        return f"{m.group(1)}<{', '.join(args)}>"
     m = re.search(r"\d+((?:fp8|bf16)_\w+?_kernel)(I\w*?E)?E", mangled)
     if not m:
         return mangled
-    names = {"13__nv_bfloat16": "bf16", "f": "f32", "Lb1E": "true",
-             "Lb0E": "false"}
-    args = [names.get(a, a[2:-1]) for a in re.findall(
+    args = [_TYPES.get(a, a[2:-1]) for a in re.findall(
         r"13__nv_bfloat16|Lb[01]E|Li\d+E|f", m.group(2) or "")]
     return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
 
@@ -315,9 +350,10 @@ def phase1_card_and_build(baseline=None):
                 print(f"  ptxas: {line.strip()}")
         print(f"phase 1: built {os.path.relpath(lib, ROOT)} from "
               f"{os.path.relpath(src, ROOT)}")
-    sass = [("", codec.SOURCE)]
+    sass = [("", codec.SOURCE), ("", ca.SOURCE)]
     if baseline:
-        sass.append(("baseline ", baseline["codec"].SOURCE))
+        sass += [("baseline ", baseline[name].SOURCE)
+                 for name in ("codec", "chunk_accumulate")]
     for tag, src in sass:
         for kernel, (n, ops) in sorted(sass_counts(built[src][0]).items()):
             print(f"phase 1: {tag}SASS {_short(kernel)}: {n} instructions "
@@ -775,7 +811,94 @@ def phase6_k1_vs_plain():
           f"{K1_LENGTHS}, aligned and misaligned: bit for bit (max abs err "
           f"f32 {errs[torch.float32]}, bf16 {errs[torch.bfloat16]}); bf16 "
           f"equal to a + b")
+    stats = {}
+    for da, db in ((torch.float32, torch.float32),
+                   (torch.bfloat16, torch.bfloat16),
+                   (torch.float16, torch.float16),
+                   (torch.float32, torch.bfloat16)):
+        for lengths in K1_TABLES:
+            for offsets in SEG_OFFSETS:
+                _check_segments("k1", lengths, (da, db), offsets, gen,
+                                stats, "phase 6")
+    for dtype in (torch.float32, torch.bfloat16):
+        for lengths in K1_TABLES:
+            for offsets in SEG_OFFSETS:
+                _check_segments("bf16_pack", lengths, (dtype,), offsets, gen,
+                                stats, "phase 6")
+    torch.cuda.empty_cache()
+    for dtype in errs:
+        errs[dtype] = max(errs[dtype], stats.get(("k1", dtype), 0.0))
+    print(f"phase 6: K1 and K5 segment tables (one launch each) vs plain "
+          f"versions pair by pair at {len(K1_TABLES)} tables "
+          f"{[len(t) for t in K1_TABLES]} segments, lengths up to "
+          f"{max(max(t) for t in K1_TABLES)}, f32/bf16/f16/f32+bf16 (K1) "
+          f"and f32/bf16 (K5), every segment aligned, one off, or every "
+          f"other one off: bit for bit, NaN at the same places (max abs err "
+          f"{_stats_text(stats)})")
     return errs
+
+
+def _stats_text(stats) -> str:
+    """``_same_bits`` stats keyed (kernel, dtype), as text."""
+    return ", ".join(f"{k} {str(d)[6:]} {v}" for key, v in stats.items()
+                     if key != "nan_bits" for k, d in [key]) + \
+        f"; NaNs with other bits {stats.get('nan_bits', {})}"
+
+
+#: segment tables of phase 6: lengths around the units (8 elements of a
+#: bf16/f16 or mixed unit, 4 of f32), the ring's sub-chunk lengths and a
+#: long table that takes the long body
+K1_TABLES = ((1,), (1000, 7), (131072, 131072), (4096, 1, 8191),
+             (9, 8, 7, 16, 15, 17, 131071, 1 << 20), ((1 << 25) + 3,))
+#: per segment, how many elements its operands sit past 16-byte
+#: alignment: none (vector path), one (scalar path), or every other one
+SEG_OFFSETS = {"aligned": lambda j: 0, "off1": lambda j: 1,
+               "mixed": lambda j: j % 2}
+
+
+def _check_segments(kernel, lengths, dtypes, offsets, gen, stats, where):
+    """One segment-table launch of K1 (``kernel`` "k1", operand dtypes
+    ``dtypes`` = (a, b)) or K5 ("bf16_pack", input dtype ``dtypes[0]``)
+    on operands made for ``lengths``, each shifted by SEG_OFFSETS[offsets]
+    elements, NaN and inf included: bit for bit with the plain version
+    segment by segment, NaN at the same places.  Adds the max abs error to
+    ``stats[kernel, dtypes[0]]``; checks that it launched once and that
+    each segment took the vector path exactly when its pointers are
+    16-byte aligned."""
+    from repro_torch.kernels import chunk_accumulate as ca
+    from repro_torch.kernels import codec, ref
+    shift = SEG_OFFSETS[offsets]
+    ins = [[] for _ in dtypes]
+    for j, n in enumerate(lengths):
+        k = shift(j)
+        for col, dt in zip(ins, dtypes):
+            x = _codec_input(n + 1, torch.float32, gen,
+                             special=col is ins[0]).to(dt)
+            col.append(x[k:k + n])
+    mod = ca if kernel == "k1" else codec
+    counts = ca.launch_count if kernel == "k1" else codec.launch_count
+    key = tuple(dtypes) if kernel == "k1" else "bf16_pack"
+    launches, paths = counts[key], collections.Counter(mod.segment_paths)
+    if kernel == "k1":
+        got = ca.chunk_accumulate_segments(*ins)
+        want = [ref.chunk_accumulate_ref(a, b) for a, b in zip(*ins)]
+    else:
+        got = codec.bf16_pack_segments(ins[0])
+        want = [ref.bf16_pack_ref(x) for x in ins[0]]
+    torch.cuda.synchronize()
+    tag = (f"{kernel} segments {lengths} {[str(d)[6:] for d in dtypes]} "
+           f"{offsets} ({where})")
+    check(counts[key] == launches + 1, f"{tag}: launched "
+          f"{counts[key] - launches} times, not once")
+    vec = sum(all(t.data_ptr() % 16 == 0 for t in (g, *xs))
+              for g, *xs in zip(got, *ins))
+    check(mod.segment_paths - paths == collections.Counter(
+        {"vector": vec, "scalar": len(lengths) - vec}),
+        f"{tag}: segment paths {mod.segment_paths - paths}, the pointers "
+        f"say {vec} vector")
+    for g, w in zip(got, want):
+        _same_bits(g, w, tag, (kernel, dtypes[0]), stats)
+    return got
 
 
 def _pattern(numel: int, rank: int, device) -> torch.Tensor:
@@ -805,7 +928,8 @@ HALVES = {"primary": 50, "staged": 50}
 
 
 def collective_rank():
-    """One rank of phase 7; returns digests, wall times, plans, counts."""
+    """One rank of phase 7; returns digests, wall times, plans, counts and
+    the K1 calls the runs made (``recorded_calls``)."""
     sys.path.insert(0, str(SRC))
     from repro_torch.core import routing
     from repro_torch.core.communicator import (CommConfig, bucket_for,
@@ -820,21 +944,23 @@ def collective_rank():
     cfg = CommConfig(profile="h100")
     comm_a = comm_init_rank("data", 2, cfg, ortho_name="model", mesh=mesh_a)
     comm_b = comm_init_rank("data", 4, cfg, mesh=mesh_b)
-    ca.launch_count.clear()
+    _kernel_counts(reset=True)
     out = {"wire": mesh_a.wire, "digest": {}, "wall_s": {}, "plans": {},
-           "want_k1": 0}
+           "want_k1": 0, "calls": set()}
 
     def run(name, fn, plan, n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        y = fn()
+        with recorded_calls(out["calls"]):
+            y = fn()
         torch.cuda.synchronize()
         out["wall_s"][name] = time.perf_counter() - t0
         out["plans"][name] = (plan.chunk_units, plan.staged_substeps)
         if (plan.collective in (Collective.ALL_REDUCE,
                                 Collective.REDUCE_SCATTER)
                 and "staged" in plan.paths):
-            out["want_k1"] += (n - 1) * plan.staged_substeps
+            # one launch a ring step, over all its sub-chunks
+            out["want_k1"] += n - 1
         return y
 
     def tuned(comm, op, x):
@@ -874,6 +1000,7 @@ def collective_rank():
           "the plain run launched K1")
     out["c_bit_identical"] = bool(torch.equal(_bits(k1), _bits(plain)))
     out["k1_launches"] = launches
+    out["segment_paths"] = _segment_paths()
     out["signature"] = [repr(comm_a.plan_signature()),
                         repr(comm_b.plan_signature())]
     return out
@@ -928,14 +1055,90 @@ def phase7_collectives():
               f"rank; wall {max(r['wall_s'][name] for r in res):.3f} s "
               f"({WALL_NOTE})")
     launches = sum(r["k1_launches"] for r in res)
+    paths = sum((collections.Counter(r["segment_paths"]) for r in res),
+                collections.Counter())
     print(f"phase 7: (c) K1 run bit-identical to the plain-accumulate run "
           f"on all ranks; plan_signature equal on all ranks; K1 launches "
-          f"{launches} over 4 ranks = sum of (n-1) x staged_substeps over "
-          f"the staged reduces")
-    return launches, res[0]["plans"]
+          f"{launches} over 4 ranks = (n-1) a staged reduce (one launch a "
+          f"ring step over its sub-chunks); K1 segments by path "
+          f"{ {k: v for k, v in paths.items() if k.startswith('k1')} }")
+    return launches, res[0]["plans"], set().union(*(r["calls"] for r in res))
 
 
-def phase8_k1_times(card, plans):
+def ring_step_times(kernel, lengths, dtypes, gen, card, per_sub=None):
+    """One ring step of K1 (``kernel`` "k1", operands ``dtypes`` = (a, b))
+    or K5 ("bf16_pack", input ``dtypes[0]``) over sub-chunks of
+    ``lengths``, timed as the segment-table launch of this checkout
+    against one launch a sub-chunk (``per_sub``: an earlier checkout's
+    single-pair wrapper from ``--baseline``, else this checkout's), in
+    turns per-sub-chunk, fused, fused, per-sub-chunk, on operand copies
+    rotated out of L2.  The operands lie as the ring's do: K1's received
+    sub-chunks in buffers of their own and its local ones views of one
+    chunk; K5's views of one buffer.  Launch counts are left as they
+    were."""
+    from repro_torch.kernels import chunk_accumulate as ca
+    from repro_torch.kernels import codec
+    key, (mem_bps, _) = card_peaks(card)
+    saved = [collections.Counter(ca.launch_count), dict(codec.launch_count),
+             collections.Counter(ca.segment_paths),
+             collections.Counter(codec.segment_paths)]
+    total = sum(lengths)
+    size = [torch.finfo(d).bits // 8 for d in dtypes]
+    if kernel == "k1":
+        nbytes, flops = total * (2 * size[0] + size[1]), total
+    else:
+        nbytes, flops = total * (size[0] + 2), total
+    k = rotations(nbytes)
+
+    def chunk(dt):
+        flat = torch.randn(total, generator=gen, device="cuda").to(dt)
+        return list(flat.split(list(lengths)))
+
+    if kernel == "k1":
+        a = [[torch.randn(n, generator=gen, device="cuda").to(dtypes[0])
+              for n in lengths] for _ in range(k)]
+        b = [chunk(dtypes[1]) for _ in range(k)]
+        one = per_sub or ca.chunk_accumulate
+        fused = lambda i: ca.chunk_accumulate_segments(a[i], b[i])  # noqa
+        per = lambda i: [one(x, y) for x, y in zip(a[i], b[i])]  # noqa
+    else:
+        x = [chunk(dtypes[0]) for _ in range(k)]
+        one = per_sub or codec.bf16_pack
+        fused = lambda i: codec.bf16_pack_segments(x[i])  # noqa: E731
+        per = lambda i: [one(t) for t in x[i]]  # noqa: E731
+    turns = [time_ms(per, sets=k), time_ms(fused, sets=k),
+             time_ms(fused, sets=k), time_ms(per, sets=k)]
+    ca.launch_count.clear()
+    ca.launch_count.update(saved[0])
+    codec.launch_count.update(saved[1])
+    for counts, old in ((ca.segment_paths, saved[2]),
+                        (codec.segment_paths, saved[3])):
+        counts.clear()
+        counts.update(old)
+    b_s, f_s = nbytes / mem_bps, flops / F32_FLOPS
+    ms, per_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    return dict(lengths=list(lengths), ms=ms, per_sub_ms=per_ms,
+                per_sub_from="--baseline" if per_sub else "this checkout",
+                turns=turns, bound_ms=max(b_s, f_s) * 1e3,
+                bound_by="bytes" if b_s >= f_s else "operations",
+                rotations=k, bytes=nbytes)
+
+
+def _ring_step_line(phase, what, row, card):
+    key, (mem_bps, _) = card_peaks(card)
+    print(f"phase {phase}: {what}, one ring step of {len(row['lengths'])} "
+          f"sub-chunks {row['lengths'][:2]}{'...' if len(row['lengths']) > 2 else ''}: "
+          f"one segment-table launch {row['ms']:.4f} ms "
+          f"({row['bound_ms'] / row['ms']:.1%} of bound), one launch a "
+          f"sub-chunk ({row['per_sub_from']}) {row['per_sub_ms']:.4f} ms "
+          f"({row['per_sub_ms'] / row['ms']:.2f}x); turns per-sub/fused/"
+          f"fused/per-sub " + "/".join(f"{t:.4f}" for t in row["turns"])
+          + f"; bound {row['bound_ms']:.5f} ms by {row['bound_by']} "
+          f"({row['bytes']} B at {mem_bps / 1e12:.2f} TB/s: {key} "
+          f"datasheet); operands rotated over {row['rotations']} copies")
+
+
+def phase8_k1_times(card, plans, baseline=None):
     from repro_torch.kernels import chunk_accumulate as ca
     from repro_torch.kernels import ref
     key, (mem_bps, _) = card_peaks(card)
@@ -945,6 +1148,7 @@ def phase8_k1_times(card, plans):
     # the staged segment of (b), its per-rank ring chunk, one sub-chunk
     sub = B_NUMEL * staged // 16 // 4 // substeps
     gen = torch.Generator(device="cuda").manual_seed(8)
+    base = (baseline or {}).get("chunk_accumulate")
     rows = {}
     for name, n in (("b_substep", sub), ("chunk_64MiB", 32 * MiB)):
         nbytes = 3 * n * 2
@@ -954,7 +1158,16 @@ def phase8_k1_times(card, plans):
         b = [torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
              for _ in range(k)]
         before = collections.Counter(ca.launch_count)
-        ms = time_ms(lambda i: ca.chunk_accumulate(a[i], b[i]), sets=k)
+        kern = lambda i: ca.chunk_accumulate(a[i], b[i])  # noqa: E731
+        turns = None
+        if base:
+            # the earlier K1 in turns: earlier, this, this, earlier
+            old = lambda i: base.chunk_accumulate(a[i], b[i])  # noqa: E731
+            turns = [time_ms(old, sets=k), time_ms(kern, sets=k),
+                     time_ms(kern, sets=k), time_ms(old, sets=k)]
+            ms = (turns[1] + turns[2]) / 2
+        else:
+            ms = time_ms(kern, sets=k)
         # timing launches are not the path's
         ca.launch_count.clear()
         ca.launch_count.update(before)
@@ -968,12 +1181,24 @@ def phase8_k1_times(card, plans):
             else "operations"
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound_ms, bound_by=bound_by, n=n)
+        old_txt = ""
+        if turns:
+            old_ms = (turns[0] + turns[3]) / 2
+            rows[name].update(baseline_ms=old_ms, turns=turns)
+            old_txt = (f", baseline kernel {old_ms:.4f} ms (turns baseline/"
+                       f"this/this/baseline "
+                       + "/".join(f"{t:.4f}" for t in turns) + ")")
         print(f"phase 8: K1 bf16 n={n} ({name}): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, a + b {lib_ms:.4f} ms, bound "
+              f"{plain_ms:.4f} ms, a + b {lib_ms:.4f} ms{old_txt}, bound "
               f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B at "
               f"{mem_bps / 1e12:.2f} TB/s: {key} datasheet); "
               f"{bound_ms / ms:.1%} of bound; operands rotated over {k} "
               f"copies, out of L2")
+    rows["ring_step"] = ring_step_times(
+        "k1", (sub,) * substeps, (torch.bfloat16, torch.bfloat16), gen,
+        card, base.chunk_accumulate if base else None)
+    _ring_step_line(8, "K1 bf16 (the staged reduce of phase 7 (b))",
+                    rows["ring_step"], card)
     return rows
 
 
@@ -1087,10 +1312,11 @@ def phase9_codecs_vs_plain():
 def codec_launches(plan, n: int, dtype) -> collections.Counter:
     """The K1-K5 launches one ``routing.execute`` of ``plan`` makes on one
     rank, for a payload of ``dtype`` on an axis of ``n`` ranks (the ortho
-    axis of these runs has 2).  Per staged ring with s sub-chunks: the
-    all-reduce encodes n x s times (the reduce-scatter's (n-1) x s
-    partials and the all-gather's s sources), fuses (n-1) x s
-    decode-accumulates and decodes n x s gathered rows; an ortho detour
+    axis of these runs has 2).  A staged all-reduce runs n - 1
+    reduce-scatter steps and packs the all-gather's source once; with s
+    sub-chunks the fp8 codecs launch once a sub-chunk (K2 n x s, K3
+    (n-1) x s, K4 n x s gathered rows), while K1 and K5 launch once a
+    ring step over all its sub-chunks (K1 n - 1, K5 n); an ortho detour
     encodes and decodes twice.  bf16_pack decodes by a cast, and its
     decode-accumulate is K1 (mixed for a float32 payload)."""
     c = collections.Counter()
@@ -1099,22 +1325,28 @@ def codec_launches(plan, n: int, dtype) -> collections.Counter:
         if path == "primary":
             continue
         if path == "staged":
-            enc, dec, acc = {"all_reduce": (n * s, n * s, (n - 1) * s),
-                             "reduce_scatter": ((n - 1) * s, 0, (n - 1) * s),
-                             "all_gather": (s, n * s, 0),
-                             "all_to_all": (n - 1, n - 1, 0)}[op]
+            # (reduce steps, all-gather sources, gathered rows), a2a's
+            # rotations counted as steps without a reduce
+            steps, src, rows = {"all_reduce": (n - 1, 1, n),
+                                "reduce_scatter": (n - 1, 0, 0),
+                                "all_gather": (0, 1, n),
+                                "all_to_all": (0, 0, 0)}[op]
+            a2a = n - 1 if op == "all_to_all" else 0
+            enc, dec, acc = (steps + src) * s + a2a, rows * s + a2a, steps * s
+            step_enc, step_acc = steps + src + a2a, steps
         else:
             enc, dec, acc = 2, 2, 0
+            step_enc, step_acc = 2, 0
         codec = plan.codec_for(path)
         if codec == "bf16_pack":
-            c["bf16_pack"] += enc
-            c["k1_mixed" if dtype == torch.float32 else "k1"] += acc
+            c["bf16_pack"] += step_enc
+            c["k1_mixed" if dtype == torch.float32 else "k1"] += step_acc
         elif codec:
             c["fp8_encode"] += enc
             c["fp8_decode"] += dec
             c["fp8_decode_accumulate"] += acc
         elif dtype.is_floating_point and torch.finfo(dtype).bits < 32:
-            c["k1"] += acc
+            c["k1"] += step_acc
     return c
 
 
@@ -1129,11 +1361,24 @@ def _kernel_counts(reset=False):
             for k in counts:
                 counts[k] = 0
         ca.launch_count.clear()
+        ca.segment_paths.clear()
+        codec.segment_paths.clear()
     mixed = ca.launch_count[ca.MIXED]
     return collections.Counter({**codec.launch_count, "k1_mixed": mixed,
                                 "k1": sum(ca.launch_count.values()) - mixed,
                                 "k7a": pp.launch_count["extract"],
                                 "k7b": pp.launch_count["merge"]})
+
+
+def _segment_paths():
+    """This process's segments of K1 and K5 segment-table launches by
+    the path they took (set to 0 by ``_kernel_counts(reset=True)``)."""
+    from repro_torch.kernels import chunk_accumulate as ca
+    from repro_torch.kernels import codec
+    return {f"{k} {path}": counts[path]
+            for k, counts in (("k1", ca.segment_paths),
+                              ("k5", codec.segment_paths))
+            for path in ("vector", "scalar")}
 
 
 def vector_path(name: str, args) -> bool:
@@ -1158,10 +1403,12 @@ def recorded_calls(seen: set, paths=None):
     """Within the block, every call of a K1-K5 wrapper adds what its
     kernel was given to ``seen``: (kernel, length, dtype, fp8 format),
     the dtype being the payload's (the input of K2 and K5, the output of
-    K3 and K4, the float32 operand of the mixed K1).  With ``paths`` (a
-    Counter), each K2-K4 call also adds one to (kernel, "vector" or
-    "scalar"), the path it takes.  The wrappers and their counts are
-    untouched; this only looks at their arguments."""
+    K3 and K4, the float32 operand of the mixed K1).  A segment-table call
+    of K1 or K5 adds ("k1_segments", "k1_mixed_segments" or
+    "bf16_pack_segments", the tuple of its segments' lengths, dtype,
+    None).  With ``paths`` (a Counter), each K2-K4 call also adds one to
+    (kernel, "vector" or "scalar"), the path it takes.  The wrappers and
+    their counts are untouched; this only looks at their arguments."""
     from repro_torch.kernels import chunk_accumulate as ca
     from repro_torch.kernels import codec
     keys = {
@@ -1172,7 +1419,8 @@ def recorded_calls(seen: set, paths=None):
                                                        fmt),
         "bf16_pack": lambda x: (x.numel(), x.dtype, None)}
     originals = {name: getattr(codec, name) for name in keys}
-    k1 = ca.chunk_accumulate
+    k1, k1_seg = ca.chunk_accumulate, ca.chunk_accumulate_segments
+    k5_seg = codec.bf16_pack_segments
 
     def wrap(name, fn):
         def call(*args):
@@ -1188,15 +1436,28 @@ def recorded_calls(seen: set, paths=None):
                   a.dtype, None))
         return k1(a, b)
 
+    def k1_seg_call(as_, bs):
+        seen.add(("k1_mixed_segments" if as_[0].dtype != bs[0].dtype
+                  else "k1_segments", tuple(a.numel() for a in as_),
+                  as_[0].dtype, None))
+        return k1_seg(as_, bs)
+
+    def k5_seg_call(xs):
+        seen.add(("bf16_pack_segments", tuple(x.numel() for x in xs),
+                  xs[0].dtype, None))
+        return k5_seg(xs)
+
     for name, fn in originals.items():
         setattr(codec, name, wrap(name, fn))
-    ca.chunk_accumulate = k1_call
+    ca.chunk_accumulate, ca.chunk_accumulate_segments = k1_call, k1_seg_call
+    codec.bf16_pack_segments = k5_seg_call
     try:
         yield seen
     finally:
         for name, fn in originals.items():
             setattr(codec, name, fn)
-        ca.chunk_accumulate = k1
+        ca.chunk_accumulate, ca.chunk_accumulate_segments = k1, k1_seg
+        codec.bf16_pack_segments = k5_seg
 
 
 def _rank_payload(numel, dtype, seed, rank):
@@ -1257,6 +1518,7 @@ def codec_rank():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _kernel_counts()
+        seg_paths = _segment_paths()
         plain = routing.execute(plan, x.cpu(), cpu_mesh)
         check(_kernel_counts() == launches, "the CPU run launched kernels")
         rec = {"plan": (plan.chunk_units, plan.path_codecs,
@@ -1265,6 +1527,7 @@ def codec_rank():
                "equal_plain": bool(torch.equal(_bits(y.cpu()),
                                                _bits(plain))),
                "launches": dict(launches), "calls": seen,
+               "segment_paths": seg_paths,
                "want": dict(codec_launches(plan, n, x.dtype))}
         # the exact result, from every input of this rank's line
         ins = [_rank_payload(x.numel(), x.dtype, seed, r).reshape(x.shape)
@@ -1350,7 +1613,9 @@ def phase10_codec_collectives():
               f"{max(g[name]['max_abs_err'] for g in res):.4g} "
               f"({max(g[name]['err_over_tol'] for g in res):.3f} of the "
               f"step bound); launches a rank {rec['launches']} = the "
-              f"plan's; wall {max(g[name]['wall_s'] for g in res):.3f} s "
+              f"plan's (K1 and K5 segments by path, rank 0: "
+              f"{ {k: v for k, v in rec['segment_paths'].items() if v} }); "
+              f"wall {max(g[name]['wall_s'] for g in res):.3f} s "
               f"({WALL_NOTE})")
     return launches, calls
 
@@ -1419,6 +1684,7 @@ def train_rank():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = _kernel_counts()
+            seg_paths = _segment_paths()
             program.close()
             want = collections.Counter()
             for plan, n, dtype, _ in calls:
@@ -1431,7 +1697,8 @@ def train_rank():
                          / 2 ** 30,
                          "launches": dict(launches), "want": dict(want),
                          "calls": len(calls), "codec_plans": plans,
-                         "kernel_calls": seen, "paths": dict(paths)}
+                         "kernel_calls": seen, "paths": dict(paths),
+                         "segment_paths": seg_paths}
             del params, opt_state, program, ctx
             torch.cuda.empty_cache()
     finally:
@@ -1467,7 +1734,9 @@ def phase11_training():
         losses[name] = hist[0]
         rec = res[0][name]
         print(f"phase 11: {name}: losses {hist[0]}; {rec['calls']} "
-              f"collective calls; launches a rank {rec['launches']}; "
+              f"collective calls; launches a rank {rec['launches']} (K1 "
+              f"and K5 segments by path: "
+              f"{ {k: v for k, v in rec['segment_paths'].items() if v} }); "
               f"{rec['wall_s']:.1f} s for {TRAIN_STEPS} steps; peak "
               f"{max(r[name]['peak_gib'] for r in res):.2f} GiB a rank")
     for i in range(TRAIN_STEPS):
@@ -1598,6 +1867,7 @@ def tp_train_rank(pinned: str):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = _kernel_counts()
+            seg_paths = _segment_paths()
             rec = {c.axis_name: len(c.recorder(name).issued_calls())
                    for c in ctx.comms()}
             program.close()
@@ -1615,7 +1885,7 @@ def tp_train_rank(pinned: str):
                                         numel) for p, _, _, numel, _ in calls
                                        if p.axis_name == "model"}),
                 "leaves": len(pytree.tree_leaves(params)),
-                "kernel_calls": seen}
+                "kernel_calls": seen, "segment_paths": seg_paths}
             del params, opt_state, program, ctx
             torch.cuda.empty_cache()
     finally:
@@ -1689,12 +1959,22 @@ def phase13_tp_training():
                  for name, _ in TP_RUNS), collections.Counter())
     k1 = sum(collections.Counter(r["flexlink"]["launches"])["k1"]
              for r in res)
+    paths = sum((collections.Counter(r["flexlink"]["segment_paths"])
+                 for r in res), collections.Counter())
     print(f"phase 13: flexlink within 5e-3 of nccl a step; K1 launches over "
-          f"4 ranks {k1} = the sum over the executed plans; the model "
-          f"axis records 3 calls a step (the reference's per-trace count) "
-          f"and executes {per_step} a step")
+          f"4 ranks {k1} = the sum over the executed plans, (n-1) a staged "
+          f"ring (one launch a ring step over its sub-chunks; K1 segments "
+          f"by path {paths['k1 vector']} vector / {paths['k1 scalar']} "
+          f"scalar); the model axis records 3 calls a step (the "
+          f"reference's per-trace count) and executes {per_step} a step")
     calls = set().union(*(r["flexlink"]["kernel_calls"] for r in res))
-    return k1, {k: total[k] for k in ("k7a", "k7b")}, calls
+    # the model-axis combine's staged ring step: its staged segment, one
+    # rank's ring chunk of it, cut into the plan's sub-chunks
+    units, substeps, numel = [p for p in res[0]["flexlink"]["model_plans"]
+                              if "staged" in dict(p[0])][0]
+    chunk = numel * dict(units)["staged"] // 16 // TP_MESH[1]
+    tp_step = (-(-chunk // substeps),) * substeps
+    return k1, {k: total[k] for k in ("k7a", "k7b")}, calls, tp_step
 
 
 # float32 operations each kernel does per element (abs, max, divide and
@@ -1705,16 +1985,43 @@ CODEC_OPS = {"fp8_encode": 4, "fp8_decode_accumulate": 2, "fp8_decode": 2,
 F32_FLOPS = 67e12
 
 
+#: segment-table calls as ``recorded_calls`` names them -> (kernel of
+#: ``_check_segments``, the single-pair kernel's name in the kernels line)
+SEGMENT_CALLS = {"k1_segments": ("k1", "k1"),
+                 "k1_mixed_segments": ("k1", "k1_mixed"),
+                 "bf16_pack_segments": ("bf16_pack", "bf16_pack")}
+
+
 def phase12_main_path_check(calls):
-    """Each K2-K5 and mixed K1 wrapper against its plain version at every
-    (length, dtype, format) its kernel was given on the main path: phase
-    11's fp8 training run and phase 10 (c).  Aligned and one element off,
-    NaN and inf groups included: bit for bit, NaN at the same places."""
+    """Each K1-K5 wrapper against its plain version at every (length,
+    dtype, format) its kernel was given on the main path (phases 7, 10,
+    11 and 13), and each K1 and K5 segment-table launch at every table of
+    sub-chunk lengths those phases gave it.  Aligned and one element off
+    (tables also every other segment off), NaN and inf groups included:
+    bit for bit, NaN at the same places."""
     from repro_torch.kernels import chunk_accumulate as ca
     from repro_torch.kernels import codec, ref
     gen = torch.Generator(device="cuda").manual_seed(121)
     stats, lengths = {}, collections.defaultdict(set)
+    tables = collections.defaultdict(set)
     for name, n, dtype, fmt in sorted(calls, key=str):
+        if name in SEGMENT_CALLS:
+            kernel, single = SEGMENT_CALLS[name]
+            dtypes = ((dtype, torch.bfloat16) if name == "k1_mixed_segments"
+                      else (dtype, dtype) if kernel == "k1" else (dtype,))
+            seg_stats = {}
+            for offsets in SEG_OFFSETS:
+                _check_segments(kernel, n, dtypes, offsets, gen, seg_stats,
+                                "main path")
+            stats[single] = max(stats.get(single, 0.0),
+                                seg_stats[kernel, dtype])
+            for k, v in seg_stats.get("nan_bits", {}).items():
+                nan_bits = stats.setdefault("nan_bits", {})
+                nan_bits[single] = nan_bits.get(single, 0) + v
+            tables[name].add((n, str(dtype)[6:]))
+            lengths[single].update(n)
+            torch.cuda.empty_cache()
+            continue
         x = _codec_input(n + 1, dtype, gen, special=True)
         b = _codec_input(n + 1, dtype, gen, special=False)
         for off in (0, 1):
@@ -1748,19 +2055,26 @@ def phase12_main_path_check(calls):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for name in ("fp8_encode", "fp8_decode_accumulate", "fp8_decode",
-                 "bf16_pack", "k1_mixed"):
+                 "bf16_pack", "k1_mixed", "k1"):
         check(lengths[name], f"{name}: no call recorded on the main path")
+    for name in SEGMENT_CALLS:
+        check(tables[name], f"{name}: no segment table recorded on the "
+              f"main path")
     lengths = {k: sorted(v) for k, v in lengths.items()}
-    print(f"phase 12: K2-K5 and the mixed K1 vs plain versions at every "
-          f"length the main path gave them ({lengths}), aligned and one "
-          f"off, NaN and inf groups: "
-          f"bit for bit, NaN at the same places (NaNs with other bits: "
-          f"{stats.get('nan_bits', {})}); max abs err "
+    tables = {k: sorted(v) for k, v in tables.items()}
+    print(f"phase 12: K1-K5 vs plain versions at every length the main "
+          f"path gave them ({lengths}), aligned and one off, NaN and inf "
+          f"groups: bit for bit, NaN at the same places (NaNs with other "
+          f"bits: {stats.get('nan_bits', {})}); max abs err "
           f"{ {k: v for k, v in stats.items() if k != 'nan_bits'} }")
-    return stats, lengths
+    print(f"phase 12: K1 and K5 segment tables of the main path, each "
+          f"launched once aligned, once one element off and once every "
+          f"other segment off, bit for bit: {tables}")
+    return stats, lengths, tables
 
 
-def phase12_codec_times(card, plans, lengths, baseline=None):
+def phase12_codec_times(card, plans, lengths, tables, tp_step,
+                        baseline=None):
     key, (mem_bps, _) = card_peaks(card)
     # K2-K4 at the lm_head gradient all-reduce of phase 11 ([4096, 151552]
     # bf16): its staged segment, one rank's ring chunk of it, one
@@ -1788,10 +2102,35 @@ def phase12_codec_times(card, plans, lengths, baseline=None):
                    else 32 * MiB].append(name)
         for n, names in sorted(groups.items()):
             _time_codecs(n, names, gen, shape_name, rows, key, mem_bps,
-                         (baseline or {}).get("codec"))
+                         baseline or {})
     for name in CODEC_OPS:
         rows[name]["main"]["where"] = where[name][1]
     _codec_floors(rows, gen)
+    # one ring step of each segment-table kernel on its path: K5 and the
+    # mixed K1 at phase 10 (c)'s (the longest float32 table recorded),
+    # K1 at phase 13's model-axis combine
+    base = baseline or {}
+    k1_base = base.get("chunk_accumulate")
+    k1_one = k1_base.chunk_accumulate if k1_base else None
+    for name, seg_name, dtypes, one in (
+            ("bf16_pack", "bf16_pack_segments", (torch.float32,),
+             base["codec"].bf16_pack if "codec" in base else None),
+            ("k1_mixed", "k1_mixed_segments",
+             (torch.float32, torch.bfloat16), k1_one)):
+        table = max((t for t, dt in tables[seg_name] if dt == "float32"),
+                    key=sum)
+        rows[name]["ring_step"] = ring_step_times(
+            "bf16_pack" if name == "bf16_pack" else "k1", table, dtypes,
+            gen, card, one)
+        _ring_step_line(12, f"{name} (phase 10 (c))",
+                        rows[name]["ring_step"], card)
+    check((tp_step, "bfloat16") in tables["k1_segments"],
+          f"phase 13's model-axis step {tp_step} is not among the K1 "
+          f"tables {tables['k1_segments']}")
+    rows["k1"]["ring_step"] = ring_step_times(
+        "k1", tp_step, (torch.bfloat16, torch.bfloat16), gen, card, k1_one)
+    _ring_step_line(12, "K1 bf16 (phase 13's model-axis combine)",
+                    rows["k1"]["ring_step"], card)
     return rows
 
 
@@ -1820,13 +2159,12 @@ def _codec_floors(rows, gen):
                                 for name in calls))
 
 
-def _time_codecs(n, names, gen, shape_name, rows, key, mem_bps,
-                 base=None):
+def _time_codecs(n, names, gen, shape_name, rows, key, mem_bps, base):
     """Time the kernels ``names`` at length ``n`` into rows[name][shape].
-    With ``base`` (an earlier checkout's kernels/codec.py), K2-K4 are
-    timed in turns with that checkout's kernels on the same operands:
-    earlier, this, this, earlier; each time is the mean of its two
-    turns."""
+    With an earlier checkout's ``base["codec"]`` (and
+    ``base["chunk_accumulate"]``), K2-K5 (and the mixed K1) are timed in
+    turns with that checkout's kernels on the same operands: earlier,
+    this, this, earlier; each time is the mean of its two turns."""
     from repro_torch.kernels import chunk_accumulate as ca
     from repro_torch.kernels import codec, ref
     s = -(-n // 128) * 4
@@ -1874,12 +2212,19 @@ def _time_codecs(n, names, gen, shape_name, rows, key, mem_bps,
         "fp8_decode_accumulate": (
             "int16 + uint8", lambda i: bb[i].view(torch.int16)
             + vals[i].view(torch.uint8))}
-    earlier = {} if base is None else {
-        "fp8_encode": lambda i: base.fp8_encode(xb[i]),
-        "fp8_decode_accumulate": lambda i: base.fp8_decode_accumulate(
-            vals[i], scales[i], bb[i], "fp8_e4m3"),
-        "fp8_decode": lambda i: base.fp8_decode(
-            vals[i], scales[i], "fp8_e4m3", torch.bfloat16)}
+    earlier = {}
+    if "codec" in base:
+        old = base["codec"]
+        earlier.update({
+            "fp8_encode": lambda i: old.fp8_encode(xb[i]),
+            "fp8_decode_accumulate": lambda i: old.fp8_decode_accumulate(
+                vals[i], scales[i], bb[i], "fp8_e4m3"),
+            "fp8_decode": lambda i: old.fp8_decode(
+                vals[i], scales[i], "fp8_e4m3", torch.bfloat16),
+            "bf16_pack": lambda i: old.bf16_pack(xf[i])})
+    if "chunk_accumulate" in base:
+        earlier["k1_mixed"] = lambda i: base["chunk_accumulate"] \
+            .chunk_accumulate(xf[i], packed[i])
     for name in names:
         kern, plain, lib, nbytes = calls[name]
         turns = None
@@ -1940,6 +2285,8 @@ def _codec_row(name, cuda_name, source, replaces, launches, rows,
                                              "stream_ms")
                         if k in big},
             "floor_ms": rows["floor_ms"],
+            **({"ring_step_phase10c": rows["ring_step"]}
+               if "ring_step" in rows else {}),
             "kernel": cuda_name}
 
 
@@ -2090,7 +2437,8 @@ def main(argv=None) -> int:
     baseline = None
     if args.baseline is not None:
         baseline = {name: load_baseline(args.baseline.resolve(), name)
-                    for name in ("flash_decode", "codec")}
+                    for name in ("flash_decode", "codec",
+                                 "chunk_accumulate")}
     # float32 references run in full float32 on the card (TF32 off)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2105,18 +2453,18 @@ def main(argv=None) -> int:
     times = phase5_times(card)
     main_row, long_row, longer_row = times[6], times[256], times[1024]
     k1_errs = phase6_k1_vs_plain()
-    k1_launches, plans = phase7_collectives()
-    k1_rows = phase8_k1_times(card, plans)
+    k1_launches, plans, k1_calls = phase7_collectives()
+    k1_rows = phase8_k1_times(card, plans, baseline)
     k1_main, k1_big = k1_rows["b_substep"], k1_rows["chunk_64MiB"]
     codec_errs = phase9_codecs_vs_plain()
     bf16_launches, bf16_calls = phase10_codec_collectives()
     train_launches, train_plans, train_calls = phase11_training()
     fp8_launches = train_launches["fp8"]
-    tp_k1, k7_launches, tp_calls = phase13_tp_training()
-    path_errs, path_lengths = phase12_main_path_check(
-        train_calls | bf16_calls | tp_calls)
+    tp_k1, k7_launches, tp_calls, tp_step = phase13_tp_training()
+    path_errs, path_lengths, path_tables = phase12_main_path_check(
+        k1_calls | train_calls | bf16_calls | tp_calls)
     codec_rows = phase12_codec_times(card, train_plans, path_lengths,
-                                     baseline)
+                                     path_tables, tp_step, baseline)
     k7_err, k7_rows = phase14_k7(card)
     kernels = [{
         "name": "paged_flash_decode",
@@ -2154,10 +2502,17 @@ def main(argv=None) -> int:
         "bound_ms": k1_main["bound_ms"],
         "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"],
+        **{k: k1_main[k] for k in ("baseline_ms",) if k in k1_main},
         "shape": f"n={k1_main['n']} bf16 (one staged sub-chunk of the "
                  f"1 GiB all-reduce on 4 ranks)",
         "chunk_64MiB": {k: k1_big[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")},
+                                                "bound_by", "library_ms",
+                                                "baseline_ms")
+                        if k in k1_big},
+        "max_abs_err_main_path": path_errs["k1"],
+        "segment_tables": path_tables["k1_segments"],
+        "ring_step_phase7b": k1_rows["ring_step"],
+        "ring_step_phase13": codec_rows["k1"]["ring_step"],
         "launches_train_flexlink": train_launches["flexlink"]["k1"],
         "launches_train_tp_flexlink": tp_k1,
         "mixed_f32_bf16": {
@@ -2172,7 +2527,9 @@ def main(argv=None) -> int:
                          "library_ms", "where")},
             "n_64MiB": {k: codec_rows["k1_mixed"]["64MiB"][k]
                         for k in ("n", "ms", "plain_ms", "bound_ms",
-                                  "bound_by", "library_ms")}},
+                                  "bound_by", "library_ms")},
+            "segment_tables": path_tables["k1_mixed_segments"],
+            "ring_step_phase10c": codec_rows["k1_mixed"]["ring_step"]},
     }]
     codec_src = "src/repro_torch/kernels/csrc/codec.cu"
     fp8_from = "phase 11, fp8 training run, 2 ranks"
@@ -2187,6 +2544,8 @@ def main(argv=None) -> int:
             ("fp8_decode", "K4", 110, fp8_launches, fp8_from),
             ("bf16_pack", "K5", 55, bf16_launches,
              "phase 10 (c), 4 ranks"))]
+    next(r for r in kernels if r["name"] == "bf16_pack")["segment_tables"] = \
+        path_tables["bf16_pack_segments"]
     kernels += [_k7_row(name, line, k7_err, k7_rows)
                 for name, line in (("extract_segment", 36),
                                    ("merge_segments", 59))]

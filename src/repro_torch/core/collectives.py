@@ -18,7 +18,9 @@ The three route classes (DESIGN.md §3):
             process group over the same ranks, with an explicit per-step
             reduce (K1 ``chunk_accumulate``, injected by routing).
             ``substeps > 1`` splits the segment into sub-chunks whose
-            per-step transfers are all posted before any reduce.
+            per-step transfers are all posted before any reduce; the
+            reduce of a step's sub-chunks is then one call (one K1
+            launch on CUDA) into one buffer.
   ortho   : neighbour-row detour over an orthogonal mesh axis: permute the
             share one hop along it, run the primary collective on the
             neighbour row, permute back.
@@ -198,11 +200,11 @@ def _codec_permute_accumulate(curs, mines, mesh, axis: str, send_to: int,
     """One compressed ring-reduce step for every sub-chunk at once: each
     running partial crosses the link encoded, and the receiver decodes it
     and accumulates its local chunk in one fused kernel (float32
-    accumulation, rounded to the local chunk's dtype)."""
-    payloads = [kops.wire_encode(c, codec_name=codec) for c in curs]
+    accumulation, rounded to the local chunk's dtype).  The bf16 pack
+    encodes, and decode-accumulates, all sub-chunks in one launch each."""
+    payloads = kops.wire_encode_many(curs, codec_name=codec)
     moved = _permute_wire(mesh, payloads, axis, send_to, recv_from)
-    return [kops.wire_decode_accumulate(vals, scales, mine, codec_name=codec)
-            for (vals, scales), mine in zip(moved, mines)]
+    return kops.wire_decode_accumulate_many(moved, mines, codec_name=codec)
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +221,23 @@ def _split_subchunks(flat: torch.Tensor, substeps: int
     flat = _pad_last(flat, pad)
     w = flat.shape[-1] // s
     return [flat[..., j * w:(j + 1) * w] for j in range(s)], pad, s
+
+
+def _concat(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The 1-D results of a ring step laid end to end.  When they are the
+    views a list form cut in order from one buffer, that buffer (no
+    copy)."""
+    base = parts[0]._base
+    if base is not None and base.dim() == 1 and \
+            base.numel() == sum(p.numel() for p in parts):
+        off = base.storage_offset()
+        for p in parts:
+            if p._base is not base or p.storage_offset() != off:
+                break
+            off += p.numel()
+        else:
+            return base
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
 def _by_rank(stacked: torch.Tensor, idx: int, n: int) -> torch.Tensor:
@@ -239,7 +258,7 @@ def ring_all_gather(x: torch.Tensor, mesh, axis: str, *,
     idx = mesh.axis_index(axis)
     subs, pad, s = _split_subchunks(x.reshape(-1), substeps)
     if codec:
-        curs = [kops.wire_encode(sub, codec_name=codec) for sub in subs]
+        curs = kops.wire_encode_many(subs, codec_name=codec)
         send = functools.partial(_permute_wire, mesh)
     else:
         curs = list(subs)
@@ -268,13 +287,17 @@ def ring_reduce_scatter(x: torch.Tensor, mesh, axis: str, accumulate=None,
 
     `x` has leading dim divisible by N; returns this rank's reduced chunk.
     `accumulate(a, b)` is the per-step reduce — ``a + b`` when None; the
-    routing layer injects K1 ``chunk_accumulate`` for sub-32-bit floats.
+    routing layer injects K1 ``chunk_accumulate`` for sub-32-bit floats,
+    whose ``many`` list form reduces all sub-chunks of a step in one call
+    (a caller's own accumulate runs sub-chunk by sub-chunk).
     ``codec`` sends each running partial encoded and replaces the
     accumulate with the fused decode-accumulate: the local chunks still
     enter at full precision, only the partials in flight are quantized.
     """
     if accumulate is None:
         accumulate = lambda a, b: a + b  # noqa: E731
+    step_reduce = getattr(accumulate, "many", None) or (
+        lambda rs, ms: [accumulate(r, m) for r, m in zip(rs, ms)])
     n = mesh.axis_size(axis)
     idx = mesh.axis_index(axis)
     chunk_shape = (x.shape[0] // n,) + tuple(x.shape[1:])
@@ -292,8 +315,9 @@ def ring_reduce_scatter(x: torch.Tensor, mesh, axis: str, accumulate=None,
                                              idx + 1, idx - 1, codec)
             continue
         recvd = mesh.permute(curs, axis, idx + 1, idx - 1)
-        curs = [accumulate(r, mine) for r, mine in zip(recvd, mines)]
-    out = torch.cat(curs) if s > 1 else curs[0]
+        curs = step_reduce(recvd, mines)
+    # with n == 1 no step ran: curs are views of x itself
+    out = _concat(curs) if n > 1 else torch.cat(curs)
     if pad:
         out = out[:-pad]
     return out.reshape(chunk_shape)

@@ -3,10 +3,10 @@
 Every kernel under ``csrc/`` has a plain C interface and is compiled on
 its first CUDA call by hand (no PyTorch headers, so a build takes
 seconds) for ``sm_90a`` into ``build/`` at the root of the checkout.  A
-library is named by the hash of its source and flags, so a changed source
-builds anew.  Each build writes a temporary file and moves it into place,
-so processes that build the same source at once never load a half-written
-library.  :func:`build_all` starts one ``nvcc`` per source, all at once.
+library is named by the hash of its source, the headers beside it and
+the flags, so a changed source or header builds anew.  Each build writes
+a temporary file and moves it into place, so processes that build the
+same source at once never load a half-written library.  :func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -35,8 +35,12 @@ def _nvcc() -> str:
 
 
 def library_path(source: pathlib.Path) -> pathlib.Path:
-    tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library of ``source``, named by the hash of the source, the
+    headers beside it (``*.cuh``, which it may include) and the flags."""
+    text = source.read_bytes()
+    for header in sorted(source.parent.glob("*.cuh")):
+        text += header.read_bytes()
+    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{source.stem}-{tag[:16]}.so"
 
 

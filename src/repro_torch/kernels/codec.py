@@ -11,18 +11,23 @@ dispatchers ``kernels/ops.py::wire_*`` pick them for CPU tensors.
 
 The wire form is flat: values [n] (fp8, or bfloat16 for the pack) and one
 float32 scale per 128 consecutive elements, ``ceil(n / 128)`` of them.
+:func:`bf16_pack_segments` packs every sub-chunk of a ring step in one
+launch (``csrc/segments.cuh``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import itertools
 import pathlib
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _nvcc
-from repro_torch.kernels.ref import WIRE_DTYPE, n_scales
+from repro_torch.kernels.chunk_accumulate import MAX_SEGMENTS
+from repro_torch.kernels.ref import WIRE_DTYPE, n_scales, split_flat
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "codec.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -34,6 +39,10 @@ _FMT_CODES = {"fp8_e4m3": 0, "fp8_e5m2": 1}
 #: kernels)
 launch_count = {"fp8_encode": 0, "fp8_decode_accumulate": 0,
                 "fp8_decode": 0, "bf16_pack": 0}
+
+#: segments of :func:`bf16_pack_segments` launches since the last reset,
+#: by the path the kernel took for them: "vector" or "scalar"
+segment_paths: collections.Counter = collections.Counter()
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -53,8 +62,11 @@ def _library() -> ctypes.CDLL:
         lib.codec_fp8_decode.argtypes = [p, p, p, n, i, i, p]
         lib.codec_fp8_decode_accumulate.argtypes = [p, p, p, p, n, i, i, p]
         lib.codec_bf16_pack.argtypes = [p, p, n, i, p]
+        lib.codec_bf16_pack_segments.argtypes = [
+            ctypes.POINTER(n), i, i, p, ctypes.POINTER(i)]
         for fn in (lib.codec_fp8_encode, lib.codec_fp8_decode,
-                   lib.codec_fp8_decode_accumulate, lib.codec_bf16_pack):
+                   lib.codec_fp8_decode_accumulate, lib.codec_bf16_pack,
+                   lib.codec_bf16_pack_segments):
             fn.restype = i
         lib.codec_error_string.argtypes = [i]
         lib.codec_error_string.restype = ctypes.c_char_p
@@ -73,10 +85,11 @@ def _check_inputs(what: str, *xs: torch.Tensor) -> None:
     _check(all(x.is_contiguous() for x in xs), what, "non-contiguous input")
 
 
-def _launch(what: str, fn, *args, device) -> None:
+def _launch(what: str, fn, *args, device, tail=()) -> None:
+    """``fn(*args, stream, *tail)`` on the device's current stream."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+        err = fn(*args, stream, *tail)
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
                            f"{_library().codec_error_string(err).decode()}")
@@ -165,3 +178,32 @@ def bf16_pack(x: torch.Tensor) -> torch.Tensor:
         _launch(what, _library().codec_bf16_pack, x.data_ptr(),
                 out.data_ptr(), n, _DTYPE_CODES[x.dtype], device=x.device)
     return out
+
+
+def bf16_pack_segments(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """:func:`bf16_pack` of every ``xs[j]`` in ONE launch: 1 to
+    ``MAX_SEGMENTS`` contiguous CUDA tensors of one dtype (float32 or
+    bfloat16) on one device.  Returns one [n_j] bfloat16 result each:
+    views of one contiguous buffer, laid end to end in order."""
+    what = "bf16_pack"
+    xs = list(xs)
+    _check(1 <= len(xs) <= MAX_SEGMENTS, what, f"{len(xs)} segments, not "
+           f"1 to {MAX_SEGMENTS}")
+    _check_inputs(what, *xs)
+    _check(len({x.dtype for x in xs}) == 1 and xs[0].dtype in _DTYPE_CODES,
+           what, f"dtypes {sorted({str(x.dtype) for x in xs})}: not one of "
+           f"float32/bfloat16")
+    flat = torch.empty(sum(x.numel() for x in xs), dtype=torch.bfloat16,
+                       device=xs[0].device)
+    outs = split_flat(flat, [(x.numel(),) for x in xs])
+    rows = [(x.data_ptr(), o.data_ptr(), x.numel())
+            for x, o in zip(xs, outs) if x.numel()]
+    if rows:
+        table = (ctypes.c_int64 * (3 * len(rows)))(*itertools.chain(*rows))
+        n_vector = ctypes.c_int(0)
+        _launch(what, _library().codec_bf16_pack_segments, table, len(rows),
+                _DTYPE_CODES[xs[0].dtype], device=xs[0].device,
+                tail=(ctypes.byref(n_vector),))
+        segment_paths["vector"] += n_vector.value
+        segment_paths["scalar"] += len(rows) - n_vector.value
+    return outs

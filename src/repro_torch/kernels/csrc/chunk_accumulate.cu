@@ -10,30 +10,32 @@
 // float32): the decode of the bf16_pack wire codec, where the local fp32
 // chunk meets the received bf16 one (src/repro/kernels/ops.py:139).
 //
-// Layout.  a, b and out are flat contiguous arrays of n elements.  The TPU
-// kernel needed [rows % 8 == 0, cols % 128 == 0] tiles (ops._pad_2d); here
-// a grid-stride loop takes any n, so the wrapper hands over the flat chunk
-// with no padding copy.
+// Layout.  a, b and out are flat contiguous arrays.  The TPU kernel needed
+// [rows % 8 == 0, cols % 128 == 0] tiles (ops._pad_2d); here any length
+// goes, with no padding copy.
 //
 // Bound.  One add per element against 3 x sizeof(T) bytes moved (two reads
 // and one write): far below the H100's ridge, so the kernel is bound by
-// device-memory bytes.  What this version does about it: each thread moves
-// 16 bytes of a and of out per iteration (uint4 loads and stores, 8
-// bf16/f16 or 4 f32 values) and the matching 16 or 8 bytes of b,
-// neighbouring threads on neighbouring words, and the grid is sized to a
-// few waves of the 132 SMs so the loop, not the launch, covers long
-// chunks.  Pointers not aligned to their words (a sub-chunk sliced at an
-// odd offset) take the scalar loop instead.
+// device-memory bytes, and at the ring's sub-chunk lengths (2^17-2^20
+// elements) by its launch floor.  What the design does about it
+// (segments.cuh): one launch takes every sub-chunk of a ring step, up to
+// 8 (a, b, out) segments in a __grid_constant__ table; a unit is one
+// 16-byte word of b and one (two for the float32 + bfloat16 call) of a
+// and out; long tables keep 4 units (2 mixed) of loads in flight a thread
+// with streaming hints, on a grid sized to the work.  Pairs of elements
+// convert back with one cvt.rn.bf16x2 / f16x2 (the same rounding as
+// __float2bfloat16_rn / __float2half_rn).  A segment whose pointers are
+// not 16-byte aligned (a sub-chunk sliced at an odd offset) takes the
+// scalar loop.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "segments.cuh"
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 8;
+namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -54,79 +56,103 @@ __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
 }
 
-// the accumulate in the first operand's type: TA(float(a) + float(b))
-template <typename TA, typename TB>
-__device__ __forceinline__ TA add_f32(TA a, TB b) {
-  return from_f32<TA>(to_f32(a) + to_f32(b));
-}
-
-// a word of N bytes, loaded and stored as one vector access
-template <int N> struct Word;
-template <> struct Word<16> { using type = uint4; };
-template <> struct Word<8> { using type = uint2; };
-
-// Vector path: 16 bytes of a and out per thread and step (kVec elements),
-// and the kVec elements of b as one 16- or 8-byte word; every pointer
-// aligned to its word.  Elements past the last whole vector are done by
-// the scalar tail loop in the same kernel.
-template <typename TA, typename TB>
-__global__ void accum_vec(const TA* __restrict__ a, const TB* __restrict__ b,
-                          TA* __restrict__ out, int64_t n) {
-  constexpr int kVec = 16 / sizeof(TA);
-  using WordA = typename Word<16>::type;
-  using WordB = typename Word<int(kVec * sizeof(TB))>::type;
-  const int64_t n_vec = n / kVec;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const WordA* aw = reinterpret_cast<const WordA*>(a);
-  const WordB* bw = reinterpret_cast<const WordB*>(b);
-  WordA* ow = reinterpret_cast<WordA*>(out);
-  for (int64_t v = tid; v < n_vec; v += stride) {
-    WordA av = aw[v];
-    WordB bv = bw[v];
-    WordA ov;
-    const TA* ae = reinterpret_cast<const TA*>(&av);
-    const TB* be = reinterpret_cast<const TB*>(&bv);
-    TA* oe = reinterpret_cast<TA*>(&ov);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) oe[k] = add_f32(ae[k], be[k]);
-    ow[v] = ov;
+// Element pair p (elements 2p and 2p + 1) of an array of 32-bit words
+// holding T values as they lie in memory, as float2, and back.
+template <typename T> struct Pairs;
+template <> struct Pairs<float> {
+  static __device__ __forceinline__ float2 get(const uint32_t* w, int p) {
+    return make_float2(__uint_as_float(w[2 * p]),
+                       __uint_as_float(w[2 * p + 1]));
   }
-  for (int64_t i = n_vec * kVec + tid; i < n; i += stride)
-    out[i] = add_f32(a[i], b[i]);
+  static __device__ __forceinline__ void put(uint32_t* w, int p, float2 v) {
+    w[2 * p] = __float_as_uint(v.x);
+    w[2 * p + 1] = __float_as_uint(v.y);
+  }
+};
+template <> struct Pairs<__nv_bfloat16> {
+  static __device__ __forceinline__ float2 get(const uint32_t* w, int p) {
+    return make_float2(__uint_as_float(w[p] << 16),
+                       __uint_as_float(w[p] & 0xFFFF0000u));
+  }
+  static __device__ __forceinline__ void put(uint32_t* w, int p, float2 v) {
+    const __nv_bfloat162_raw r = __float22bfloat162_rn(v);
+    w[p] = uint32_t(r.x) | (uint32_t(r.y) << 16);
+  }
+};
+template <> struct Pairs<__half> {
+  static __device__ __forceinline__ float2 get(const uint32_t* w, int p) {
+    __half2_raw r;
+    r.x = uint16_t(w[p] & 0xFFFFu);
+    r.y = uint16_t(w[p] >> 16);
+    return __half22float2(__half2(r));
+  }
+  static __device__ __forceinline__ void put(uint32_t* w, int p, float2 v) {
+    const __half2_raw r = __float22half2_rn(v);
+    w[p] = uint32_t(r.x) | (uint32_t(r.y) << 16);
+  }
+};
+
+__device__ __forceinline__ void unpack(const uint4& v, uint32_t* w) {
+  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
 }
 
+// The segments.cuh Op of K1: in0 = a, in1 = b, out of a's type.  A unit is
+// the elements of one 16-byte word of b (TB is never wider than TA).
 template <typename TA, typename TB>
-__global__ void accum_scalar(const TA* __restrict__ a,
-                             const TB* __restrict__ b, TA* __restrict__ out,
-                             int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = add_f32(a[i], b[i]);
-}
+struct Accumulate {
+  static constexpr int kVec = 16 / sizeof(TB);
+  static constexpr int kWordsA = kVec * int(sizeof(TA)) / 16;   // 1 or 2
+  static constexpr int kLongUnroll = 4 / kWordsA;
+  struct Unit { uint4 a[kWordsA]; uint4 b; };
 
-template <typename TA, typename TB>
-int launch(const void* a, const void* b, void* out, int64_t n,
-           cudaStream_t stream) {
-  constexpr int64_t kVec = 16 / sizeof(TA);
-  constexpr uintptr_t kBAlign = kVec * sizeof(TB) - 1;
-  const bool aligned = ((reinterpret_cast<uintptr_t>(a) |
-                         reinterpret_cast<uintptr_t>(out)) & 15) == 0 &&
-                       (reinterpret_cast<uintptr_t>(b) & kBAlign) == 0;
-  const int64_t per_thread = aligned ? kVec : 1;
-  int64_t blocks = (n / per_thread + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const TA* ta = static_cast<const TA*>(a);
-  const TB* tb = static_cast<const TB*>(b);
-  TA* to = static_cast<TA*>(out);
-  if (aligned)
-    accum_vec<TA, TB><<<(int)blocks, kThreads, 0, stream>>>(ta, tb, to, n);
-  else
-    accum_scalar<TA, TB><<<(int)blocks, kThreads, 0, stream>>>(ta, tb, to,
-                                                               n);
-  return (int)cudaGetLastError();
+  static __device__ __forceinline__ void load(const seg::Segment& g,
+                                              int64_t i, Unit& w) {
+    const uint4* a = static_cast<const uint4*>(g.in0) + i * kWordsA;
+#pragma unroll
+    for (int k = 0; k < kWordsA; ++k) w.a[k] = __ldcs(a + k);
+    w.b = __ldcs(static_cast<const uint4*>(g.in1) + i);
+  }
+
+  static __device__ __forceinline__ void store(const seg::Segment& g,
+                                               int64_t i, const Unit& w) {
+    uint32_t a[4 * kWordsA], b[4], o[4 * kWordsA];
+#pragma unroll
+    for (int k = 0; k < kWordsA; ++k) unpack(w.a[k], a + 4 * k);
+    unpack(w.b, b);
+#pragma unroll
+    for (int p = 0; p < kVec / 2; ++p) {
+      const float2 x = Pairs<TA>::get(a, p), y = Pairs<TB>::get(b, p);
+      Pairs<TA>::put(o, p, make_float2(__fadd_rn(x.x, y.x),
+                                       __fadd_rn(x.y, y.y)));
+    }
+    uint4* out = static_cast<uint4*>(g.out) + i * kWordsA;
+#pragma unroll
+    for (int k = 0; k < kWordsA; ++k)
+      __stcs(out + k, make_uint4(o[4 * k], o[4 * k + 1], o[4 * k + 2],
+                                 o[4 * k + 3]));
+  }
+
+  static __device__ __forceinline__ void scalar(const seg::Segment& g,
+                                                int64_t i) {
+    const TA a = static_cast<const TA*>(g.in0)[i];
+    const TB b = static_cast<const TB*>(g.in1)[i];
+    static_cast<TA*>(g.out)[i] = from_f32<TA>(__fadd_rn(to_f32(a),
+                                                        to_f32(b)));
+  }
+};
+
+int launch(seg::Table t, int a_dtype, int b_dtype, cudaStream_t s,
+           int* n_vector) {
+  switch (a_dtype * 3 + b_dtype) {
+    case 0: return seg::launch<Accumulate<float, float>>(t, s, n_vector);
+    case 4:
+      return seg::launch<Accumulate<__nv_bfloat16, __nv_bfloat16>>(
+          t, s, n_vector);
+    case 8: return seg::launch<Accumulate<__half, __half>>(t, s, n_vector);
+    case 1:
+      return seg::launch<Accumulate<float, __nv_bfloat16>>(t, s, n_vector);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -134,20 +160,30 @@ int launch(const void* a, const void* b, void* out, int64_t n,
 extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  The operands
-// share a dtype, or a is float32 and b bfloat16; out has a's dtype.  n >= 1
-// elements.  Returns a cudaError_t (0 on success); cudaErrorInvalidValue
-// for a dtype pair or length the kernel does not take.
+// share a dtype, or a is float32 and b bfloat16; out has a's dtype.  Every
+// function returns a cudaError_t (0 on success); cudaErrorInvalidValue
+// for a dtype pair, length or segment count the kernel does not take.
+
+// One launch over ``count`` (1-8) segments, ``table`` holding a row of
+// int64 (a, b, out, n >= 1) for each; *n_vector (when not null) gets the
+// number of segments that took the 16-byte vector path.
+int ca_chunk_accumulate_segments(const int64_t* table, int count,
+                                 int a_dtype, int b_dtype, void* stream,
+                                 int* n_vector) {
+  if (count < 1 || count > seg::kMaxSegments)
+    return int(cudaErrorInvalidValue);
+  return launch(seg::table_from_rows(table, count, true), a_dtype, b_dtype,
+                static_cast<cudaStream_t>(stream), n_vector);
+}
+
+// One (a, b, out) of n >= 1 elements: a table of one.
 int ca_chunk_accumulate(const void* a, const void* b, void* out, int64_t n,
                         int a_dtype, int b_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  switch (a_dtype * 3 + b_dtype) {
-    case 0: return launch<float, float>(a, b, out, n, s);
-    case 4: return launch<__nv_bfloat16, __nv_bfloat16>(a, b, out, n, s);
-    case 8: return launch<__half, __half>(a, b, out, n, s);
-    case 1: return launch<float, __nv_bfloat16>(a, b, out, n, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  seg::Table t{};
+  t.count = 1;
+  t.seg[0] = {a, b, out, n};
+  return launch(t, a_dtype, b_dtype, static_cast<cudaStream_t>(stream),
+                nullptr);
 }
 
 const char* ca_error_string(int err) {

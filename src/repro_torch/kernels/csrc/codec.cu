@@ -25,7 +25,8 @@
 //   K3  out   = cast_b(fma(v, scale, b)), one rounding (__fmaf_rn), as
 //               XLA fuses the reference's v * scale + b
 //   K4  out   = cast_out(v * scale)          (__fmul_rn)
-//   K5  out   = bf16(x)                      (a bit copy for bf16 input)
+//   K5  out   = bf16(x), round to nearest even   (a bit copy for bf16
+//               input)
 // The _rn intrinsics are explicit so no compiler flag changes a rounding.
 //
 // Bound.  Each is an elementwise pass of a few operations per element
@@ -55,9 +56,13 @@
 //   offset) take the scalar loops, as do K2's partial last group and the
 //   n % 8 (or % 4) tail of K3/K4, inside the same launch.  K2-K4 launch
 //   a block for each chunk of work (loops over chunks only past 2^20
-//   blocks); K5 takes 4 consecutive elements a thread, with vector loads
-//   and stores when every pointer is aligned, on a grid of a few waves of
-//   the 132 SMs with a grid-stride loop.
+//   blocks).
+// - K5 runs on segments.cuh: one launch packs every sub-chunk of a ring
+//   step (up to 8 segments in a __grid_constant__ table), on a grid sized
+//   to the work.  A float32 unit is 8 values: two 16-byte streaming loads,
+//   four cvt.rn.bf16x2.f32 pair conversions (F2FP), one 16-byte store;
+//   long tables keep 2 units a thread in flight.  bfloat16 input is a copy
+//   of 16-byte words.  Unaligned segments take the scalar loop.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -65,11 +70,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segments.cuh"
+
 namespace {
 
 constexpr int kGroup = 128;
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 8;     // K5: a few waves of 132 SMs
 constexpr int64_t kChunkBlocks = 1 << 20;  // K2-K4: blocks before a loop
 constexpr float kScaleTiny = 1e-30f;
 constexpr int kEncUnroll = 2;   // K2: 16-byte loads a lane issues at once
@@ -136,20 +142,6 @@ __device__ __forceinline__ float2 dequant2(uint32_t pair) {
   return __half22float2(__half2(h));
 }
 
-// four consecutive elements as f32, from one vector load
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  uint2 q;
-  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&q);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) e[k] = from_f32<__nv_bfloat16>(v[k]);
-  *reinterpret_cast<uint2*>(p) = q;
-}
-
 __device__ __forceinline__ uint4 ld16(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
@@ -187,13 +179,6 @@ __device__ __forceinline__ uint32_t absmax_bits(const uint4& w,
   const uint32_t hi = max(max(w.x & kHi, w.y & kHi), max(w.z & kHi, w.w & kHi));
   const uint32_t lo = max(max(w.x & kLo, w.y & kLo), max(w.z & kLo, w.w & kLo));
   return max(hi, lo << 16);
-}
-
-int grid_for(int64_t work_items) {
-  int64_t blocks = (work_items + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  return (int)blocks;
 }
 
 bool aligned(const void* p, int bytes) {
@@ -417,35 +402,71 @@ fp8_decode_kernel(const uint8_t* __restrict__ vals,
 
 // -- K5 -----------------------------------------------------------------------
 
-template <bool VEC>
-__global__ void bf16_pack_kernel(const float* __restrict__ x,
-                                 __nv_bfloat16* __restrict__ out, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t n4 = n / 4;
-  for (int64_t i4 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i4 < n4;
-       i4 += stride) {
-    const int64_t i = i4 * 4;
-    float v[4];
-    if (VEC) {
-      load4(x + i, v);
-      store4(out + i, v);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) out[i + k] = from_f32<__nv_bfloat16>(x[i + k]);
-    }
-  }
-  for (int64_t i = n4 * 4 + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += stride)
-    out[i] = from_f32<__nv_bfloat16>(x[i]);
-}
+// The segments.cuh Op of K5: in0 = x, out bfloat16.  A unit is 8 values:
+// float32 input converts in pairs with cvt.rn.bf16x2.f32 (the rounding of
+// __float2bfloat16_rn); bfloat16 input is copied bit for bit.
+template <typename T> struct Bf16Pack;
+template <> struct Bf16Pack<float> {
+  static constexpr int kVec = 8;
+  static constexpr int kLongUnroll = 2;
+  struct Unit { uint4 lo, hi; };
 
-// bfloat16 input: the pack is a copy of the 16-bit patterns
-__global__ void bf16_copy_kernel(const uint16_t* __restrict__ x,
-                                 uint16_t* __restrict__ out, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = x[i];
+  static __device__ __forceinline__ void load(const seg::Segment& g,
+                                              int64_t i, Unit& w) {
+    const uint4* x = static_cast<const uint4*>(g.in0) + 2 * i;
+    w.lo = __ldcs(x);
+    w.hi = __ldcs(x + 1);
+  }
+
+  // two floats' bits (lo first in memory) -> their bf16 pair's word
+  static __device__ __forceinline__ uint32_t pack2(uint32_t lo, uint32_t hi) {
+    const __nv_bfloat162_raw r = __float22bfloat162_rn(
+        make_float2(__uint_as_float(lo), __uint_as_float(hi)));
+    return uint32_t(r.x) | (uint32_t(r.y) << 16);
+  }
+
+  static __device__ __forceinline__ void store(const seg::Segment& g,
+                                               int64_t i, const Unit& w) {
+    __stcs(static_cast<uint4*>(g.out) + i,
+           make_uint4(pack2(w.lo.x, w.lo.y), pack2(w.lo.z, w.lo.w),
+                      pack2(w.hi.x, w.hi.y), pack2(w.hi.z, w.hi.w)));
+  }
+
+  static __device__ __forceinline__ void scalar(const seg::Segment& g,
+                                                int64_t i) {
+    static_cast<__nv_bfloat16*>(g.out)[i] =
+        __float2bfloat16_rn(static_cast<const float*>(g.in0)[i]);
+  }
+};
+template <> struct Bf16Pack<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static constexpr int kLongUnroll = 4;
+  struct Unit { uint4 x; };
+
+  static __device__ __forceinline__ void load(const seg::Segment& g,
+                                              int64_t i, Unit& w) {
+    w.x = __ldcs(static_cast<const uint4*>(g.in0) + i);
+  }
+
+  static __device__ __forceinline__ void store(const seg::Segment& g,
+                                               int64_t i, const Unit& w) {
+    __stcs(static_cast<uint4*>(g.out) + i, w.x);
+  }
+
+  static __device__ __forceinline__ void scalar(const seg::Segment& g,
+                                                int64_t i) {
+    static_cast<uint16_t*>(g.out)[i] =
+        static_cast<const uint16_t*>(g.in0)[i];
+  }
+};
+
+int launch_pack(const seg::Table& t, int dtype, cudaStream_t s,
+                int* n_vector) {
+  switch (dtype) {
+    case 0: return seg::launch<Bf16Pack<float>>(t, s, n_vector);
+    case 1: return seg::launch<Bf16Pack<__nv_bfloat16>>(t, s, n_vector);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename TO, bool ACCUM, int FMT>
@@ -548,30 +569,24 @@ int codec_fp8_decode_accumulate(const void* vals, const void* scales,
   }
 }
 
-// K5: x [n] (float32 or bfloat16) -> out [n] bfloat16
+// K5: x [n] (float32 or bfloat16) -> out [n] bfloat16: a table of one
 int codec_bf16_pack(const void* x, void* out, int64_t n, int dtype,
                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  switch (dtype) {
-    case 0: {
-      const float* xf = static_cast<const float*>(x);
-      const int grid = grid_for(n / 4 > 0 ? n / 4 : 1);
-      if (aligned(x, 16) && aligned(out, 8))
-        bf16_pack_kernel<true><<<grid, kThreads, 0, s>>>(xf, o, n);
-      else
-        bf16_pack_kernel<false><<<grid, kThreads, 0, s>>>(xf, o, n);
-      break;
-    }
-    case 1:
-      bf16_copy_kernel<<<grid_for(n), kThreads, 0, s>>>(
-          static_cast<const uint16_t*>(x), static_cast<uint16_t*>(out), n);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  seg::Table t{};
+  t.count = 1;
+  t.seg[0] = {x, nullptr, out, n};
+  return launch_pack(t, dtype, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// K5 over ``count`` (1-8) segments in one launch, ``table`` holding a row
+// of int64 (x, out, n >= 1) for each; *n_vector (when not null) gets the
+// number of segments that took the 16-byte vector path
+int codec_bf16_pack_segments(const int64_t* table, int count, int dtype,
+                             void* stream, int* n_vector) {
+  if (count < 1 || count > seg::kMaxSegments)
+    return (int)cudaErrorInvalidValue;
+  return launch_pack(seg::table_from_rows(table, count, false), dtype,
+                     static_cast<cudaStream_t>(stream), n_vector);
 }
 
 const char* codec_error_string(int err) {

@@ -8,9 +8,18 @@ launches or raises — there is no fallback.
 The reference pads every payload to [rows % 8, 128]-lane tiles
 (``_pad_2d``) for the TPU's BlockSpecs; the port's kernels walk flat
 arrays of any length, so no padding copy exists here.
+
+The list forms (``accumulate_many``, ``wire_encode_many``,
+``wire_decode_accumulate_many``) take every sub-chunk of one ring step:
+K1 and K5 run them in ONE launch into one contiguous buffer, of which
+they return per-sub-chunk views; the fp8 codecs still launch once a
+sub-chunk.  On the CPU they run the plain versions pair by pair.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import List, Sequence
 
 import torch
 
@@ -19,6 +28,10 @@ from repro_torch.kernels import codec as _codec
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import payload_partition as _pp
 from repro_torch.kernels import ref
+
+#: the most sub-chunks one list-form call takes (a ring step's, at most
+#: routing.MAX_STAGED_SUBSTEPS): the size of the kernels' segment tables
+MAX_SEGMENTS = _ca.MAX_SEGMENTS
 
 
 def _cuda_only(x: torch.Tensor, what: str) -> None:
@@ -52,22 +65,70 @@ class _Accumulate(torch.autograd.Function):
         return g, g.to(ctx.b_dtype), None
 
 
+def _check_operands(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+    if a.shape != b.shape or (a.dtype != b.dtype
+                              and (a.dtype, b.dtype) != _ca.MIXED):
+        raise ValueError(f"{what}: operands differ: {tuple(a.shape)} "
+                         f"{a.dtype} and {tuple(b.shape)} {b.dtype}")
+
+
 def accumulate(a: torch.Tensor, b: torch.Tensor, *,
                acc_dtype=torch.float32) -> torch.Tensor:
     """Ring-step accumulate for chunks of any shape: a + b in
     ``acc_dtype``, rounded to a's dtype.  The operands share a dtype, or
     are a float32 ``a`` and a bfloat16 ``b``."""
-    if a.shape != b.shape or (a.dtype != b.dtype
-                              and (a.dtype, b.dtype) != _ca.MIXED):
-        raise ValueError(f"accumulate: operands differ: {tuple(a.shape)} "
-                         f"{a.dtype} and {tuple(b.shape)} {b.dtype}")
+    _check_operands(a, b, "accumulate")
     return _Accumulate.apply(a, b, acc_dtype)
+
+
+def _check_list(what: str, *lists: Sequence[torch.Tensor]) -> None:
+    n = len(lists[0])
+    if not 1 <= n <= MAX_SEGMENTS or any(len(x) != n for x in lists):
+        raise ValueError(f"{what}: {[len(x) for x in lists]} operands, not "
+                         f"1 to {MAX_SEGMENTS} of each")
+    tensors = [t for x in lists for t in x]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{what}: operands on two devices")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{what}: the list forms carry no gradient (the "
+                         f"ring runs them under no_grad)")
+
+
+def _one_buffer(results: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The plain versions' results laid end to end in one buffer, as the
+    kernels write them: per-result views of it."""
+    flat = torch.cat([r.reshape(-1) for r in results])
+    return ref.split_flat(flat, [r.shape for r in results])
+
+
+def accumulate_many(as_: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
+                    *, acc_dtype=torch.float32) -> List[torch.Tensor]:
+    """``accumulate(as_[j], bs[j])`` for every sub-chunk j of one ring step
+    (1 to :data:`MAX_SEGMENTS`): ONE K1 launch on CUDA.  The results are
+    views of one contiguous buffer, laid end to end in order."""
+    as_, bs = list(as_), list(bs)
+    _check_list("accumulate_many", as_, bs)
+    for a, b in zip(as_, bs):
+        _check_operands(a, b, "accumulate_many")
+    if as_[0].device.type == "cpu":
+        return _one_buffer([ref.chunk_accumulate_ref(a, b, acc_dtype=acc_dtype)
+                            for a, b in zip(as_, bs)])
+    _cuda_only(as_[0], "accumulate_many")
+    if acc_dtype != torch.float32:
+        raise ValueError(f"accumulate_many: the kernel accumulates in "
+                         f"float32, not {acc_dtype}")
+    return _ca.chunk_accumulate_segments([a.contiguous() for a in as_],
+                                         [b.contiguous() for b in bs])
 
 
 def ring_accumulate_fn(acc_dtype=torch.float32):
     """An ``accumulate(a, b)`` closure for collectives.ring_reduce_scatter /
-    ring_all_reduce — this is how the kernel plugs into the staged path."""
-    return lambda a, b: accumulate(a, b, acc_dtype=acc_dtype)
+    ring_all_reduce — this is how the kernel plugs into the staged path.
+    Its ``many`` attribute is the list form the ring calls once a step."""
+    def acc(a, b):
+        return accumulate(a, b, acc_dtype=acc_dtype)
+    acc.many = functools.partial(accumulate_many, acc_dtype=acc_dtype)
+    return acc
 
 
 # -- payload split / merge (K7) ------------------------------------------------
@@ -122,6 +183,23 @@ def wire_encode(x: torch.Tensor, *, codec_name: str):
     return _codec.fp8_encode(flat, codec_name)
 
 
+def wire_encode_many(xs: Sequence[torch.Tensor], *, codec_name: str):
+    """:func:`wire_encode` of every sub-chunk of one ring step (1 to
+    :data:`MAX_SEGMENTS`).  The bf16 pack is ONE K5 launch on CUDA, its
+    values views of one contiguous buffer; fp8 encodes each sub-chunk."""
+    xs = list(xs)
+    _check_list("wire_encode_many", xs)
+    if codec_name != "bf16_pack":
+        return [wire_encode(x, codec_name=codec_name) for x in xs]
+    flats = [x.reshape(-1) for x in xs]
+    if flats[0].device.type == "cpu":
+        vals = _one_buffer([ref.bf16_pack_ref(f) for f in flats])
+    else:
+        _cuda_only(flats[0], "wire_encode_many")
+        vals = _codec.bf16_pack_segments([f.contiguous() for f in flats])
+    return [(v, None) for v in vals]
+
+
 def wire_decode(vals: torch.Tensor, scales, *, codec_name: str, shape,
                 dtype) -> torch.Tensor:
     """Decode a wire payload back to ``shape``/``dtype``.  The bf16 pack
@@ -148,6 +226,22 @@ def wire_decode_accumulate(vals: torch.Tensor, scales, mine: torch.Tensor,
     _cuda_only(mine, "wire_decode_accumulate")
     return _codec.fp8_decode_accumulate(vals, scales, mine.contiguous(),
                                         codec_name).reshape(mine.shape)
+
+
+def wire_decode_accumulate_many(payloads, mines: Sequence[torch.Tensor], *,
+                                codec_name: str) -> List[torch.Tensor]:
+    """:func:`wire_decode_accumulate` of every sub-chunk of one ring step:
+    ``payloads[j] = (values, scales or None)`` onto ``mines[j]``.  The bf16
+    pack is ONE K1 launch (:func:`accumulate_many`); fp8 runs K3 a
+    sub-chunk."""
+    payloads, mines = list(payloads), list(mines)
+    if codec_name == "bf16_pack":
+        return accumulate_many(mines, [v.reshape(m.shape) for (v, _), m
+                                       in zip(payloads, mines)])
+    _check_list("wire_decode_accumulate_many", [v for v, _ in payloads],
+                mines)
+    return [wire_decode_accumulate(v, s, m, codec_name=codec_name)
+            for (v, s), m in zip(payloads, mines)]
 
 
 def wire_roundtrip(x: torch.Tensor, *, codec_name: str) -> torch.Tensor:

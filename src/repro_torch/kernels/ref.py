@@ -13,6 +13,17 @@ import torch
 from repro_torch.core.codecs import SCALE_CHUNK
 
 
+def split_flat(flat: torch.Tensor, shapes) -> list:
+    """Views of the flat ``flat``, one of each shape, laid end to end: the
+    per-segment results of a list-form kernel call."""
+    out, off = [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        out.append(flat[off:off + n].view(shape))
+        off += n
+    return out
+
+
 def chunk_accumulate_ref(a: torch.Tensor, b: torch.Tensor, *,
                          acc_dtype=torch.float32) -> torch.Tensor:
     """The staged ring's step reduce: ``a + b`` in ``acc_dtype``, rounded

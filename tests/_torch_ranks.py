@@ -9,6 +9,9 @@ and returns plain data (numpy arrays, tuples), one answer per case.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+
 import numpy as np
 import torch
 
@@ -37,6 +40,35 @@ def as_bits(y: torch.Tensor) -> np.ndarray:
     return y.float().numpy() if y.is_floating_point() else y.numpy()
 
 
+#: the kernels' list forms (one call a ring step) and their per-sub-chunk
+#: counterparts, whose calls ``collectives`` counts per case
+COUNTED = ("accumulate", "accumulate_many", "wire_encode", "wire_encode_many")
+
+
+@contextlib.contextmanager
+def counted_calls(counts: collections.Counter):
+    """Within the block, every call of a ``kernels/ops.py`` function named
+    in COUNTED adds one to ``counts[name]``; ops' own calls between them
+    (the list forms' closures, the bf16 decode-accumulate) go through the
+    module's names, so they count too."""
+    from repro_torch.kernels import ops
+    originals = {name: getattr(ops, name) for name in COUNTED}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in originals.items():
+        setattr(ops, name, wrap(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in originals.items():
+            setattr(ops, name, fn)
+
+
 def _collective(op, x, mesh, kw):
     if op == "flex_all_reduce":
         return routing.flex_all_reduce(x, mesh, "data", **kw)
@@ -52,19 +84,28 @@ def _collective(op, x, mesh, kw):
         return cx.ring_all_reduce(x, mesh, "data", **kw)
     if op == "tree_all_reduce":
         return cx.tree_all_reduce(x, mesh, "data", **kw)
+    if op == "codec_execute":
+        from repro_torch.core.topology import Collective
+        plan = routing.build_plan(
+            Collective(kw["collective"]), "data", kw["shares"], "model",
+            staged_substeps=kw["substeps"],
+            path_codecs={"staged": kw["codec"]})
+        return routing.execute(plan, x, mesh)
     raise ValueError(op)
 
 
 def collectives(cases):
-    """Every case of tests/test_torch_collectives.py on this rank; also
-    the rank's mesh coordinates."""
+    """Every case of tests/test_torch_collectives.py on this rank, with
+    the COUNTED calls each made; also the rank's mesh coordinates."""
     meshes = {k: Mesh(*v, device="cpu") for k, v in MESHES.items()}
-    out = {"coords": {k: m.coords for k, m in meshes.items()}}
+    out = {"coords": {k: m.coords for k, m in meshes.items()}, "calls": {}}
     for name, c in cases.items():
         mesh = meshes[c["mesh"]]
         x = torch.from_numpy(local_block(c["x"], c["in_spec"], mesh))
         x = x.to(getattr(torch, c["dtype"]))
-        out[name] = as_bits(_collective(c["op"], x, mesh, c["kw"]))
+        with counted_calls(collections.Counter()) as counts:
+            out[name] = as_bits(_collective(c["op"], x, mesh, c["kw"]))
+        out["calls"][name] = dict(counts)
     return out
 
 

@@ -8,12 +8,18 @@ on its ``_pad_2d`` tiles) and the port's plain versions
 compared bit for bit: the fp8 bytes and scales of K2, the outputs of K4
 and K3 (one fused multiply-add), the bf16 pack of K5, and K1 on a float32
 chunk with a bfloat16 one.  Groups holding inf or NaN decode to NaN at
-the same places as the reference's.  The CUDA kernels are held against the
-plain versions on the card:
+the same places as the reference's.  The list forms of the bf16 pack
+(``ops.wire_encode_many``) and of its decode-accumulate
+(``ops.wire_decode_accumulate_many``), one launch a ring step on the card,
+are held against the reference pair by pair for tables of 1, 2, 3 and 8
+segments, aligned and one element off.  The CUDA kernels are held
+against the plain versions on the card:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
         tests/test_torch_codec.py -k cuda
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -207,6 +213,102 @@ def test_mixed_accumulate_matches_reference(n):
     assert ca.launch_count == before
 
 
+# segment tables of the list forms: indices into LENGTHS, 1, 2, 3 and 8
+# segments of unequal lengths
+TABLES = [(4,), (3, 0), (1, 4, 2), (0, 1, 2, 3, 4, 3, 2, 1)]
+TABLE_IDS = [f"{len(t)}seg" for t in TABLES]
+
+
+@pytest.fixture(scope="module")
+def pack_reference():
+    """The reference's bf16 pack of each (length, dtype) payload, and its
+    bf16_pack decode-accumulate of a bf16 payload onto a float32 chunk."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    out = {}
+    for n in LENGTHS:
+        for dtype in DTYPES:
+            x, xf = _payload(n, dtype, n)
+            j_vals, _ = jops.wire_encode(jnp.asarray(xf).astype(dtype),
+                                         codec_name="bf16_pack")
+            out[n, dtype] = (x, _bits(np.asarray(j_vals)).reshape(-1)[:n])
+        mine, mf = _payload(n, "float32", n + 1)
+        x, xf = _payload(n, "bfloat16", n + 2)
+        j_vals, _ = jops.wire_encode(jnp.asarray(xf).astype("bfloat16"),
+                                     codec_name="bf16_pack")
+        want = np.asarray(jops.wire_decode_accumulate(
+            j_vals, None, jnp.asarray(mf), codec_name="bf16_pack"))
+        out[n, "mixed"] = (mine, x, _bits(want))
+    return out
+
+
+def _off_by_one(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a view one element into a larger buffer."""
+    big = torch.empty(x.numel() + 1, dtype=x.dtype)
+    big[1:] = x.reshape(-1)
+    return big[1:].view(x.shape)
+
+
+def _laid_end_to_end(got) -> None:
+    base, off = got[0]._base, 0
+    for g in got:
+        assert g._base is base and g.storage_offset() == off
+        off += g.numel()
+    assert base.numel() == off
+
+
+@pytest.mark.parametrize("off", [0, 1], ids=["aligned", "off1"])
+@pytest.mark.parametrize("table", TABLES, ids=TABLE_IDS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bf16_pack_list_form_matches_reference(pack_reference, dtype, table,
+                                               off):
+    """wire_encode_many with the bf16 pack: the reference's pack of each
+    sub-chunk, bit for bit, as views of one buffer; nothing launches."""
+    move = _off_by_one if off else (lambda x: x)
+    xs = [move(pack_reference[LENGTHS[k], dtype][0]) for k in table]
+    before = dict(tcodec.launch_count)
+    got = tops.wire_encode_many(xs, codec_name="bf16_pack")
+    assert tcodec.launch_count == before
+    assert all(scales is None for _, scales in got)
+    _laid_end_to_end([v for v, _ in got])
+    for (vals, _), k in zip(got, table):
+        np.testing.assert_array_equal(_tbits(vals),
+                                      pack_reference[LENGTHS[k], dtype][1])
+
+
+@pytest.mark.parametrize("off", [0, 1], ids=["aligned", "off1"])
+@pytest.mark.parametrize("table", TABLES, ids=TABLE_IDS)
+def test_mixed_list_form_matches_reference(pack_reference, table, off):
+    """wire_decode_accumulate_many with the bf16 pack (K1 on float32 local
+    chunks and received bf16 ones): the reference's decode-accumulate of
+    each sub-chunk, bit for bit, as views of one buffer."""
+    move = _off_by_one if off else (lambda x: x)
+    cases = [pack_reference[LENGTHS[k], "mixed"] for k in table]
+    before = dict(ca.launch_count)
+    got = tops.wire_decode_accumulate_many(
+        [(move(x), None) for _, x, _ in cases],
+        [move(mine) for mine, _, _ in cases], codec_name="bf16_pack")
+    assert ca.launch_count == before
+    _laid_end_to_end(got)
+    for g, (_, _, want) in zip(got, cases):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(_tbits(g), want)
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+def test_fp8_list_forms_run_per_sub_chunk(reference, fmt):
+    """fp8 keeps one K2 / K3 call a sub-chunk: the list forms equal the
+    per-sub-chunk calls."""
+    cases = [reference[(n, "float32", fmt)] for n in (1000, 127, 4099)]
+    xs, bs = [x for x, _, _ in cases], [b for _, b, _ in cases]
+    got = tops.wire_encode_many(xs, codec_name=fmt)
+    acc = tops.wire_decode_accumulate_many(got, bs, codec_name=fmt)
+    for (vals, scales), a, x, b, (_, _, (j_vals, _, _, j_acc)) in zip(
+            got, acc, xs, bs, cases):
+        np.testing.assert_array_equal(_tbits(vals), j_vals)
+        np.testing.assert_array_equal(_tbits(a.float()), _bits(j_acc))
+
+
 def test_mixed_accumulate_backward_gives_each_operand_its_dtype():
     a, _ = _payload(300, "float32", 1)
     b, _ = _payload(300, "bfloat16", 2)
@@ -236,9 +338,14 @@ def test_kernel_wrappers_reject_cpu_tensors():
                  lambda: tcodec.fp8_decode_accumulate(vals, scales, x,
                                                       "fp8_e4m3"),
                  lambda: tcodec.bf16_pack(x),
+                 lambda: tcodec.bf16_pack_segments([x, x]),
                  lambda: ca.chunk_accumulate(x, x.bfloat16())):
         with pytest.raises(ValueError, match="CUDA"):
             call()
+    with pytest.raises(ValueError, match="9 segments"):
+        tcodec.bf16_pack_segments([x] * 9)
+    with pytest.raises(ValueError, match="1 to 8"):
+        tops.wire_encode_many([x] * 9, codec_name="bf16_pack")
     assert tcodec.launch_count == before
 
 
@@ -301,3 +408,44 @@ def test_cuda_codec_kernels_match_plain_versions(n, dtype, fmt, off):
         p = tref.bf16_pack_ref(bs)
         _same(tops.accumulate(xs, p), tref.chunk_accumulate_ref(xs, p))
     torch.cuda.synchronize()
+
+
+#: K5 segment tables on the card: lengths around its 8-value units, the
+#: ring's sub-chunk (131072, eight of them as phase 10 (c)'s step) and a
+#: long one that takes the long body
+CUDA_PACK_TABLES = [(1,), (1000, 7), (8, 15, 17, 9), (131072,) * 8,
+                    (4096, 1, 8191), ((1 << 22) + 3, 5)]
+CUDA_PACK_OFFSETS = {"aligned": lambda j: 0, "off1": lambda j: 1,
+                     "mixed": lambda j: j % 2}
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card: the kernels have no CPU mode")
+@pytest.mark.parametrize("offsets", sorted(CUDA_PACK_OFFSETS))
+@pytest.mark.parametrize("lengths", CUDA_PACK_TABLES,
+                         ids=[f"{len(t)}seg-{max(t)}"
+                              for t in CUDA_PACK_TABLES])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_bf16_pack_segments_match_plain_version(dtype, lengths,
+                                                     offsets):
+    """K5 over a whole table in one launch, NaN and inf included: bit for
+    bit with the plain version segment by segment (NaN at the same
+    places); a segment takes the vector path exactly when its input and
+    output are 16-byte aligned."""
+    shift = CUDA_PACK_OFFSETS[offsets]
+    xs = []
+    for j, n in enumerate(lengths):
+        x, _ = _payload(n + 1, dtype, n % 97 + j, special=True)
+        k = shift(j)
+        xs.append(x.cuda()[k:k + n])
+    launches = tcodec.launch_count["bf16_pack"]
+    paths = collections.Counter(tcodec.segment_paths)
+    got = tcodec.bf16_pack_segments(xs)
+    torch.cuda.synchronize()
+    assert tcodec.launch_count["bf16_pack"] == launches + 1
+    want_vec = sum(x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+                   for x, g in zip(xs, got))
+    assert tcodec.segment_paths - paths == collections.Counter(
+        {"vector": want_vec, "scalar": len(lengths) - want_vec})
+    for g, x in zip(got, xs):
+        _same(g, tref.bf16_pack_ref(x))

@@ -16,7 +16,12 @@ take ``jax.make_mesh`` coordinates, checked below).
   in interpret mode there) after every step;
 * mixed primary/staged/ortho plans, all-to-all and the tree all-reduce:
   exact on small-integer payloads, since gloo's and XLA's sums run in
-  different orders (DESIGN.md §9).
+  different orders (DESIGN.md §9);
+* staged rings with the bf16 pack on the wire, substeps {2, 4, 8}: bit
+  for bit;
+* the staged ring and the bf16-pack ring reduce (and pack) all
+  sub-chunks of a ring step with ONE call of the kernels' list forms,
+  counted on every rank for substeps {2, 4, 8}.
 
 ``RoutePlan`` equality and hash are compared on plans built by both.
 """
@@ -64,7 +69,7 @@ def _cases():
         cases[name] = dict(op=op, kw=kw, x=x, dtype=dtype, mesh=mesh,
                            in_spec=in_spec, out_spec=out_spec)
 
-    for s in (1, 2, 4):
+    for s in (1, 2, 4, 8):
         for dt in ("bfloat16", "float32"):
             x = _random_bf16((4 * 6, 40), s) if dt == "bfloat16" else \
                 np.random.default_rng(s).standard_normal(
@@ -101,6 +106,15 @@ def _cases():
     add("ortho-sharded-ag", "flex_all_gather", _small_ints((4 * 3, 4), 41),
         "float32", "data,model", "none,model",
         shares={"primary": 70, "staged": 15, "ortho": 15}, ortho_name="model")
+    for s, dt in ((2, "float32"), (4, "float32"), (8, "float32"),
+                  (4, "bfloat16")):
+        x = np.random.default_rng(50 + s).standard_normal(
+            (4 * 6, 40)).astype(np.float32)
+        if dt == "bfloat16":
+            x = _random_bf16((4 * 6, 40), 50 + s)
+        add(f"bf16pack-ar-{dt}-s{s}", "codec_execute", x, dt, "data", "data",
+            collective="all_reduce", shares=STAGED, substeps=s,
+            codec="bf16_pack")
     add("ring-ag", "ring_all_gather", _small_ints((4 * 2, 3), 42), "float32",
         "data", "none")
     add("ring-ar", "ring_all_reduce", _small_ints((4 * 5,), 43), "float32",
@@ -133,6 +147,12 @@ def _reference(case):
     kw = dict(case["kw"])
     if "ortho_name" in kw:
         kw["ortho_name"] = "y"
+    if case["op"] == "codec_execute":
+        plan = j_routing.build_plan(
+            JColl(kw["collective"]), "x", kw["shares"], "y",
+            staged_substeps=kw["substeps"],
+            path_codecs={"staged": kw["codec"]})
+        kw = {}
     fn = {"flex_all_reduce": j_cx.flex_all_reduce,
           "flex_all_gather": functools.partial(j_cx.flex_all_gather,
                                                tiled=True),
@@ -140,7 +160,9 @@ def _reference(case):
           "flex_all_to_all": j_cx.flex_all_to_all,
           "ring_all_gather": j_cx.ring_all_gather,
           "ring_all_reduce": j_cx.ring_all_reduce,
-          "tree_all_reduce": j_cx.tree_all_reduce}[case["op"]]
+          "tree_all_reduce": j_cx.tree_all_reduce,
+          "codec_execute": lambda v, _: j_routing.execute(plan, v)
+          }[case["op"]]
     f = shard_map(lambda v: fn(v, "x", **kw), mesh=mesh,
                   in_specs=(_j_spec(case["in_spec"]),),
                   out_specs=_j_spec(case["out_spec"]),
@@ -187,6 +209,43 @@ def test_port_matches_reference(port_results, name):
         # bit for bit (bf16 widened to float32 exactly, -0.0 != +0.0)
         np.testing.assert_array_equal(_bits(got), _bits(exp.astype(got.dtype)),
                                       err_msg=f"rank {r}")
+
+
+#: (case, per-rank calls of the COUNTED ops functions) on the data axis of
+#: the (4, 2) mesh: n - 1 = 3 reduce steps a ring, each one list-form
+#: call, whatever the substeps; the bf16 pack also packs the all-gather's
+#: source once
+RING_CALLS = {
+    **{f"staged-{op}-bfloat16-s{s}": {"accumulate_many": 3}
+       for op in ("ar", "rs") for s in (2, 4, 8)},
+    **{f"bf16pack-ar-{dt}-s{s}": {"accumulate_many": 3,
+                                   "wire_encode_many": 4}
+       for dt, s in (("float32", 2), ("float32", 4), ("float32", 8),
+                     ("bfloat16", 4))}}
+
+
+@pytest.mark.parametrize("name", sorted(RING_CALLS))
+def test_ring_calls_list_form_once_per_step(port_results, name):
+    assert name in CASES
+    for r, res in enumerate(port_results):
+        assert res["calls"][name] == RING_CALLS[name], f"rank {r}"
+
+
+def test_concat_is_a_view_of_a_list_forms_buffer():
+    """The reduce-scatter's last step hands back the list form's buffer:
+    its sub-chunks laid end to end are that buffer, with no copy; other
+    parts are concatenated."""
+    from repro_torch.core.collectives import _concat
+    from repro_torch.kernels import ops as tops
+    a = [torch.full((5,), float(j), dtype=torch.bfloat16) for j in range(3)]
+    parts = tops.accumulate_many(a, a)
+    joined = _concat(parts)
+    assert joined.data_ptr() == parts[0].data_ptr()
+    assert torch.equal(joined, torch.cat(parts))
+    fresh = [p.clone() for p in parts]
+    assert torch.equal(_concat(fresh), joined)
+    assert _concat(fresh).data_ptr() != fresh[0].data_ptr()
+    assert _concat(parts[:2]).data_ptr() != parts[0].data_ptr()
 
 
 def test_rank_coordinates_follow_make_mesh(port_results):

@@ -298,6 +298,35 @@ def test_scheduler_and_allocator_copies_match_reference():
     assert js.report()["preemptions"] > 0
 
 
+@pytest.mark.parametrize("temperature", [0.0, 0.7, 1.0])
+def test_sampling_on_bf16_logits_matches_reference(temperature):
+    """Temperature sampling of bf16 logits: the reference's samplers on an
+    ml_dtypes bf16 array (a bf16 array divided by a Python float comes out
+    float32) and the port's on the same bits as a torch bf16 tensor
+    through ``_host_logits`` (float32) draw the same 200 tokens from one
+    numpy seed, in both engines."""
+    rng = np.random.default_rng(23)
+    rows = (rng.standard_normal((200, 512)) * 3).astype(
+        np.float32).astype(ml_dtypes.bfloat16)
+    host = TE._host_logits(torch.from_numpy(rows.view(np.int16)).view(
+        torch.bfloat16))
+    assert host.dtype == np.float32
+    np.testing.assert_array_equal(host, rows.astype(np.float32))
+    for j_cls, t_cls, j_arg, t_arg in (
+            (JE.ServeEngine, TE.ServeEngine,
+             JE.Request(0, [1], temperature=temperature),
+             TE.Request(0, [1], temperature=temperature)),
+            (JE.PagedServeEngine, TE.PagedServeEngine, temperature,
+             temperature)):
+        j_self = types.SimpleNamespace(rng=np.random.default_rng(5))
+        t_self = types.SimpleNamespace(rng=np.random.default_rng(5))
+        want = [j_cls._sample(j_self, row, j_arg) for row in rows]
+        got = [t_cls._sample(t_self, row, t_arg) for row in host]
+        assert got == want, t_cls.__name__
+        argmax = [int(row.argmax()) for row in host]
+        assert (want == argmax) == (temperature == 0.0)
+
+
 # ---------------------------------------------------------------------------
 # launcher
 # ---------------------------------------------------------------------------
