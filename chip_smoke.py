@@ -8,7 +8,8 @@ unpacked; only its ``src/repro_torch/kernels`` is read): its K6 runs
 phase 4's logits step beside this checkout's, its K2-K4 are timed in
 turns with this checkout's in phase 12, its K1 and K5 launched once a
 sub-chunk are timed in turns with this checkout's one launch a ring step
-in phases 8 and 12 (and its codec's and K1's SASS counted in phase 1).
+in phases 8 and 12, its K7 in turns with this checkout's in phase 14
+(and its codec's, K1's and K7's SASS counted in phase 1).
 Without it the script needs nothing but this checkout.
 
 Phases, each printing its own lines; any failure raises and exits
@@ -17,8 +18,9 @@ non-zero:
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    kernel from the checkout's CUDA sources (K6, K1, K2-K5 and K7, one
    ``nvcc`` per source, all at once), timed, with ptxas's registers and
-   spills of each kernel, the codec and K1 kernels' SASS instruction
-   counts (``cuobjdump -sass``) and K6's dynamic shared memory;
+   spills of each kernel, the codec, K1 and K7 kernels' SASS instruction
+   counts (``cuobjdump -sass``; global loads and stores by width) and K6's
+   dynamic shared memory;
 2. K6, the paged flash-decode kernel, against its plain PyTorch version at
    glm4-9b shapes (Hq 32, Hkv 2, hd 128, block 16), at GQA groups 1,
    2, 4, 8, 12 and 16 with hd 64 and 128, and at kimi-k2's full width
@@ -134,13 +136,18 @@ non-zero:
    all-reduces executed a step (5 forward, 2 in the checkpoint
    recompute, 5 backward); K1 launches equal to what the executed plans
    imply, n - 1 a staged ring; peak memory and wall time;
-14. K7a/K7b, the payload split and merge, against their plain versions
-   in float32 and bfloat16 at the reference test's cases, at lengths and
-   offsets one element off its blocks and at 64 MiB (the second half of a
-   128 MiB payload; four segments of 1/2, 1/4, 1/8, 1/8 of 64 MiB): bit
-   for bit; timed at 64 MiB beside their plain versions,
-   ``x[a:b].clone()`` / ``torch.cat`` and the memory bound, on rotated
-   operand copies.
+14. K7a/K7b, the payload split and merge on segments.cuh's tables,
+   against their plain versions in float32, bfloat16 and uint8 at the
+   reference test's cases, at lengths and offsets one element off its
+   blocks and at merges of 9 and 17 segments (ceil(n / 8) launches), and
+   in bfloat16 at 64 MiB
+   (the second half of a 128 MiB payload; four segments of 1/2, 1/4,
+   1/8, 1/8 of 64 MiB; 9 and 17 segments) and at the route segments of
+   phase 7 (a)'s 256 MiB payload and phase 13's 4 MiB combine at
+   50/25/25: bit for bit; each timed (with ``--baseline``, in turns with
+   the earlier K7: earlier, this, this, earlier), beside their plain
+   versions, ``x[a:b].clone()`` / ``torch.cat`` and the memory bound, on
+   rotated operand copies.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  The launches in that line are the
@@ -269,14 +276,17 @@ def load_baseline(root: pathlib.Path, name: str):
 
 
 # SASS opcodes counted per kernel in phase 1: the IEEE division's
-# reciprocal and its slow-path check, conversions, shuffles, memory
+# reciprocal and its slow-path check, conversions, shuffles, memory;
+# global loads and stores also by width (LDG.128, STG.U8, ...: 32 when
+# the opcode names none)
 SASS_OPS = ("MUFU", "FCHK", "CALL", "F2FP", "F2F", "SHFL", "LDG", "STG")
+SASS_WIDTHS = ("U8", "S8", "U16", "S16", "64", "128")
 
 
 def sass_counts(lib: pathlib.Path):
-    """{kernel: (instructions, {opcode: count for SASS_OPS})} of a built
-    library, read from ``cuobjdump -sass`` (static counts: every path of
-    the kernel's code, each instruction once)."""
+    """{kernel: (instructions, {opcode: count for SASS_OPS, and LDG / STG
+    by width})} of a built library, read from ``cuobjdump -sass`` (static
+    counts: every path of the kernel's code, each instruction once)."""
     from torch.utils.cpp_extension import CUDA_HOME
     dump = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
                            "-sass", str(lib)], capture_output=True,
@@ -289,11 +299,15 @@ def sass_counts(lib: pathlib.Path):
             out[name] = [0, collections.Counter()]
             continue
         ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                       r"([A-Z][A-Z0-9_]*)", line)
+                       r"([A-Z][A-Z0-9_]*)((?:\.\w+)*)", line)
         if name and ins:
+            op, mods = ins.group(1), ins.group(2).split(".")
             out[name][0] += 1
-            if ins.group(1) in SASS_OPS:
-                out[name][1][ins.group(1)] += 1
+            if op in SASS_OPS:
+                out[name][1][op] += 1
+            if op in ("LDG", "STG"):
+                width = next((m for m in mods if m in SASS_WIDTHS), "32")
+                out[name][1][f"{op}.{width}"] += 1
     return {k: (n, dict(c)) for k, (n, c) in out.items()}
 
 
@@ -303,8 +317,11 @@ _TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32",
 
 
 def _short(mangled: str) -> str:
-    """A K1-K5 kernel's name and template arguments, from its mangled
-    name."""
+    """A K1-K5 or K7 kernel's name and template arguments, from its
+    mangled name."""
+    m = re.search(r"segments_kernelI\w*?\d+CopyILi(\d+)EEELi(\d+)E", mangled)
+    if m:
+        return f"segments_kernel<Copy<{m.group(1)}>, unroll {m.group(2)}>"
     m = re.search(r"segments_kernelI\w*?\d+(Accumulate|Bf16Pack)I(\w+?)EELi"
                   r"(\d+)E", mangled)
     if m:
@@ -350,10 +367,11 @@ def phase1_card_and_build(baseline=None):
                 print(f"  ptxas: {line.strip()}")
         print(f"phase 1: built {os.path.relpath(lib, ROOT)} from "
               f"{os.path.relpath(src, ROOT)}")
-    sass = [("", codec.SOURCE), ("", ca.SOURCE)]
+    sass = [("", codec.SOURCE), ("", ca.SOURCE), ("", pp.SOURCE)]
     if baseline:
         sass += [("baseline ", baseline[name].SOURCE)
-                 for name in ("codec", "chunk_accumulate")]
+                 for name in ("codec", "chunk_accumulate",
+                              "payload_partition")]
     for tag, src in sass:
         for kernel, (n, ops) in sorted(sass_counts(built[src][0]).items()):
             print(f"phase 1: {tag}SASS {_short(kernel)}: {n} instructions "
@@ -2294,28 +2312,39 @@ def _codec_row(name, cuda_name, source, replaces, launches, rows,
 # (routing.execute partitions with views and torch.cat, as the reference's
 # execute does with lax.dynamic_slice), so they are held against their
 # plain versions and timed here only
-K7_SPLITS = ((1,), (2, 1), (1, 3, 2), (4, 1, 2, 3))
+K7_SPLITS = ((1,), (2, 1), (1, 3, 2), (4, 1, 2, 3), (1,) * 9,
+             (1, 2) * 8 + (1,))
 K7_BIG = 64 * MiB                      # bytes a timed call copies
+#: payloads the paths partition at THREE_ROUTES (bf16): phase 7 (a)'s
+#: 256 MiB all-reduce and phase 13's 4 MiB model-axis combine
+K7_PAYLOADS = (("phase 7 (a)", 256 * MiB), ("phase 13", 4 * MiB))
+
+
+def _same_bytes(got, want) -> bool:
+    return got.shape == want.shape and torch.equal(got.view(torch.uint8),
+                                                   want.view(torch.uint8))
 
 
 def _k7_cases(dtype, err):
-    """K7a and K7b vs plain versions at the reference test's cases and at
-    one element off its blocks; returns the max abs error."""
+    """K7a and K7b vs plain versions at the reference test's
+    cases, at one element off its blocks and at merges of 9 and 17
+    segments (ceil(segments / 8) launches); returns the max abs error."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import payload_partition as pp
     blk = ref.BLOCK
-    x = (torch.arange(10 * blk + 4, device="cuda", dtype=torch.float32)
-         * 0.5).to(dtype)
+    i = torch.arange((max(map(sum, K7_SPLITS)) + 1) * blk + 20,
+                     device="cuda")
+    x = (i % 251).to(dtype) if dtype == torch.uint8 else (i * 0.5).to(dtype)
 
     def same(got, want, tag):
         torch.cuda.synchronize()
-        check(torch.equal(_bits(got), _bits(want)), f"K7 {tag} {dtype}: "
-              f"not bit-identical to its plain version")
+        check(_same_bytes(got, want), f"K7 {tag} {dtype}: not bit-identical "
+              f"to its plain version")
         return max(err, (got.float() - want.float()).abs().max().item())
 
     for n_blocks, start in ((1, 0), (2, 1), (3, 5)):
-        err = same(ops.extract_segment(x[:8 * blk], start, n_blocks),
-                   ref.extract_segment_ref(x[:8 * blk], start, n_blocks),
+        want = ref.extract_segment_ref(x[:8 * blk], start, n_blocks)
+        err = same(ops.extract_segment(x[:8 * blk], start, n_blocks), want,
                    f"extract ({n_blocks}, {start})")
         a, n = start * blk + 1, n_blocks * blk - 1
         err = same(pp.extract(x, a, n), x[a:a + n].clone(),
@@ -2326,96 +2355,226 @@ def _k7_cases(dtype, err):
             for s in sizes:
                 segs.append(x[off:off + s * blk + extra].clone())
                 off += s * blk + extra
+            before = pp.launch_count["merge"]
             got = ops.merge_segments(segs) if extra == 0 else pp.merge(segs)
+            launches = pp.launch_count["merge"] - before
+            check(launches == -(-len(sizes) // pp.MAX_SEGMENTS),
+                  f"K7 merge of {len(sizes)} segments: {launches} launches")
             err = same(got, ref.merge_segments_ref(segs),
                        f"merge {sizes} + {extra}")
     return err
 
 
-def phase14_k7(card):
+def _k7_timed(nbytes, k, mem_bps, kern, plain, lib, base=None):
+    """One K7 call copying ``nbytes``, timed on ``k`` rotated operand sets
+    (``kern(i)``) twice, in turns with the earlier checkout's kernel
+    (``base``, --baseline) where given: base, kern, kern, base."""
+    seq = [base] * bool(base) + [kern, kern] + [base] * bool(base)
+    turns = [time_ms(f, sets=k) for f in seq]
+    t = turns[1:-1] if base else turns
+    row = dict(ms=(t[0] + t[1]) / 2, turns=turns,
+               plain_ms=time_ms(plain, sets=k),
+               library_ms=time_ms(lib, sets=k),
+               bound_ms=2 * nbytes / mem_bps * 1e3, bound_by="bytes",
+               bytes=2 * nbytes, rotations=k)
+    if base:
+        row["baseline_ms"] = (turns[0] + turns[-1]) / 2
+    return row
+
+
+def _k7_line(what, row, lib_name, card):
+    key, (mem_bps, _) = card_peaks(card)
+    base = ""
+    if "baseline_ms" in row:
+        base = (f", baseline {row['baseline_ms']:.4f} ms "
+                f"({row['bound_ms'] / row['baseline_ms']:.1%})")
+    order = "baseline/this/this/baseline" if base else "this/this"
+    print(f"phase 14: {what}: {row['ms']:.4f} ms "
+          f"({row['bound_ms'] / row['ms']:.1%} of bound){base}, plain "
+          f"{row['plain_ms']:.4f} ms, {lib_name} {row['library_ms']:.4f} ms "
+          f"({row['bound_ms'] / row['library_ms']:.1%}); turns {order} "
+          + "/".join(f"{t:.4f}" for t in row["turns"])
+          + f"; bound {row['bound_ms']:.5f} ms by bytes ({row['bytes']} B "
+          f"at {mem_bps / 1e12:.2f} TB/s: {key} datasheet); operands "
+          f"rotated over {row['rotations']} copies, out of L2")
+
+
+def _k7_check(got, want, what):
+    torch.cuda.synchronize()
+    check(_same_bytes(got, want), f"{what}: not bit-identical")
+
+
+def phase14_k7(card, baseline=None):
+    from repro_torch.core import collectives
     from repro_torch.kernels import payload_partition as pp
     from repro_torch.kernels import ref
     key, (mem_bps, _) = card_peaks(card)
+    base = (baseline or {}).get("payload_partition")
     before = dict(pp.launch_count)
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.uint8):
         errs[dtype] = _k7_cases(dtype, 0.0)
     gen = torch.Generator(device="cuda").manual_seed(14)
     blk = ref.BLOCK
     rows = {}
+
+    def payloads(n, dtype, k):
+        return [torch.randn(n, generator=gen, device="cuda").to(dtype)
+                for _ in range(k)]
+
     for dtype in (torch.float32, torch.bfloat16):
         n = K7_BIG // torch.finfo(dtype).bits * 8         # elements
         nb = n // blk
         k = rotations(2 * K7_BIG)
         # K7a: the second half of a 2n payload; K7b: four segments of
         # 1/2, 1/4, 1/8, 1/8 of n
-        xs = [torch.randn(2 * n, generator=gen, device="cuda").to(dtype)
-              for _ in range(k)]
+        xs = payloads(2 * n, dtype, k)
         parts = (nb // 2, nb // 4, nb // 8, nb // 8)
         segs = [[torch.randn(p * blk, generator=gen, device="cuda").to(dtype)
                  for p in parts] for _ in range(k)]
-        got = pp.extract(xs[0], n, n)
-        check(torch.equal(_bits(got), _bits(ref.extract_segment_ref(
-            xs[0], nb, nb))), f"K7a 64 MiB {dtype}: not bit-identical")
-        got = pp.merge(segs[0])
-        check(torch.equal(_bits(got), _bits(ref.merge_segments_ref(
-            segs[0]))), f"K7b 64 MiB {dtype}: not bit-identical")
-        del got
-        calls = {
-            "extract_segment": (lambda i: pp.extract(xs[i], n, n),
-                                lambda i: ref.extract_segment_ref(
-                                    xs[i], nb, nb),
-                                lambda i: xs[i][n:2 * n].clone()),
-            "merge_segments": (lambda i: pp.merge(segs[i]),
-                               lambda i: ref.merge_segments_ref(segs[i]),
-                               lambda i: torch.cat(segs[i]))}
-        for name, (kern, plain, lib) in calls.items():
-            ms = time_ms(kern, sets=k)
-            plain_ms = time_ms(plain, sets=k)
-            lib_ms = time_ms(lib, sets=k)
-            bound_ms = 2 * K7_BIG / mem_bps * 1e3
-            rows[name, dtype] = dict(ms=ms, plain_ms=plain_ms,
-                                     library_ms=lib_ms, bound_ms=bound_ms,
-                                     bound_by="bytes", n=n)
-            lib_name = ("x[a:b].clone()" if name == "extract_segment"
-                        else "torch.cat")
-            print(f"phase 14: {name} {str(dtype)[6:]} {n} elements "
-                  f"(64 MiB): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"{lib_name} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-                  f"bytes ({2 * K7_BIG} B at {mem_bps / 1e12:.2f} TB/s: "
-                  f"{key} datasheet); {bound_ms / ms:.1%} of bound; "
-                  f"operands rotated over {k} copies, out of L2")
+        _k7_check(pp.extract(xs[0], n, n),
+                  ref.extract_segment_ref(xs[0], nb, nb),
+                  f"K7a 64 MiB {dtype}")
+        _k7_check(pp.merge(segs[0]), ref.merge_segments_ref(segs[0]),
+                  f"K7b 64 MiB {dtype}")
+        tag = f"{str(dtype)[6:]} {n} elements (64 MiB)"
+        rows["extract_segment", dtype] = r = _k7_timed(
+            K7_BIG, k, mem_bps,
+            lambda i: pp.extract(xs[i], n, n),
+            lambda i: ref.extract_segment_ref(xs[i], nb, nb),
+            lambda i: xs[i][n:2 * n].clone(),
+            base and (lambda i: base.extract(xs[i], n, n)))
+        _k7_line(f"extract_segment {tag}", r, "x[a:b].clone()", card)
+        rows["merge_segments", dtype] = r = _k7_timed(
+            K7_BIG, k, mem_bps,
+            lambda i: pp.merge(segs[i]),
+            lambda i: ref.merge_segments_ref(segs[i]),
+            lambda i: torch.cat(segs[i]),
+            base and (lambda i: base.merge(segs[i])))
+        _k7_line(f"merge_segments {tag}, 4 segments", r, "torch.cat", card)
+        for name in ("extract_segment", "merge_segments"):
+            rows[name, dtype]["n"] = n
         del xs, segs
+        torch.cuda.empty_cache()
+    # the route payloads, split as partition_payload splits them
+    units = collectives.quantize_shares(THREE_ROUTES, collectives.PATH_ORDER)
+    for where, nbytes in K7_PAYLOADS:
+        n = nbytes // 2
+        unit = n // collectives.CHUNK_GRID
+        spans, off = [], 0
+        for p in collectives.PATH_ORDER:
+            spans.append((p, off * unit, units[p] * unit))
+            off += units[p]
+        k = rotations(2 * nbytes)
+        xs = payloads(n, torch.bfloat16, k)
+        segs = [[x[a:a + m].clone() for _, a, m in spans] for x in xs]
+        for p, a, m in spans:
+            _k7_check(pp.extract(xs[0], a, m), xs[0][a:a + m].clone(),
+                      f"K7a {where} {p}")
+        _k7_check(pp.merge(segs[0]), xs[0], f"K7b {where}")
+        for p, a, m in spans:
+            rows["extract_segment", where, p] = r = _k7_timed(
+                2 * m, k, mem_bps,
+                lambda i: pp.extract(xs[i], a, m),
+                lambda i: ref.extract_segment_ref(xs[i], a // blk, m // blk),
+                lambda i: xs[i][a:a + m].clone(),
+                base and (lambda i: base.extract(xs[i], a, m)))
+            r["n"] = m
+            _k7_line(f"extract_segment bf16, {where}'s {nbytes // MiB} MiB "
+                     f"payload, the {p} segment ({2 * m / MiB:g} MiB at "
+                     f"{2 * a / MiB:g} MiB)", r, "x[a:b].clone()", card)
+        rows["merge_segments", where] = r = _k7_timed(
+            nbytes, k, mem_bps,
+            lambda i: pp.merge(segs[i]),
+            lambda i: ref.merge_segments_ref(segs[i]),
+            lambda i: torch.cat(segs[i]),
+            base and (lambda i: base.merge(segs[i])))
+        r["n"] = n
+        _k7_line(f"merge_segments bf16, {where}'s {nbytes // MiB} MiB "
+                 f"payload, " + " + ".join(f"{2 * m / MiB:g}"
+                                           for _, _, m in spans)
+                 + " MiB", r, "torch.cat", card)
+        del xs, segs
+        torch.cuda.empty_cache()
+    # merges of 9 and 17 segments of 64 MiB bf16 (2 and 3 launches; no
+    # path cuts more than 3 route segments)
+    n = K7_BIG // 2
+    k = rotations(2 * K7_BIG)
+    for count in (9, 17):
+        part = n // count // 64 * 64
+        lengths = [part] * (count - 1) + [n - part * (count - 1)]
+        segs = [[torch.randn(m, generator=gen, device="cuda").to(
+            torch.bfloat16) for m in lengths] for _ in range(k)]
+        want = ref.merge_segments_ref(segs[0])
+        b0 = pp.launch_count["merge"]
+        out = pp.merge(segs[0])
+        _k7_check(out, want, f"K7b {count} segments")
+        got = pp.launch_count["merge"] - b0
+        check(got == -(-count // pp.MAX_SEGMENTS), f"K7b {count} segments: "
+              f"{got} launches")
+        rows["merge_segments", count] = r = _k7_timed(
+            K7_BIG, k, mem_bps,
+            lambda i: pp.merge(segs[i]),
+            lambda i: ref.merge_segments_ref(segs[i]),
+            lambda i: torch.cat(segs[i]),
+            base and (lambda i: base.merge(segs[i])))
+        r["n"] = n
+        _k7_line(f"merge_segments bf16 {n} elements (64 MiB), {count} "
+                 f"segments ({-(-count // pp.MAX_SEGMENTS)} launches)", r,
+                 "torch.cat", card)
+        del segs, want, out
         torch.cuda.empty_cache()
     # timing and checking launches are not a path's
     pp.launch_count.update(before)
-    print(f"phase 14: K7a/K7b vs plain versions, float32 and bfloat16, at "
-          f"the reference test's cases, one element off its blocks and at "
-          f"64 MiB: bit for bit (max abs err {max(errs.values())}); no "
-          f"path launches them (launches 0)")
+    print(f"phase 14: K7a/K7b vs plain versions in float32, bfloat16 and "
+          f"uint8 at the reference test's cases, one element off its blocks "
+          f"and merges of 9 and 17 segments (ceil(n / 8) launches), and in "
+          f"bf16 at 4, 64 and 256 MiB: bit for bit (max abs err "
+          f"{max(errs.values())}); no path launches them (launches 0)")
     return max(errs.values()), rows
+
+
+_K7_KEYS = ("n", "ms", "baseline_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
 
 
 def _k7_row(name, line, err, rows):
     main = rows[name, torch.bfloat16]
-    return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/payload_partition.cu",
-            "replaces": f"src/repro/kernels/payload_partition.py:{line}",
-            "launches": 0,
-            "launches_from": "no path calls it: routing.execute slices "
-                             "with views, as the reference's does with "
-                             "lax.dynamic_slice",
-            "max_abs_err": err,
-            "max_abs_err_at": "the reference test's cases, one element "
-                              "off, 64 MiB; float32 and bfloat16, phase 14",
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
-            "shape": f"{main['n']} bf16 elements (64 MiB copied)",
-            "float32": {k: rows[name, torch.float32][k]
-                        for k in ("n", "ms", "plain_ms", "bound_ms",
-                                  "bound_by", "library_ms")},
-            "kernel": {"extract_segment": "K7a",
-                       "merge_segments": "K7b"}[name]}
+
+    def pick(row):
+        return {k: row[k] for k in _K7_KEYS if k in row}
+
+    out = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/payload_partition.cu",
+           "replaces": f"src/repro/kernels/payload_partition.py:{line}",
+           "launches": 0,
+           "launches_from": "no path calls it: routing.execute slices "
+                            "with views, as the reference's does with "
+                            "lax.dynamic_slice",
+           "max_abs_err": err,
+           "max_abs_err_at": "the reference test's cases, one element "
+                             "off, merges of 9 and 17 segments (float32, "
+                             "bfloat16, uint8), 4 / 64 / 256 MiB (bf16), "
+                             "phase 14",
+           **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
+           **({"baseline_ms": main["baseline_ms"]}
+              if "baseline_ms" in main else {}),
+           "shape": f"{main['n']} bf16 elements (64 MiB copied)",
+           "float32": pick(rows[name, torch.float32]),
+           "kernel": {"extract_segment": "K7a",
+                      "merge_segments": "K7b"}[name]}
+    for where, nbytes in K7_PAYLOADS:
+        tag = f"{nbytes // MiB}MiB_three_routes"
+        if name == "merge_segments":
+            out[tag] = pick(rows[name, where])
+        else:
+            out[tag] = {p: pick(rows[name, where, p])
+                        for p in ("primary", "staged", "ortho")}
+    if name == "merge_segments":
+        for count in (9, 17):
+            out[f"{count}_segments"] = pick(rows[name, count])
+    return out
 
 
 def main(argv=None) -> int:
@@ -2423,8 +2582,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--baseline", type=pathlib.Path, default=None,
         help="an earlier checkout (git archive of a commit, unpacked): its "
-             "K6 also runs phase 4's logits step, and its K2-K4 are timed "
-             "in turns with this checkout's in phase 12")
+             "K6 also runs phase 4's logits step, its K1-K5 are timed in "
+             "turns with this checkout's in phases 8 and 12, its K7 in "
+             "phase 14")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -2438,7 +2598,7 @@ def main(argv=None) -> int:
     if args.baseline is not None:
         baseline = {name: load_baseline(args.baseline.resolve(), name)
                     for name in ("flash_decode", "codec",
-                                 "chunk_accumulate")}
+                                 "chunk_accumulate", "payload_partition")}
     # float32 references run in full float32 on the card (TF32 off)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2465,7 +2625,7 @@ def main(argv=None) -> int:
         k1_calls | train_calls | bf16_calls | tp_calls)
     codec_rows = phase12_codec_times(card, train_plans, path_lengths,
                                      path_tables, tp_step, baseline)
-    k7_err, k7_rows = phase14_k7(card)
+    k7_err, k7_rows = phase14_k7(card, baseline)
     kernels = [{
         "name": "paged_flash_decode",
         "route": "cuda",

@@ -402,9 +402,10 @@ fp8_decode_kernel(const uint8_t* __restrict__ vals,
 
 // -- K5 -----------------------------------------------------------------------
 
-// The segments.cuh Op of K5: in0 = x, out bfloat16.  A unit is 8 values:
-// float32 input converts in pairs with cvt.rn.bf16x2.f32 (the rounding of
-// __float2bfloat16_rn); bfloat16 input is copied bit for bit.
+// The segments.cuh Op of K5 on float32 input: in0 = x, out bfloat16.  A
+// unit is 8 values, converted in pairs with cvt.rn.bf16x2.f32 (the
+// rounding of __float2bfloat16_rn).  bfloat16 input is copied bit for bit
+// by segments.cuh's Copy<2>.
 template <typename T> struct Bf16Pack;
 template <> struct Bf16Pack<float> {
   static constexpr int kVec = 8;
@@ -438,33 +439,11 @@ template <> struct Bf16Pack<float> {
         __float2bfloat16_rn(static_cast<const float*>(g.in0)[i]);
   }
 };
-template <> struct Bf16Pack<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  static constexpr int kLongUnroll = 4;
-  struct Unit { uint4 x; };
-
-  static __device__ __forceinline__ void load(const seg::Segment& g,
-                                              int64_t i, Unit& w) {
-    w.x = __ldcs(static_cast<const uint4*>(g.in0) + i);
-  }
-
-  static __device__ __forceinline__ void store(const seg::Segment& g,
-                                               int64_t i, const Unit& w) {
-    __stcs(static_cast<uint4*>(g.out) + i, w.x);
-  }
-
-  static __device__ __forceinline__ void scalar(const seg::Segment& g,
-                                                int64_t i) {
-    static_cast<uint16_t*>(g.out)[i] =
-        static_cast<const uint16_t*>(g.in0)[i];
-  }
-};
-
 int launch_pack(const seg::Table& t, int dtype, cudaStream_t s,
                 int* n_vector) {
   switch (dtype) {
     case 0: return seg::launch<Bf16Pack<float>>(t, s, n_vector);
-    case 1: return seg::launch<Bf16Pack<__nv_bfloat16>>(t, s, n_vector);
+    case 1: return seg::launch<seg::Copy<2>>(t, s, n_vector);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,11 +1,13 @@
-// Segment tables: one launch over every sub-chunk of a ring step.
+// Segment tables: one launch over up to 8 segments of an elementwise pass.
 //
-// Shared by K1 (chunk_accumulate.cu) and K5 (codec.cu), two elementwise
-// passes that the staged ring runs on each of a step's 1-8 sub-chunks.
-// All sub-chunks of a step have arrived before the first of them is
-// reduced (the step's point-to-point batch is waited on as a whole), so
-// one launch over all of them gives up no overlap and pays one launch
-// floor (5.2-5.8 us on an H100) instead of one a sub-chunk.
+// Shared by K1 (chunk_accumulate.cu), K5 (codec.cu) and K7
+// (payload_partition.cu).  K1 and K5 are passes the staged ring runs on
+// each of a step's 1-8 sub-chunks.  All sub-chunks of a step have arrived
+// before the first of them is reduced (the step's point-to-point batch is
+// waited on as a whole), so one launch over all of them gives up no
+// overlap and pays one launch floor (5.2-5.8 us on an H100) instead of
+// one a sub-chunk.  K7 is a pure copy (Copy below): its split is a table
+// of one row, its merge a table of up to 8 segments a launch.
 //
 // A Table lists up to kMaxSegments segments: the operand pointers, the
 // length and whether every pointer is 16-byte aligned (the vector path;
@@ -39,7 +41,7 @@ constexpr int64_t kLongUnits = int64_t(132) * 8 * kThreads;
 
 struct Segment {
   const void* in0;
-  const void* in1;    // K1's second operand; K5 has none
+  const void* in1;    // K1's second operand; K5 and K7 have none
   void* out;
   int64_t n;          // elements, >= 1
 };
@@ -94,6 +96,40 @@ segments_kernel(const __grid_constant__ Table t) {
     }
   }
 }
+
+// The element of ES bytes, moved whole by Copy's scalar step.
+template <int ES> struct Elem;
+template <> struct Elem<1> { using type = uint8_t; };
+template <> struct Elem<2> { using type = uint16_t; };
+template <> struct Elem<4> { using type = uint32_t; };
+template <> struct Elem<8> { using type = uint64_t; };
+
+// The Op of a pure copy of ES-byte elements (in0 -> out; K7, and K5 on
+// bfloat16 input): a unit is one 16-byte word, a long thread keeps four in
+// flight (64 bytes).  A segment off 16-byte alignment moves one element
+// at a time, never bytes of a wider element.
+template <int ES>
+struct Copy {
+  static constexpr int kVec = 16 / ES;
+  static constexpr int kLongUnroll = 4;
+  using Unit = uint4;
+
+  static __device__ __forceinline__ void load(const Segment& g, int64_t i,
+                                              Unit& w) {
+    w = __ldcs(static_cast<const uint4*>(g.in0) + i);
+  }
+
+  static __device__ __forceinline__ void store(const Segment& g, int64_t i,
+                                               const Unit& w) {
+    __stcs(static_cast<uint4*>(g.out) + i, w);
+  }
+
+  static __device__ __forceinline__ void scalar(const Segment& g,
+                                                int64_t i) {
+    using T = typename Elem<ES>::type;
+    static_cast<T*>(g.out)[i] = static_cast<const T*>(g.in0)[i];
+  }
+};
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;

@@ -2,21 +2,23 @@
 
 Port of ``src/repro/kernels/payload_partition.py`` (``extract_segment``,
 ``merge_segments``, body ``_copy_kernel``).  The kernels are CUDA C++ in
-``csrc/payload_partition.cu`` (its header says what bounds them and what
-their design does about it); this module builds it on first use
-(``kernels/_nvcc.py``), loads it with ``ctypes`` and launches on
-PyTorch's current stream.  The kernels copy bytes, so they take any
-dtype and any length; the reference's block alignment is asserted by the
-entry points in ``kernels/ops.py``, not needed here.  The plain PyTorch
-versions are ``kernels/ref.py::extract_segment_ref`` and
-``merge_segments_ref``.
+``csrc/payload_partition.cu`` on ``csrc/segments.cuh``'s tables (its
+header says what bounds them and what their design does about it); this
+module builds it on first use (``kernels/_nvcc.py``), loads it with
+``ctypes`` and launches on PyTorch's current stream.  The kernels copy
+elements of 1, 2, 4 or 8 bytes, so they take any dtype and any length;
+the reference's block alignment is asserted by the entry points in
+``kernels/ops.py``, not needed here.  The plain PyTorch versions are
+``kernels/ref.py::extract_segment_ref`` and ``merge_segments_ref``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
+import math
 import pathlib
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,6 +26,9 @@ from repro_torch.kernels import _nvcc
 
 SOURCE = (pathlib.Path(__file__).resolve().parent / "csrc"
           / "payload_partition.cu")
+
+#: segments one launch takes (csrc/segments.cuh kMaxSegments)
+MAX_SEGMENTS = 8
 
 #: kernel launches since the last reset, one count per kernel; each
 #: wrapper adds one to its own count per launch and nowhere else
@@ -42,14 +47,27 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()[0]))
-        p, n = ctypes.c_void_p, ctypes.c_int64
-        lib.pp_extract.argtypes = [p, p, n, p]
-        lib.pp_merge.argtypes = [p, p, ctypes.c_int, p, p]
-        lib.pp_extract.restype = lib.pp_merge.restype = ctypes.c_int
+        lib.pp_copy.argtypes = [ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+                                ctypes.c_int, ctypes.c_void_p]
+        lib.pp_copy.restype = ctypes.c_int
         lib.pp_error_string.argtypes = [ctypes.c_int]
         lib.pp_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def launch_groups(lengths: Sequence[int]
+                  ) -> List[List[Tuple[int, int, int]]]:
+    """The launches of a merge of segments of ``lengths`` elements: for
+    each segment of nonzero length, (its index, its output offset, its
+    length), in order, at most :data:`MAX_SEGMENTS` a launch."""
+    rows, off = [], 0
+    for j, n in enumerate(lengths):
+        if n:
+            rows.append((j, off, n))
+        off += n
+    return [rows[i:i + MAX_SEGMENTS]
+            for i in range(0, len(rows), MAX_SEGMENTS)]
 
 
 def _check(cond: bool, what: str, msg: str) -> None:
@@ -57,19 +75,28 @@ def _check(cond: bool, what: str, msg: str) -> None:
         raise ValueError(f"{what}: {msg}")
 
 
-def _launch(what: str, fn, *args, device) -> None:
+def _copy(what: str, rows, element_size: int, device) -> None:
+    """One launch over ``rows`` (source pointer, destination pointer,
+    elements) of elements of ``element_size`` bytes, each moved as
+    elements of 1, 2, 4 or 8 bytes."""
+    word = math.gcd(element_size, 8)
+    scale = element_size // word
+    flat = list(itertools.chain(*((s, d, n * scale) for s, d, n in rows)))
+    table = (ctypes.c_int64 * len(flat))(*flat)
+    lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+        err = lib.pp_copy(table, len(rows), word, stream)
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
-                           f"{_library().pp_error_string(err).decode()}")
+                           f"{lib.pp_error_string(err).decode()}")
     launch_count[what] += 1
 
 
 def extract(x: torch.Tensor, start: int, length: int) -> torch.Tensor:
     """K7a on the card: a new tensor holding ``x[start:start + length]`` of
-    a flat, contiguous CUDA tensor of any dtype."""
+    a flat, contiguous CUDA tensor of any dtype, in one launch of a table
+    of one row."""
     what = "extract"
     _check(x.is_cuda, what, "the input must be on CUDA")
     _check(x.ndim == 1 and x.is_contiguous(), what,
@@ -79,17 +106,17 @@ def extract(x: torch.Tensor, start: int, length: int) -> torch.Tensor:
     out = torch.empty(length, dtype=x.dtype, device=x.device)
     if length:
         es = x.element_size()
-        _launch(what, _library().pp_extract, x.data_ptr() + start * es,
-                out.data_ptr(), length * es, device=x.device)
+        _copy(what, [(x.data_ptr() + start * es, out.data_ptr(), length)],
+              es, x.device)
     return out
 
 
 def merge(segments: Sequence[torch.Tensor]) -> torch.Tensor:
     """K7b on the card: the flat, contiguous CUDA segments (one dtype, one
-    device) concatenated, in ONE launch over a table of (source, output
-    offset, bytes, first block) rows: the kernel's host side fills the
-    first blocks and copies the table to the card on the current
-    stream."""
+    device) concatenated into one new tensor, in one launch a group of
+    :func:`launch_groups` (up to :data:`MAX_SEGMENTS` nonzero segments,
+    their rows passed by value: no table is copied to the card), each
+    launch writing its own slice of the output."""
     what = "merge"
     segs = list(segments)
     _check(bool(segs), what, "no segments")
@@ -103,14 +130,8 @@ def merge(segments: Sequence[torch.Tensor]) -> torch.Tensor:
     dev, es = segs[0].device, segs[0].element_size()
     out = torch.empty(sum(s.numel() for s in segs), dtype=segs[0].dtype,
                       device=dev)
-    rows, off = [], 0
-    for s in segs:
-        if s.numel():
-            rows.append((s.data_ptr(), off * es, s.numel() * es, 0))
-        off += s.numel()
-    if rows:
-        host = torch.tensor(rows, dtype=torch.int64)
-        table = torch.empty_like(host, device=dev)
-        _launch(what, _library().pp_merge, host.data_ptr(),
-                table.data_ptr(), len(rows), out.data_ptr(), device=dev)
+    base = out.data_ptr()
+    for group in launch_groups([s.numel() for s in segs]):
+        _copy(what, [(segs[j].data_ptr(), base + off * es, n)
+                     for j, off, n in group], es, dev)
     return out

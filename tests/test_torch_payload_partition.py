@@ -2,11 +2,14 @@
 
 The same flat payloads, made with numpy, go through the reference's
 Pallas ``extract_segment`` / ``merge_segments`` (interpret mode, the
-cases of tests/test_kernels.py:90-113) and through the port's plain
+cases of tests/test_kernels.py:90-113, merges of 9 and 17 segments, and
+splits with empty segments between others) and through the port's plain
 versions and CPU dispatch (``kernels/ops.py``): a copy, so bit for bit in
-float32 and bfloat16.  The CUDA kernels are held against the plain
-versions on the card, at the same shapes and at lengths and offsets one
-element off the reference's blocks:
+float32 and bfloat16.  How a merge is cut into launches of at most 8
+segments is plain Python, tested here too.  The CUDA kernels are held
+against the plain versions on the card, at the same shapes and at
+lengths and offsets one element off the reference's blocks, in float32,
+bfloat16 and uint8:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \\
         tests/test_torch_payload_partition.py -k cuda
@@ -23,22 +26,29 @@ from repro_torch.kernels import ref as tref
 BLOCK = tref.BLOCK
 DTYPES = ("float32", "bfloat16")
 EXTRACTS = [(1, 0), (2, 1), (3, 5)]          # (n_blocks, start_block)
-#: block counts of each route's segment in the split/merge round trips
-SPLITS = [(1,), (2, 1), (1, 3, 2), (4, 1, 2, 3)]
+#: block counts of each route's segment in the split/merge round trips:
+#: the reference test's, merges of 9 and 17 segments (two and three
+#: launches on the card), and empty segments between others
+SPLITS = [(1,), (2, 1), (1, 3, 2), (4, 1, 2, 3), (1,) * 9,
+          (1, 2) * 8 + (1,), (2, 0, 1), (1, 0, 0, 3, 0, 1)]
 TOTAL_BLOCKS = 8
+#: the card's cases also copy bytes
+CUDA_DTYPES = DTYPES + ("uint8",)
 
 
 def _payload(n: int, dtype: str) -> torch.Tensor:
     """x[i] = 0.5 i, as the reference's test builds it (float32, then
-    cast)."""
+    cast); uint8 counts i mod 251."""
+    if dtype == "uint8":
+        return torch.from_numpy((np.arange(n) % 251).astype(np.uint8))
     return torch.from_numpy(np.arange(n, dtype=np.float32) * 0.5).to(
         getattr(torch, dtype))
 
 
 def _bits(x: torch.Tensor) -> np.ndarray:
     x = x.detach().cpu().contiguous()
-    return x.view(torch.int32 if x.dtype == torch.float32
-                  else torch.int16).numpy()
+    return x.view({torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                   torch.uint8: torch.uint8}[x.dtype]).numpy()
 
 
 def _jax_bits(x) -> np.ndarray:
@@ -61,9 +71,13 @@ def reference():
         for sizes in SPLITS:
             xs = jnp.asarray(_payload(sum(sizes) * BLOCK, "float32").numpy()
                              ).astype(dtype)
+            # an empty segment would give the Pallas kernel an empty grid,
+            # which interpret mode refuses: the reference merges the others
             segs, off = [], 0
             for s in sizes:
-                segs.append(jpp.extract_segment(xs, off, s, interpret=True))
+                if s:
+                    segs.append(jpp.extract_segment(xs, off, s,
+                                                    interpret=True))
                 off += s
             out["merge", dtype, sizes] = _jax_bits(
                 jpp.merge_segments(segs, block=BLOCK, interpret=True))
@@ -104,6 +118,27 @@ def test_split_merge_roundtrip_matches_reference(reference, dtype, sizes):
                                   _bits(x))
 
 
+@pytest.mark.parametrize("n_segments", [1, 8, 9, 16, 17])
+@pytest.mark.parametrize("empty", [(), (0,), (0, 3, 4)],
+                         ids=["none", "first", "three"])
+def test_launch_groups_cover_every_element_once(n_segments, empty):
+    """A merge's launches: ceil(nonzero / 8) of them, at most 8 nonzero
+    segments each, in order, every output element written by one row."""
+    lengths = [0 if j in empty else 3 + (7 * j) % 5
+               for j in range(n_segments)]
+    groups = pp.launch_groups(lengths)
+    nonzero = [j for j, n in enumerate(lengths) if n]
+    assert len(groups) == -(-len(nonzero) // pp.MAX_SEGMENTS)
+    assert all(1 <= len(g) <= pp.MAX_SEGMENTS for g in groups)
+    rows = [r for g in groups for r in g]
+    assert [j for j, _, _ in rows] == nonzero
+    covered = np.zeros(sum(lengths), dtype=np.int64)
+    for j, off, n in rows:
+        assert n == lengths[j] and off == sum(lengths[:j])
+        covered[off:off + n] += 1
+    np.testing.assert_array_equal(covered, 1)
+
+
 def test_entry_points_keep_the_reference_asserts():
     x = _payload(4 * BLOCK, "float32")
     with pytest.raises(AssertionError):
@@ -128,32 +163,32 @@ def test_kernel_wrappers_reject_cpu_tensors():
 
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card: the kernel has no CPU mode")
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", CUDA_DTYPES)
 @pytest.mark.parametrize("n_blocks,start", EXTRACTS)
 def test_cuda_extract_matches_plain_version(dtype, n_blocks, start):
     """At the reference's shapes through ops.extract_segment, and at a
-    start and a length one element off its blocks (unaligned words and a
-    tail) through the wrapper: bit for bit."""
+    start and a length one element off its blocks (unaligned elements and
+    a tail) through the wrapper: bit for bit, one launch each."""
     x = _payload(TOTAL_BLOCKS * BLOCK + 1, dtype).cuda()
+    want = tref.extract_segment_ref(x[:-1], start, n_blocks)
     before = pp.launch_count["extract"]
     got = tops.extract_segment(x[:-1], start, n_blocks)
-    want = tref.extract_segment_ref(x[:-1], start, n_blocks)
-    torch.cuda.synchronize()
-    assert pp.launch_count["extract"] == before + 1
-    np.testing.assert_array_equal(_bits(got), _bits(want))
     a, n = start * BLOCK + 1, n_blocks * BLOCK - 1
-    got = pp.extract(x, a, n)
+    off = pp.extract(x, a, n)
     torch.cuda.synchronize()
-    np.testing.assert_array_equal(_bits(got), _bits(x[a:a + n]))
+    assert pp.launch_count["extract"] == before + 2
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    np.testing.assert_array_equal(_bits(off), _bits(x[a:a + n]))
 
 
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card: the kernel has no CPU mode")
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", CUDA_DTYPES)
 @pytest.mark.parametrize("sizes", SPLITS, ids=lambda s: "-".join(map(str, s)))
 def test_cuda_merge_matches_plain_version(dtype, sizes):
-    """One launch for all segments, block-aligned and with every segment
-    one element longer (so every later one starts off alignment)."""
+    """ceil(nonzero segments / 8) launches, block-aligned and with every
+    segment one element longer (so every later one starts off alignment,
+    and the empty ones hold one element)."""
     x = _payload(sum(sizes) * BLOCK + len(sizes), dtype).cuda()
     for extra in (0, 1):
         segs, off = [], 0
@@ -164,6 +199,7 @@ def test_cuda_merge_matches_plain_version(dtype, sizes):
         got = (tops.merge_segments(segs) if extra == 0
                else pp.merge(segs))
         torch.cuda.synchronize()
-        assert pp.launch_count["merge"] == before + 1
+        nonzero = sum(1 for s in segs if s.numel())
+        assert pp.launch_count["merge"] == before + -(-nonzero // 8)
         np.testing.assert_array_equal(_bits(got),
                                       _bits(tref.merge_segments_ref(segs)))
