@@ -104,7 +104,17 @@ non-zero:
    on both ranks, falling; flexlink within 5e-3 of nccl per step, fp8
    within 0.05 max(|loss|, 1); the fp8 step's codec plans printed and
    the K2/K3/K4 launches equal to what those plans imply, and how many of
-   those calls took codec.cu's 16-byte vector path; peak memory;
+   those calls took codec.cu's 16-byte vector path; peak memory; then the
+   same model with its gradient sync in 64 MiB buckets launched from the
+   backward (``bucket_mb=64``), ``flexlink-b64`` and ``fp8-b64-ef``
+   (``secondary=fp8`` with error-feedback residuals): 47 buckets a step,
+   the GradBucketer plan's, issued g0.. in order from inside the backward
+   on the ctx's side stream; under fp8 46 of them take the error-feedback
+   roundtrip and the residuals are live; K1-K4 launches equal to what the
+   plans imply plus one K2 and one K4 an error-feedback bucket;
+   flexlink-b64 within 5e-3 of nccl a step, fp8-b64-ef within 0.05
+   max(|loss|, 1); the wall times of every run printed beside each other
+   (host-staged gloo on one card: no overlap is claimed);
 12. (a) K1-K5 against their plain versions at every length, dtype and
    format their kernels were given on the main path (phases 7, 10, 11
    and 13), aligned and one element off, and the K1 and K5 segment-table
@@ -135,7 +145,11 @@ non-zero:
    on the data axis: the reference's per-trace counts); model-axis
    all-reduces executed a step (5 forward, 2 in the checkpoint
    recompute, 5 backward); K1 launches equal to what the executed plans
-   imply, n - 1 a staged ring; peak memory and wall time;
+   imply, n - 1 a staged ring; peak memory and wall time; and
+   ``flexlink-b64``, the same run with 64 MiB buckets launched from the
+   backward: 27 buckets a step (a rank's shards) issued in order on the
+   side stream, one data-axis call recorded in each bucket's scope, the
+   launches of its plans, losses within 5e-3 of flexlink;
 14. K7a/K7b, the payload split and merge on segments.cuh's tables,
    against their plain versions in float32, bfloat16 and uint8 at the
    reference test's cases, at lengths and offsets one element off its
@@ -152,8 +166,9 @@ non-zero:
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  The launches in that line are the
 ranks' own counts from each kernel's path, summed: K1 from phase 7, K2-K4
-from the fp8 training run of phase 11, K5 and the mixed K1 from phase
-10 (c), K7 from phase 13 (0: no path calls it); each rank process sets
+from the fp8 training run of phase 11 (the bucketed runs' beside them),
+K5 and the mixed K1 from phase 10 (c), K7 from phase 13 (0: no path
+calls it); each rank process sets
 its counts to 0 just before that path and reports them just after it.
 A K1 or K5 segment-table launch counts once, whatever its segments.
 Without a CUDA card, or without the rest of the checkout beside this
@@ -165,6 +180,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import gc
 import hashlib
 import importlib.util
 import json
@@ -1645,10 +1661,69 @@ def phase10_codec_collectives():
 TRAIN_LAYERS = 2
 TRAIN_STEPS = 3
 TRAIN_LR = 1e-4
-TRAIN_RUNS = (("nccl", {"backend": "nccl"}),
-              ("flexlink", {}),
-              ("fp8", {"compress": "secondary=fp8"}))
+#: (name, comm config, bucket_mb): the monolithic runs, then the same
+#: model's gradient sync in 64 MiB buckets launched from the backward,
+#: uncompressed and under fp8 with error-feedback residuals
+TRAIN_RUNS = (("nccl", {"backend": "nccl"}, 0),
+              ("flexlink", {}, 0),
+              ("fp8", {"compress": "secondary=fp8"}, 0),
+              ("flexlink-b64", {}, 64),
+              ("fp8-b64-ef", {"compress": "secondary=fp8"}, 64))
 LM_HEAD_NUMEL = 4096 * 151552
+#: buckets a step of the 64 MiB runs (GradBucketer at full width, depth
+#: 2: 3146 MiB of bf16 gradients) and, under fp8, those whose slots attach
+#: the codec on the h100 profile at dp = 2 (all but one 8 MiB bucket)
+TRAIN_BUCKETS, TRAIN_EF_BUCKETS = 47, 46
+
+
+@contextlib.contextmanager
+def bucket_probe(ctx, log: list, roundtrips: collections.Counter):
+    """Within the block, every bucket reduce of ``ctx``'s step adds (its
+    issue scope's recorder name, whether it runs on the ctx's side
+    stream, the step phase) to ``log``, and every error-feedback
+    roundtrip adds one to ``roundtrips["ef"]``; both only look."""
+    from repro_torch.kernels import ops
+    reduce, roundtrip = ctx.grad_all_reduce, ops.wire_roundtrip
+
+    def logged_reduce(x):
+        log.append((ctx.comms()[-1]._active_name,
+                    torch.cuda.current_stream() == ctx.side_stream,
+                    _step_phase()))
+        return reduce(x)
+
+    def counted_roundtrip(x, **kw):
+        roundtrips["ef"] += 1
+        return roundtrip(x, **kw)
+
+    ctx.grad_all_reduce = logged_reduce
+    ops.wire_roundtrip = counted_roundtrip
+    try:
+        yield
+    finally:
+        del ctx.grad_all_reduce
+        ops.wire_roundtrip = roundtrip
+
+
+def check_buckets(name, rec, n_buckets, n_ef, steps):
+    """A bucketed run's issue log, plan and error-feedback counts, as one
+    rank reported them (``train_rank`` / ``tp_train_rank``)."""
+    tags = [f"{name}/g{k}" for k in range(n_buckets)]
+    check(rec["plan_tags"] == [t.split("/")[1] for t in tags],
+          f"{name}: GradBucketer plan {rec['plan_tags']}, want "
+          f"{n_buckets} buckets g0..")
+    check([t for t, _, _ in rec["bucket_log"]] == tags * steps,
+          f"{name}: buckets issued {[t for t, _, _ in rec['bucket_log']]}, "
+          f"want {tags} each step")
+    check(all(side for _, side, _ in rec["bucket_log"]),
+          f"{name}: a bucket ran off the ctx's side stream")
+    check({ph for _, _, ph in rec["bucket_log"]} == {"backward"},
+          f"{name}: buckets issued outside the backward: "
+          f"{ {ph for _, _, ph in rec['bucket_log']} }")
+    check(rec["ef_buckets"] == n_ef and rec["roundtrips"] == n_ef * steps,
+          f"{name}: {rec['ef_buckets']} error-feedback buckets, "
+          f"{rec['roundtrips']} roundtrips; want {n_ef} a step")
+    if n_ef:
+        check(rec["residual_max"] > 0, f"{name}: residuals stayed 0")
 
 
 def train_rank():
@@ -1680,7 +1755,7 @@ def train_rank():
     routing.execute = recorded
     out = {}
     try:
-        for name, comm in TRAIN_RUNS:
+        for name, comm, bucket_mb in TRAIN_RUNS:
             torch.cuda.reset_peak_memory_stats()
             gen = torch.Generator(device="cuda").manual_seed(0)
             params = init_params(cfg, gen, "cuda")
@@ -1688,14 +1763,19 @@ def train_rank():
             program, ctx = build_train_program(
                 cfg, mesh, comm=CommConfig(profile="h100", **comm),
                 opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
-                                total_steps=TRAIN_STEPS), name=name)
+                                total_steps=TRAIN_STEPS), name=name,
+                bucket_mb=bucket_mb)
+            opt_state = bucketed_opt_state(ctx, bucket_mb, params,
+                                           opt_state)
             batches = make_batches(cfg, seq_len=128, batch_per_shard=8)
             calls.clear()
             seen, paths = set(), collections.Counter()
+            log, roundtrips = [], collections.Counter()
             torch.cuda.synchronize()
             _kernel_counts(reset=True)
             t0 = time.perf_counter()
-            with recorded_calls(seen, paths):
+            with recorded_calls(seen, paths), \
+                    bucket_probe(ctx, log, roundtrips):
                 params, opt_state, hist = run_loop(
                     program, params, opt_state, batches, ctx,
                     LoopConfig(total_steps=TRAIN_STEPS, log_every=0))
@@ -1707,6 +1787,9 @@ def train_rank():
             want = collections.Counter()
             for plan, n, dtype, _ in calls:
                 want += codec_launches(plan, n, dtype)
+            # each error-feedback bucket's roundtrip: one K2, one K4
+            want += collections.Counter(fp8_encode=roundtrips["ef"],
+                                        fp8_decode=roundtrips["ef"])
             plans = sorted({(p.collective.value, numel, p.chunk_units,
                              p.path_codecs, p.staged_substeps)
                             for p, _, _, numel in calls if p.path_codecs})
@@ -1716,7 +1799,9 @@ def train_rank():
                          "launches": dict(launches), "want": dict(want),
                          "calls": len(calls), "codec_plans": plans,
                          "kernel_calls": seen, "paths": dict(paths),
-                         "segment_paths": seg_paths}
+                         "segment_paths": seg_paths,
+                         **bucket_record(ctx, bucket_mb, params, opt_state,
+                                         log, roundtrips)}
             del params, opt_state, program, ctx
             torch.cuda.empty_cache()
     finally:
@@ -1724,9 +1809,44 @@ def train_rank():
     return out
 
 
+def bucketed_opt_state(ctx, bucket_mb, params, opt_state):
+    """The opt state a run starts from: under bucketed sync with a lossy
+    codec, paired with zero error-feedback residuals (as the launcher
+    does)."""
+    from repro_torch.train.train_step import ef_init_residuals
+    if bucket_mb > 0 and ctx.ef_codec_name():
+        return opt_state, ef_init_residuals(params)
+    return opt_state
+
+
+def bucket_record(ctx, bucket_mb, params, opt_state, log, roundtrips):
+    """What a bucketed run's checks read: a GradBucketer built here from
+    the params (its tags, and how many of its buckets the ctx's slots
+    give a lossy codec), the issue log, the roundtrips, the residuals'
+    max."""
+    if not bucket_mb:
+        return {}
+    from torch.utils import _pytree as pytree
+    from repro_torch.train.bucketer import GradBucketer
+    plan = GradBucketer(params, bucket_mb=bucket_mb)
+    codec = ctx.ef_codec_name()
+    residuals = pytree.tree_leaves(opt_state[1]) if codec else []
+    return {"plan_tags": [d["tag"] for d in plan.describe()],
+            "ef_buckets": sum(GradBucketer._ef_applies(ctx, b, codec)
+                              for b in plan.buckets) if codec else 0,
+            "bucket_log": log, "roundtrips": roundtrips["ef"],
+            "residual_max": max((float(r.abs().max()) for r in residuals),
+                                default=0.0)}
+
+
 def phase11_training():
     from repro_torch.launch.mesh import run_ranks
+    gc.collect()
     torch.cuda.empty_cache()
+    # two full-width training ranks share the card with this process
+    print(f"phase 11: this process holds "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the card "
+          f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved)")
     t0 = time.perf_counter()
     res = run_ranks(train_rank, 2, backend="gloo", device="cuda",
                     timeout_s=900)
@@ -1736,7 +1856,7 @@ def phase11_training():
           f"ranks on one card; "
           f"ranks ran {time.perf_counter() - t0:.1f} s")
     losses = {}
-    for name, _ in TRAIN_RUNS:
+    for name, _, bucket_mb in TRAIN_RUNS:
         hist = [r[name]["losses"] for r in res]
         check(all(np.isfinite(h).all() for h in hist),
               f"{name}: loss not finite: {hist}")
@@ -1748,23 +1868,37 @@ def phase11_training():
             check(collections.Counter(got[name]["launches"]) ==
                   collections.Counter(got[name]["want"]),
                   f"rank {r} {name}: launches {got[name]['launches']}, the "
-                  f"step's plans imply {got[name]['want']}")
+                  f"step's plans (and error-feedback roundtrips) imply "
+                  f"{got[name]['want']}")
+            if bucket_mb:
+                check_buckets(name, got[name], TRAIN_BUCKETS,
+                              TRAIN_EF_BUCKETS if "ef" in name else 0,
+                              TRAIN_STEPS)
         losses[name] = hist[0]
         rec = res[0][name]
-        print(f"phase 11: {name}: losses {hist[0]}; {rec['calls']} "
-              f"collective calls; launches a rank {rec['launches']} (K1 "
-              f"and K5 segments by path: "
+        buckets = (f"{len(rec['plan_tags'])} buckets of {bucket_mb} MiB a "
+                   f"step, issued g0.. in order from the backward on the "
+                   f"ctx's side stream, {rec['ef_buckets']} with an "
+                   f"error-feedback roundtrip (residual max "
+                   f"{max(r[name]['residual_max'] for r in res):.3g}); "
+                   if bucket_mb else "")
+        print(f"phase 11: {name}: losses {hist[0]}; {buckets}"
+              f"{rec['calls']} collective calls; launches a rank "
+              f"{rec['launches']} (K1 and K5 segments by path: "
               f"{ {k: v for k, v in rec['segment_paths'].items() if v} }); "
-              f"{rec['wall_s']:.1f} s for {TRAIN_STEPS} steps; peak "
+              f"{max(r[name]['wall_s'] for r in res):.1f} s for "
+              f"{TRAIN_STEPS} steps; peak "
               f"{max(r[name]['peak_gib'] for r in res):.2f} GiB a rank")
     for i in range(TRAIN_STEPS):
-        d = abs(losses["flexlink"][i] - losses["nccl"][i])
-        check(d < 5e-3, f"step {i}: flexlink {losses['flexlink'][i]} vs "
-              f"nccl {losses['nccl'][i]}")
+        for name in ("flexlink", "flexlink-b64"):
+            d = abs(losses[name][i] - losses["nccl"][i])
+            check(d < 5e-3, f"step {i}: {name} {losses[name][i]} vs "
+                  f"nccl {losses['nccl'][i]}")
         lim = 0.05 * max(abs(losses["nccl"][i]), 1.0)
-        check(abs(losses["fp8"][i] - losses["nccl"][i]) <= lim,
-              f"step {i}: fp8 {losses['fp8'][i]} vs nccl "
-              f"{losses['nccl'][i]} beyond {lim}")
+        for name in ("fp8", "fp8-b64-ef"):
+            check(abs(losses[name][i] - losses["nccl"][i]) <= lim,
+                  f"step {i}: {name} {losses[name][i]} vs nccl "
+                  f"{losses['nccl'][i]} beyond {lim}")
     plans = res[0]["fp8"]["codec_plans"]
     check(any(p[1] == LM_HEAD_NUMEL for p in plans),
           f"the lm_head all-reduce carries no codec: {plans}")
@@ -1773,11 +1907,17 @@ def phase11_training():
               f"{units}, codecs {codecs}, substeps {sub}")
     launches = {name: sum((collections.Counter(r[name]["launches"])
                            for r in res), collections.Counter())
-                for name, _ in TRAIN_RUNS}
-    print(f"phase 11: flexlink within 5e-3 of nccl a step, fp8 within "
-          f"0.05 max(|loss|, 1); launches over 2 ranks, each the sum over "
-          f"the steps' plans: flexlink {dict(launches['flexlink'])}, fp8 "
-          f"{dict(launches['fp8'])}")
+                for name, _, _ in TRAIN_RUNS}
+    print(f"phase 11: flexlink and flexlink-b64 within 5e-3 of nccl a "
+          f"step, fp8 and fp8-b64-ef within 0.05 max(|loss|, 1); launches "
+          f"over 2 ranks, each the sum over the steps' plans (and one K2 "
+          f"and one K4 an error-feedback bucket): "
+          + ", ".join(f"{name} {dict(launches[name])}"
+                      for name, _, _ in TRAIN_RUNS[1:]))
+    print(f"phase 11: wall time for {TRAIN_STEPS} steps, the slower rank "
+          f"({WALL_NOTE}; no overlap is claimed): "
+          + ", ".join(f"{name} {max(r[name]['wall_s'] for r in res):.2f} s"
+                      for name, _, _ in TRAIN_RUNS))
     paths = sum((collections.Counter(r["fp8"]["paths"]) for r in res),
                 collections.Counter())
     print("phase 11: fp8 run, K2-K4 calls by codec.cu path over 2 ranks: "
@@ -1785,7 +1925,8 @@ def phase11_training():
                       f"{paths[name, 'scalar']} scalar"
                       for name in ("fp8_encode", "fp8_decode_accumulate",
                                    "fp8_decode")))
-    calls = set().union(*(r["fp8"]["kernel_calls"] for r in res))
+    calls = set().union(*(r[name]["kernel_calls"] for r in res
+                          for name in ("fp8", "fp8-b64-ef")))
     return launches, plans, calls
 
 
@@ -1796,7 +1937,11 @@ def phase11_training():
 # (and K1) and the ortho detour run inside the forward, the recompute and
 # the backward of every combine
 TP_MESH = (2, 2)
-TP_RUNS = (("nccl", {"backend": "nccl"}), ("flexlink", {}))
+TP_RUNS = (("nccl", {"backend": "nccl"}, 0), ("flexlink", {}, 0),
+           ("flexlink-b64", {}, 64))
+#: buckets a step of the 64 MiB run: GradBucketer on a rank's model-axis
+#: shards
+TP_BUCKETS = 27
 TP_SHARES = {"nvlink": 50, "pcie": 25, "rdma": 25}
 TP_SEQ = 128
 TP_BATCH = 8                   # global: 4 rows a data rank
@@ -1859,7 +2004,7 @@ def tp_train_rank(pinned: str):
     routing.execute = recorded
     out = {}
     try:
-        for name, comm in TP_RUNS:
+        for name, comm, bucket_mb in TP_RUNS:
             torch.cuda.reset_peak_memory_stats()
             gen = torch.Generator(device="cuda").manual_seed(0)
             params = shard_params(init_params(cfg, gen, "cuda"), specs,
@@ -1870,15 +2015,19 @@ def tp_train_rank(pinned: str):
                 cfg, mesh, comm=CommConfig(profile="h100",
                                            tuning_cache=pinned, **comm),
                 opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
-                                total_steps=TRAIN_STEPS), name=name)
+                                total_steps=TRAIN_STEPS), name=name,
+                bucket_mb=bucket_mb)
+            opt_state = bucketed_opt_state(ctx, bucket_mb, params,
+                                           opt_state)
             batches = make_batches(cfg, seq_len=TP_SEQ,
                                    batch_per_shard=TP_BATCH)
             calls.clear()
             seen = set()
+            log, roundtrips = [], collections.Counter()
             torch.cuda.synchronize()
             _kernel_counts(reset=True)
             t0 = time.perf_counter()
-            with recorded_calls(seen):
+            with recorded_calls(seen), bucket_probe(ctx, log, roundtrips):
                 params, opt_state, hist = run_loop(
                     program, params, opt_state, batches, ctx,
                     LoopConfig(total_steps=TRAIN_STEPS, log_every=0))
@@ -1888,6 +2037,10 @@ def tp_train_rank(pinned: str):
             seg_paths = _segment_paths()
             rec = {c.axis_name: len(c.recorder(name).issued_calls())
                    for c in ctx.comms()}
+            bucket_calls = sum(
+                len(c.recorder(f"{name}/g{k}").issued_calls())
+                for c in ctx.comms() for k in range(TP_BUCKETS)
+                if f"{name}/g{k}" in c._recorders)
             program.close()
             want = collections.Counter()
             for plan, n, dtype, _, _ in calls:
@@ -1903,7 +2056,10 @@ def tp_train_rank(pinned: str):
                                         numel) for p, _, _, numel, _ in calls
                                        if p.axis_name == "model"}),
                 "leaves": len(pytree.tree_leaves(params)),
-                "kernel_calls": seen, "segment_paths": seg_paths}
+                "bucket_calls": bucket_calls,
+                "kernel_calls": seen, "segment_paths": seg_paths,
+                **bucket_record(ctx, bucket_mb, params, opt_state, log,
+                                roundtrips)}
             del params, opt_state, program, ctx
             torch.cuda.empty_cache()
     finally:
@@ -1932,7 +2088,7 @@ def phase13_tp_training():
     per_step = {"forward": 1 + 2 * TRAIN_LAYERS, "recompute": TRAIN_LAYERS,
                 "backward": 1 + 2 * TRAIN_LAYERS}
     losses = {}
-    for name, _ in TP_RUNS:
+    for name, _, bucket_mb in TP_RUNS:
         hist = [r[name]["losses"] for r in res]
         check(all(np.isfinite(h).all() for h in hist),
               f"{name}: loss not finite: {hist}")
@@ -1954,9 +2110,19 @@ def phase13_tp_training():
                 check(g["recorded"] == {"model": 3, "data": g["leaves"]},
                       f"rank {r}: recorded {g['recorded']}, want 3 model-"
                       f"axis calls and {g['leaves']} data-axis calls")
+            if name != "nccl":
                 units = {u for plan in g["model_plans"] for u, _ in plan[0]}
                 check(units == {"primary", "staged", "ortho"},
                       f"rank {r}: model-axis plans {g['model_plans']}")
+            if bucket_mb:
+                # the data axis records one call a bucket, each in its
+                # issue scope's sub-recorder
+                check(g["recorded"] == {"model": 3, "data": 0}
+                      and g["bucket_calls"] == TP_BUCKETS,
+                      f"rank {r} {name}: recorded {g['recorded']} and "
+                      f"{g['bucket_calls']} calls in bucket scopes, want 3 "
+                      f"model-axis calls and one a bucket")
+                check_buckets(name, g, TP_BUCKETS, 0, TRAIN_STEPS)
         losses[name] = hist[0]
         rec = res[0][name]
         print(f"phase 13: {name}: losses {hist[0]}; recorded a step "
@@ -1970,11 +2136,23 @@ def phase13_tp_training():
         d = abs(losses["flexlink"][i] - losses["nccl"][i])
         check(d < 5e-3, f"step {i}: flexlink {losses['flexlink'][i]} vs "
               f"nccl {losses['nccl'][i]}")
+        d = abs(losses["flexlink-b64"][i] - losses["flexlink"][i])
+        check(d < 5e-3, f"step {i}: flexlink-b64 "
+              f"{losses['flexlink-b64'][i]} vs flexlink "
+              f"{losses['flexlink'][i]}")
+    print(f"phase 13: flexlink-b64: {TP_BUCKETS} buckets of "
+          f"{TP_RUNS[-1][2]} MiB a step "
+          f"(a rank's shards), issued g0.. in order from the backward on "
+          f"the ctx's side stream; within 5e-3 of flexlink a step; wall "
+          f"time for {TRAIN_STEPS} steps, the slower rank ({WALL_NOTE}; no "
+          f"overlap is claimed): "
+          + ", ".join(f"{name} {max(r[name]['wall_s'] for r in res):.2f} s"
+                      for name, _, _ in TP_RUNS))
     for plan in res[0]["flexlink"]["model_plans"]:
         print(f"phase 13: flexlink model-axis plan: units {plan[0]}, "
               f"substeps {plan[1]}, {plan[2]} elements")
     total = sum((collections.Counter(r[name]["launches"]) for r in res
-                 for name, _ in TP_RUNS), collections.Counter())
+                 for name, _, _ in TP_RUNS), collections.Counter())
     k1 = sum(collections.Counter(r["flexlink"]["launches"])["k1"]
              for r in res)
     paths = sum((collections.Counter(r["flexlink"]["segment_paths"])
@@ -1985,7 +2163,8 @@ def phase13_tp_training():
           f"by path {paths['k1 vector']} vector / {paths['k1 scalar']} "
           f"scalar); the model axis records 3 calls a step (the "
           f"reference's per-trace count) and executes {per_step} a step")
-    calls = set().union(*(r["flexlink"]["kernel_calls"] for r in res))
+    calls = set().union(*(r[name]["kernel_calls"] for r in res
+                          for name in ("flexlink", "flexlink-b64")))
     # the model-axis combine's staged ring step: its staged segment, one
     # rank's ring chunk of it, cut into the plan's sub-chunks
     units, substeps, numel = [p for p in res[0]["flexlink"]["model_plans"]
@@ -2674,6 +2853,7 @@ def main(argv=None) -> int:
         "ring_step_phase7b": k1_rows["ring_step"],
         "ring_step_phase13": codec_rows["k1"]["ring_step"],
         "launches_train_flexlink": train_launches["flexlink"]["k1"],
+        "launches_train_flexlink_b64": train_launches["flexlink-b64"]["k1"],
         "launches_train_tp_flexlink": tp_k1,
         "mixed_f32_bf16": {
             "launches": bf16_launches["k1_mixed"],
@@ -2706,6 +2886,11 @@ def main(argv=None) -> int:
              "phase 10 (c), 4 ranks"))]
     next(r for r in kernels if r["name"] == "bf16_pack")["segment_tables"] = \
         path_tables["bf16_pack_segments"]
+    for row in kernels:
+        if row["name"] in ("fp8_encode", "fp8_decode_accumulate",
+                           "fp8_decode"):
+            row["launches_train_fp8_b64_ef"] = \
+                train_launches["fp8-b64-ef"][row["name"]]
     kernels += [_k7_row(name, line, k7_err, k7_rows)
                 for name, line in (("extract_segment", 36),
                                    ("merge_segments", 59))]

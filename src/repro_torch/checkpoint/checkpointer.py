@@ -6,13 +6,17 @@ Port of ``src/repro/checkpoint/checkpointer.py`` with the same file
 layout: one ``ckpt_<step:08d>.npz`` per snapshot whose keys are the
 tree's paths joined by ``/`` (``params/layers/attn/wq``,
 ``opt/mu/embed``, ``opt/step``), bf16 leaves stored as their uint16 bit
-patterns under ``<key>@bf16``, and a JSON ``__meta__`` entry.  A
-checkpoint written by either package restores in the other.
+patterns under ``<key>@bf16``, and a JSON ``__meta__`` entry.  The
+error-feedback opt state ``(AdamWState, residuals)`` of a bucketed run
+under a lossy codec takes the reference's tuple keys (``opt/0/mu/...``,
+``opt/1/...``).  A checkpoint written by either package restores in the
+other.
 
 On a model axis (a ctx with tp > 1, and the ``param_specs`` tree) every
 rank holds local shards, and the file still holds the reference's GLOBAL
 layout: ``save`` is collective over the rank's model line, which
-all-gathers each sharded leaf of the params and the AdamW moments, and
+all-gathers each sharded leaf of the params, the AdamW moments and the
+error-feedback residuals (param-shaped, sharded like the params), and
 model rank 0 writes; replicated leaves are model rank 0's own copy, which
 is what the reference's ``np.asarray`` of a leaf whose per-device copies
 differ saves.  ``restore`` reads the global file on every rank and cuts
@@ -116,9 +120,7 @@ class Checkpointer:
         if self.ctx is not None:
             params = self._gather(params, self.specs)
             if opt_state is not None:
-                opt_state = opt_state._replace(
-                    mu=self._gather(opt_state.mu, self.specs),
-                    nu=self._gather(opt_state.nu, self.specs))
+                opt_state = self._gather_opt(opt_state)
             if not self.writer:
                 return self._path(step)
         tree = {"params": params}
@@ -148,19 +150,35 @@ class Checkpointer:
         g = self.ctx.mesh.all_gather(tree.contiguous(), self.ctx.tp_axis)
         return gather_params(list(g), specs)
 
+    def _gather_opt(self, opt_state):
+        """The global AdamW state, or ``(AdamWState, residuals)``."""
+        if isinstance(opt_state, tuple) and not hasattr(opt_state,
+                                                        "_fields"):
+            state, residuals = opt_state
+            return (self._gather_opt(state),
+                    self._gather(residuals, self.specs))
+        return opt_state._replace(mu=self._gather(opt_state.mu, self.specs),
+                                  nu=self._gather(opt_state.nu, self.specs))
+
+    #: key prefixes of the param-shaped trees of a file: the params, the
+    #: moments (bare AdamWState, or the first of the error-feedback pair)
+    #: and the residuals
+    _PARAM_SHAPED = (("params",), ("opt", "mu"), ("opt", "nu"),
+                     ("opt", "0", "mu"), ("opt", "0", "nu"), ("opt", "1"))
+
     def _shard_flat(self, flat: Dict[str, np.ndarray]
                     ) -> Dict[str, np.ndarray]:
-        """This rank's shards of the global params and moments of a file."""
+        """This rank's shards of the global param-shaped trees of a
+        file."""
         out = {}
         for key, arr in flat.items():
             path = key.removesuffix("@bf16").split(_SEP)
-            if path[0] == "params":
-                path = path[1:]
-            elif path[:2] in (["opt", "mu"], ["opt", "nu"]):
-                path = path[2:]
-            else:
+            head = next((h for h in self._PARAM_SHAPED
+                         if tuple(path[:len(h)]) == h), None)
+            if head is None:
                 out[key] = arr
                 continue
+            path = path[len(head):]
             spec = self.specs
             for part in path:
                 spec = spec[part]

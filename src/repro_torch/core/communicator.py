@@ -409,6 +409,11 @@ class FlexCommunicator:
         finally:
             self._unrecorded -= 1
 
+    @property
+    def suppressed(self) -> bool:
+        """Whether calls are inside :meth:`unrecorded` now."""
+        return self._unrecorded > 0
+
     # -- issue/await windows (DESIGN.md §11) -----------------------------------
 
     def issue_scope(self, tag: str):

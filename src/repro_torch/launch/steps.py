@@ -10,7 +10,11 @@ it to the rank's device, split over data and the same on every rank of
 a model line, the ``in_specs=P("data", None)`` of the reference.  The
 params and the optimizer state it takes are RANK-LOCAL: whole on a mesh
 without a model axis, this rank's ``param_specs`` shards on one with it
-(``convert.shard_params``), the reference's in_specs.  Communicators are
+(``convert.shard_params``), the reference's in_specs.  ``bucket_mb > 0``
+builds the bucketed step (train/train_step.py): its buckets go out from
+the backward, and under a lossy wire codec its optimizer state is
+``(AdamWState, residuals)``, the residuals param-shaped and sharded like
+the params (the reference's ``osp = (osp, psp)``).  Communicators are
 memoized per (axis, config, mesh) by ``comm_init_rank``, so a rebuilt
 step after a Stage-2 share move runs against the SAME balancer state.
 

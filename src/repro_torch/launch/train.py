@@ -21,10 +21,13 @@ plus:
   through host memory.  Neither falls back to the other.
 
 The communicator's default profile is ``h100`` (the reference's launcher
-uses ``tpu_v5e``).  Flags of tiers not ported yet exit 2 and name the
-ROADMAP item that lifts them: ``--nodes``/``--cluster`` (queue 1 item
-12), ``--pods`` (item 14), ``--degrade``/``--fault`` (item 13) and
-``--bucket-mb`` > 0 (item 8).
+uses ``tpu_v5e``).  ``--bucket-mb`` > 0 buckets the gradient sync and
+launches each bucket from the backward (train/bucketer.py); with a lossy
+``--compress`` codec the AdamW state is paired with error-feedback
+residuals, this rank's shards of them on a model axis.  Flags of tiers
+not ported yet exit 2 and name the ROADMAP item that lifts them:
+``--nodes``/``--cluster`` (queue 1 item 12), ``--pods`` (item 14) and
+``--degrade``/``--fault`` (item 13).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from repro_torch.launch.steps import build_train_program
 from repro_torch.models.transformer import init_params, param_specs
 from repro_torch.optim.adamw import AdamWConfig, init_state
 from repro_torch.train.loop import LoopConfig, run_loop
+from repro_torch.train.train_step import ef_init_residuals
 
 
 def _unported(args) -> str:
@@ -55,9 +59,6 @@ def _unported(args) -> str:
         return "--pods: ROADMAP queue 1 item 14 (pod tier)"
     if args.degrade or args.fault:
         return "--degrade/--fault: ROADMAP queue 1 item 13 (faults)"
-    if args.bucket_mb > 0:
-        return ("--bucket-mb > 0: ROADMAP queue 1 item 8 (bucketed "
-                "overlapped gradient sync)")
     return ""
 
 
@@ -84,11 +85,16 @@ def train_rank(args: argparse.Namespace, dims, world: int) -> dict:
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device)
     program, ctx = build_train_program(cfg, mesh, comm=comm, opt=opt,
+                                       bucket_mb=args.bucket_mb,
                                        device=device)
     specs = param_specs(cfg)
     if ctx.tp_size > 1:
         params = shard_params(params, specs, ctx.tp_index(), ctx.tp_size)
     opt_state = init_state(params)
+    if args.bucket_mb > 0 and ctx.ef_codec_name():
+        # lossy wire codec: the error-feedback residuals ride the
+        # optimizer state (train_step.py docstring)
+        opt_state = (opt_state, ef_init_residuals(params))
     lead = rank == 0
     data_row0 = mesh is None or mesh.axis_index("data") == 0
     loop = LoopConfig(total_steps=args.steps, log_every=5 if lead else 0,
@@ -146,8 +152,9 @@ def main(argv=None) -> int:
                     default="ring",
                     help="secondary-path collective algorithm (paper §6)")
     ap.add_argument("--bucket-mb", type=float, default=0.0,
-                    help="bucketed overlapped gradient sync; only 0 "
-                         "(monolithic per-leaf sync) is ported")
+                    help="bucketed gradient sync: buckets of about this "
+                         "many MiB, each launched from the backward "
+                         "(0 = monolithic per-leaf sync)")
     ap.add_argument("--compress", default="",
                     help="secondary-path wire codecs (DESIGN.md §12), e.g. "
                          "'secondary=fp8' or 'staged=bf16,ortho=fp8'; the "

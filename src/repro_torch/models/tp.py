@@ -20,8 +20,13 @@ communicators as the reference's does, and :meth:`unrecorded` keeps
 repeated calls of one step out of their replay logs.  ``metrics_reduce``
 sums the step's metrics over the data axis in one small all-reduce, and
 ``ef_codec_name`` / ``ef_active_for`` answer whether a gradient reduce
-crosses a lossy wire codec.  Issue scopes for in-flight gradient buckets
-come with the bucketer (ROADMAP queue 1 item 8).
+crosses a lossy wire codec.  :meth:`ParallelCtx.issue` scopes one
+in-flight gradient bucket (train/bucketer.py): its calls land in the
+program's ``name/tag`` sub-recorders and share the open issue window, and
+on a card its work runs on a side stream the ctx owns, which
+:meth:`ParallelCtx.await_all` joins back into the current stream.
+``expert_grad_reduce`` is the identity on a (data, model) mesh, as the
+reference's ``pod_psum`` without a pod axis.
 
 Still raising, each with the ROADMAP queue 1 item that lifts it: a node
 axis (item 12) and a pod axis (item 14).  Serving across devices (item
@@ -68,6 +73,10 @@ class ParallelCtx:
     mesh: Optional[object] = None
     _tp_comm: Optional[FlexCommunicator] = None
     _dp_comm: Optional[FlexCommunicator] = None
+    #: the stream issue scopes run on (a CUDA ctx with live
+    #: communicators; made by the first scope)
+    side_stream: Optional[torch.cuda.Stream] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         for field, msg in _LATER:
@@ -123,8 +132,49 @@ class ParallelCtx:
                                                    name=name))
             yield
 
+    # -- issue/await overlap scopes (DESIGN.md §11) ----------------------------
+
+    @contextlib.contextmanager
+    def issue(self, tag: str):
+        """Mark the collectives called inside as ONE in-flight plan.
+
+        Their replay records land in the active program's ``name/tag``
+        sub-recorder and join the open issue window on every
+        communicator; all plans issued before the next :meth:`await_all`
+        share the window.  On a card the scope's work runs on
+        :attr:`side_stream`, which first waits for the current stream (the
+        producer of what the scope reads).  Every rank must issue the same
+        scopes in the same order.  A ctx without live communicators
+        no-ops."""
+        comms = self.comms()
+        if any(c.suppressed for c in comms):
+            raise RuntimeError(f"issue({tag!r}) inside unrecorded(): a "
+                               f"gradient bucket issued from a repeated "
+                               f"call would go unrecorded")
+        with contextlib.ExitStack() as stack:
+            for comm in comms:
+                stack.enter_context(comm.issue_scope(tag))
+            if comms and self.mesh.device.type == "cuda":
+                if self.side_stream is None:
+                    self.side_stream = torch.cuda.Stream(self.mesh.device)
+                self.side_stream.wait_stream(
+                    torch.cuda.current_stream(self.mesh.device))
+                stack.enter_context(torch.cuda.stream(self.side_stream))
+            yield
+
     def await_all(self, tree=None):
-        """Close the communicators' issue windows; returns ``tree``."""
+        """Barrier for every issued plan: the current stream waits for
+        the side stream, the CUDA tensors of ``tree`` (made there) are
+        marked as used by the current stream so the caching allocator
+        keeps them until its work is done, and the communicators' open
+        issue windows close.  Returns ``tree``."""
+        side = self.side_stream
+        if side is not None:
+            cur = torch.cuda.current_stream(side.device)
+            cur.wait_stream(side)
+            for t in pytree.tree_leaves(tree):
+                if torch.is_tensor(t) and t.is_cuda:
+                    t.record_stream(cur)
         for comm in self.comms():
             comm.await_barrier()
         return tree
@@ -240,6 +290,13 @@ class ParallelCtx:
             return pytree.tree_map(
                 lambda g: self.mesh.all_reduce(g, self.dp_axis), grads)
         return grads
+
+    def expert_grad_reduce(self, g: torch.Tensor) -> torch.Tensor:
+        """Reduce one ep_a2a expert grad over the gradient axes outside
+        the expert-parallel span: the backward all_to_all already summed
+        it over the data axis, and a (data, model) mesh has no other (the
+        reference's ``pod_psum`` without a pod axis)."""
+        return g
 
     def metrics_reduce(self, sums: Dict[str, torch.Tensor],
                        means: Optional[Dict[str, torch.Tensor]] = None

@@ -8,8 +8,13 @@ bucket exactly as the reference keys its jitted steps: the hit, rebuild,
 evict, ``plan_rekeys`` and ``shape_buckets`` counters read the same.
 CUDA launches are asynchronous, so an issued step is in flight until
 :meth:`StepProgram.await_all`; measured mode synchronizes the card where
-the reference calls ``block_until_ready``.  ``lower`` (the dry-run path)
-comes with the dry-run port.
+the reference calls ``block_until_ready``.  A bucketed train step issues
+its gradient buckets under ``ctx.issue`` from inside its own backward and
+joins them with ``ctx.await_all`` before its optimizer, so the buckets'
+sub-recorders (``name/g0``, ...) are in the program's family by the time
+:meth:`StepProgram.observe` replays it; :meth:`StepProgram.await_all`
+joins whole steps.  ``lower`` (the dry-run path) comes with the dry-run
+port.
 
 Usage::
 

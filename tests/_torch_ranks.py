@@ -14,6 +14,7 @@ import contextlib
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core import collectives as cx
 from repro_torch.core import routing
@@ -455,4 +456,300 @@ def tp_train(params_np, runs, steps, grad_case, ckpt_dir, ref_ckpt_dir,
                                "params": flat_leaves(got),
                                "mu": flat_leaves(got_opt.mu),
                                "nu": flat_leaves(got_opt.nu)}
+    return out
+
+
+def _local_tree(tree, spec, mesh, dtype):
+    """This rank's blocks of a nested dict of global numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _local_tree(v, spec, mesh, dtype) for k, v in tree.items()}
+    return torch.from_numpy(np.ascontiguousarray(
+        local_block(tree, spec, mesh))).to(getattr(torch, dtype))
+
+
+def _run_prog(program, params, opt_state, batches, steps, after_first=None):
+    losses = []
+    for i in range(steps):
+        params, opt_state, m = program.step(params, opt_state, next(batches))
+        losses.append(float(m["loss"]))
+        if i == 0 and after_first is not None:
+            after_first()
+    return params, opt_state, losses
+
+
+def _sub_recorders(ctx, name, n_buckets):
+    """Per communicator, each bucket's sub-recorder: its calls as (op,
+    bytes, window population) and the base recorder's call count."""
+    return {c.axis_name: {
+        "base": len(c.recorder(name).issued_calls()),
+        "buckets": [[(op.value, nb, c.window_population(w))
+                     for op, nb, w in c.recorder(f"{name}/g{k}")
+                     .issued_calls()] for k in range(n_buckets)],
+        "windows": len({w for k in range(n_buckets)
+                        for *_, w in c.recorder(f"{name}/g{k}")
+                        .issued_calls()})}
+        for c in ctx.comms()}
+
+
+def _post_backward_builder(cfg, ctx, opt, bucket_mb, device):
+    """A train step that reduces its buckets AFTER the backward through
+    ``sync_grads``: the reference's post-backward loop."""
+    from repro_torch.launch.steps import local_batch
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.optim.adamw import apply_updates
+    from repro_torch.train.train_step import sync_grads
+
+    def builder():
+        def step(params, opt_state, batch):
+            batch = local_batch(batch, ctx, device)
+            leaves, spec = pytree.tree_flatten(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            try:
+                loss = lm_loss(params, batch, cfg, ctx) / ctx.dp_size
+                grads = torch.autograd.grad(loss, leaves)
+            finally:
+                for p in leaves:
+                    p.requires_grad_(False)
+            grads = ctx.await_all(sync_grads(
+                pytree.tree_unflatten(list(grads), spec), cfg, ctx,
+                bucket_mb=bucket_mb))
+            params, opt_state, om = apply_updates(params, grads, opt_state,
+                                                  opt)
+            return params, opt_state, ctx.metrics_reduce(
+                {"loss": loss.detach()}, om)
+        return step
+    return builder
+
+
+def overlap(parity, params_np, steps, bucket_mb, ef, ckpt_dir):
+    """tests/test_torch_overlap.py on this rank (4 ranks):
+
+    * on the (4,) mesh, each ``parity`` case's monolithic and bucketed
+      sync of small-integer gradients, and the StepProgram issue/await
+      lifecycle through ``ctx.issue``;
+    * on the (data=2, model=2) mesh, reduced glm4-9b from the reference's
+      initial params (``params_np``): the hooked bucketed train step and
+      a post-backward ``sync_grads`` step, each ``steps`` steps (issue
+      order, hook calls, sub-recorders, losses), ``issue`` inside
+      ``unrecorded``, and the error-feedback run ``ef``, whose final
+      state (residuals included) data row 0 checkpoints into
+      ``ckpt_dir`` and every rank restores."""
+    import torch.distributed as dist
+    from types import SimpleNamespace
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_params
+    from repro_torch.core.communicator import CommConfig
+    from repro_torch.core.links import PROFILES, degrade_profile
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.launch.steps import build_train_program, make_ctx
+    from repro_torch.models.tp import ParallelCtx
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.runtime.program import StepProgram
+    from repro_torch.train import bucketer as bk
+    from repro_torch.train.train_step import ef_init_residuals, sync_grads
+    out = {}
+    flat = Mesh((4,), ("data",), device="cpu")
+    for name, c in parity.items():
+        ctx = ParallelCtx(dp_axis="data", dp_size=4, mesh=flat,
+                          comm_config=CommConfig(profile="tpu_v5e",
+                                                 tag="ov-flat"))
+        cfg = SimpleNamespace(moe=SimpleNamespace(impl="ep_a2a")
+                              if c["ep"] else None)
+        t = _local_tree(c["grads"], "data", flat, c["dtype"])
+        mono = sync_grads(t, cfg, ctx)
+        buck = ctx.await_all(sync_grads(t, cfg, ctx,
+                                        bucket_mb=c["bucket_mb"]))
+        out[name] = {"mono": flat_leaves(mono), "buck": flat_leaves(buck)}
+
+    ctx = ParallelCtx(dp_axis="data", dp_size=4, mesh=flat,
+                      comm_config=CommConfig(profile="tpu_v5e",
+                                             tag="ov-prog"))
+    comm = ctx.comms()[0]
+
+    def builder():
+        def step(v):
+            with ctx.issue("b0"):
+                a = comm.all_reduce(v)
+            with ctx.issue("b1"):
+                b = comm.all_reduce(2.0 * v)
+            a, b = ctx.await_all((a, b))
+            return a + b
+        return step
+
+    x = torch.from_numpy(local_block(
+        (np.arange(4 * 8, dtype=np.float32) % 5).reshape(4 * 8, 1), "data",
+        flat))
+    prog = StepProgram(builder, ctx, name="ovl")
+    h = prog.issue(x)
+    pending = (h.ready, prog._pending == [h])
+    outs = prog.await_all()
+    c0, c1 = (comm.recorder(f"ovl/{t}").issued_calls() for t in ("b0", "b1"))
+    lifecycle = {"pending": pending, "ready": h.ready, "n_out": len(outs),
+                 "left": len(prog._pending), "y": as_bits(outs[0]),
+                 "calls": (len(c0), len(c1)),
+                 "same_window": c0[0][2] == c1[0][2],
+                 "population": comm.window_population(c0[0][2])}
+    prog.issue(x)
+    lifecycle["y2"] = as_bits(prog.await_all()[0])
+    lifecycle["hits"] = prog.cache.report()["hits"]
+    lifecycle["empty_await"] = prog.await_all()
+    prog.close()
+    out["lifecycle"] = lifecycle
+
+    mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+    cfg = get_config("glm4-9b").reduced()
+    specs = param_specs(cfg)
+    tpi = mesh.axis_index("model")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+
+    def params():
+        from repro_torch.convert import params_from_reference
+        return shard_params(params_from_reference(params_np), specs, tpi, 2)
+
+    def batches():
+        return make_batches(cfg, seq_len=32, batch_per_shard=4, seed=7)
+
+    # the hooked step: issue order, hook calls a step, sub-recorders
+    comm_cfg = CommConfig(profile="h800", tag="ov-train")
+    program, ctx = build_train_program(cfg, mesh, comm=comm_cfg, opt=opt,
+                                       bucket_mb=bucket_mb, device="cpu",
+                                       name="hooked")
+    n_buckets = len(bk.GradBucketer(params(), bucket_mb=bucket_mb).buckets)
+    issued, ready = [], []
+    issue, ready_fn = ctx.issue, bk.BucketSync.ready
+
+    def logged_issue(tag):
+        issued.append((tag, torch._C._current_graph_task_id() != -1))
+        return issue(tag)
+
+    def logged_ready(self, i, g):
+        ready.append(i)
+        return ready_fn(self, i, g)
+
+    rec = {}
+    ctx.issue = logged_issue
+    bk.BucketSync.ready = logged_ready
+    try:
+        _, _, hooked_losses = _run_prog(
+            program, params(), init_state(params()), batches(), steps,
+            lambda: rec.update(hooked=_sub_recorders(ctx, "hooked",
+                                                     n_buckets)))
+    finally:
+        del ctx.issue
+        bk.BucketSync.ready = ready_fn
+    sig_hooked = tuple((a, plain_signature(s))
+                       for a, s in ctx.plan_signature("hooked"))
+    program.close()
+    with ctx.unrecorded():
+        try:
+            with ctx.issue("g0"):
+                pass
+            refused = False
+        except RuntimeError:
+            refused = True
+
+    post_ctx = make_ctx(mesh, comm_cfg)
+    post = StepProgram(_post_backward_builder(cfg, post_ctx, opt, bucket_mb,
+                                              torch.device("cpu")),
+                       post_ctx, name="post")
+    post_issued = []
+    post_issue = post_ctx.issue
+    post_ctx.issue = lambda tag: (post_issued.append(tag),
+                                  post_issue(tag))[1]
+    try:
+        _, _, post_losses = _run_prog(
+            post, params(), init_state(params()), batches(), steps,
+            lambda: rec.update(post=_sub_recorders(post_ctx, "post",
+                                                   n_buckets)))
+    finally:
+        del post_ctx.issue
+    sig_post = tuple((a, plain_signature(s))
+                     for a, s in post_ctx.plan_signature("post"))
+    post.close()
+    out["hooked"] = {"issued": issued, "ready": ready, "n_buckets": n_buckets,
+                     "losses": hooked_losses, "recorders": rec["hooked"],
+                     "signature": sig_hooked, "refused": refused,
+                     "n_leaves": len(bk.tree_paths(params()))}
+    out["post"] = {"issued": post_issued, "losses": post_losses,
+                   "recorders": rec["post"], "signature": sig_post}
+
+    # error feedback on (2, 2): the final state checkpointed and restored
+    base, _, spec = ef["profile"].partition("!")
+    if spec:                        # a degraded profile registers by use
+        degrade_profile(PROFILES[base], spec)
+    program, ctx = build_train_program(
+        cfg, mesh, comm=CommConfig(profile=ef["profile"],
+                                   compress=ef["compress"]),
+        opt=opt, bucket_mb=ef["bucket_mb"], device="cpu", name="ef")
+    p0 = params()
+    state = (init_state(p0), ef_init_residuals(p0))
+    p, state, losses = _run_prog(program, p0, state, batches(), steps)
+    program.close()
+    if mesh.axis_index("data") == 0:
+        Checkpointer(ckpt_dir, ctx=ctx, specs=specs).save(steps, p, state)
+    dist.barrier()
+    got_p, got_state, meta = Checkpointer(ckpt_dir, ctx=ctx,
+                                          specs=specs).restore(
+        p, (init_state(p), ef_init_residuals(p)))
+    out["ef"] = {
+        "losses": losses, "codec": ctx.ef_codec_name(),
+        "rmax": max(float(r.abs().max()) for r in
+                    pytree.tree_leaves(state[1])),
+        "residuals": flat_leaves(state[1]), "mu": flat_leaves(state[0].mu),
+        "restored": {"step": meta["step"], "params": flat_leaves(got_p),
+                     "mu": flat_leaves(got_state[0].mu),
+                     "residuals": flat_leaves(got_state[1])},
+        "params": flat_leaves(p)}
+    return out
+
+
+def ef_train(params_np, runs):
+    """tests/test_torch_ef.py on this rank of the (data=2, model=4) mesh:
+    each run of ``runs`` trains reduced glm4-9b from the reference's
+    initial params (bucketed, error-feedback residuals paired with the
+    AdamW state under a lossy codec) and returns its per-step losses and
+    the residuals' max (None without them); runs marked ``state`` also
+    their final residual tree (this rank's shards, as numpy)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_reference, shard_params
+    from repro_torch.core.communicator import CommConfig
+    from repro_torch.core.links import PROFILES, degrade_profile
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.launch.steps import build_train_program
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.train_step import ef_init_residuals
+    mesh = Mesh((2, 4), ("data", "model"), device="cpu")
+    cfg = get_config("glm4-9b").reduced()
+    out = {}
+    for name, run in runs.items():
+        base, _, spec = run["profile"].partition("!")
+        if spec:                    # a degraded profile registers by use
+            degrade_profile(PROFILES[base], spec)
+        params = shard_params(params_from_reference(params_np),
+                              param_specs(cfg), mesh.axis_index("model"), 4)
+        program, ctx = build_train_program(
+            cfg, mesh, comm=CommConfig(profile=run["profile"],
+                                       compress=run["compress"],
+                                       tag=f"ef-{name}"),
+            opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                            total_steps=run["steps"]),
+            bucket_mb=run["bucket_mb"], device="cpu", name=name)
+        state = init_state(params)
+        ef = bool(ctx.ef_codec_name())
+        if ef:
+            state = (state, ef_init_residuals(params))
+        _, state, losses = _run_prog(
+            program, params, state,
+            make_batches(cfg, seq_len=32, batch_per_shard=4, seed=7),
+            run["steps"])
+        program.close()
+        out[name] = {"losses": losses, "codec": ctx.ef_codec_name(),
+                     "rmax": max(float(r.abs().max()) for r in
+                                 pytree.tree_leaves(state[1])) if ef else None}
+        if run.get("state"):
+            out[name]["residuals"] = pytree.tree_map(as_bits, state[1])
     return out
