@@ -17,9 +17,12 @@ rank holds local shards, and the file still holds the reference's GLOBAL
 layout: ``save`` is collective over the rank's model line, which
 all-gathers each sharded leaf of the params, the AdamW moments and the
 error-feedback residuals (param-shaped, sharded like the params), and
-model rank 0 writes; replicated leaves are model rank 0's own copy, which
-is what the reference's ``np.asarray`` of a leaf whose per-device copies
-differ saves.  ``restore`` reads the global file on every rank and cuts
+model rank 0 writes.  ep_a2a experts are sharded over the data axis too:
+then ``save`` is collective over every rank, gathers those leaves over
+the data axis after the model axis, and only rank (0, 0) writes.
+Replicated leaves are model rank 0's own copy (data row 0's when the
+data axis shards leaves), which is what the reference's ``np.asarray``
+of a leaf whose per-device copies differ saves.  ``restore`` reads the global file on every rank and cuts
 the rank's shard (convert.py), so every rank gets the same replicated
 copy, as the reference's ``device_put`` gives.
 """
@@ -36,7 +39,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.convert import gather_params, shard_params, sharded_dim
+from repro_torch.convert import (gather_params, shard_params, spec_axes,
+                                 spec_dim)
 
 _SEP = "/"
 
@@ -98,18 +102,26 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray], prefix=""):
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3, *, ctx=None,
                  specs=None):
-        """``ctx`` with a model axis wider than 1 (and ``specs``, the
-        ``transformer.param_specs`` tree) makes the params and moments
-        rank-local shards; every rank of the model line must then call
-        ``save``, and model rank 0 writes."""
+        """``ctx`` with a model axis wider than 1, or a data axis wider
+        than 1 that ``specs`` (the ``transformer.param_specs`` tree)
+        shards ep_a2a experts over, makes the params and moments
+        rank-local shards; every rank of the model line (of the mesh,
+        when the data axis shards leaves) must then call ``save``, and
+        model rank 0 (of data row 0) writes."""
         self.dir = directory
         self.keep = keep
-        self.ctx = ctx if ctx is not None and ctx.tp_size > 1 else None
+        #: whether the data axis shards leaves (ep_a2a experts)
+        self.data = (ctx is not None and ctx.dp_size > 1
+                     and specs is not None and "data" in spec_axes(specs))
+        self.ctx = ctx if ctx is not None and (ctx.tp_size > 1
+                                               or self.data) else None
         if self.ctx is not None and specs is None:
             raise ValueError("Checkpointer: a model axis needs the param "
                              "specs")
         self.specs = specs
-        self.writer = self.ctx is None or self.ctx.tp_index() == 0
+        self.writer = self.ctx is None or (
+            self.ctx.tp_index() == 0
+            and (not self.data or self.ctx.dp_index() == 0))
         os.makedirs(directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -141,14 +153,17 @@ class Checkpointer:
         return path
 
     def _gather(self, tree, specs):
-        """The global tree at model rank 0 (collective over the model
-        line; other ranks get a tree they do not use)."""
+        """The global tree (collective over the model line, and over the
+        data line when it shards leaves)."""
         if isinstance(specs, dict):
             return {k: self._gather(tree[k], specs[k]) for k in tree}
-        if sharded_dim(specs) < 0:
-            return tree
-        g = self.ctx.mesh.all_gather(tree.contiguous(), self.ctx.tp_axis)
-        return gather_params(list(g), specs)
+        axes = [("model", self.ctx.tp_axis)] if self.ctx.tp_size > 1 else []
+        axes += [("data", self.ctx.dp_axis)] if self.data else []
+        for name, axis in axes:
+            if spec_dim(specs, name) >= 0:
+                g = self.ctx.mesh.all_gather(tree.contiguous(), axis)
+                tree = gather_params(list(g), specs, name)
+        return tree
 
     def _gather_opt(self, opt_state):
         """The global AdamW state, or ``(AdamWState, residuals)``."""
@@ -182,8 +197,10 @@ class Checkpointer:
             spec = self.specs
             for part in path:
                 spec = spec[part]
-            out[key] = shard_params(arr, spec, self.ctx.tp_index(),
-                                    self.ctx.tp_size)
+            out[key] = shard_params(
+                arr, spec, self.ctx.tp_index(), self.ctx.tp_size,
+                dp_index=self.ctx.dp_index() if self.data else 0,
+                dp=self.ctx.dp_size if self.data else 1)
         return out
 
     def _gc(self) -> None:

@@ -11,12 +11,14 @@ bfloat16 arrays are ``ml_dtypes`` arrays, which ``torch.from_numpy``
 rejects; they cross as their raw 16-bit patterns (``.view(np.uint16)``
 then ``.view(torch.bfloat16)``), which is exact.
 
-On a model axis the reference's ``shard_map`` hands each device its
-block of every sharded leaf (``param_specs``); here ``shard_params`` cuts
-a rank's block out of the global tree and ``gather_params`` puts the
-global tree back together from every model rank's, taking replicated
-leaves from model rank 0, as ``np.asarray`` of the reference's arrays
-does.
+On a mesh the reference's ``shard_map`` hands each device its block of
+every sharded leaf (``param_specs``); here ``shard_params`` cuts a rank's
+block out of the global tree and ``gather_params`` puts the global tree
+back together over one axis from every rank's along it, taking leaves
+that axis does not shard from its rank 0, as ``np.asarray`` of the
+reference's arrays does.  A leaf may be sharded on two dims: ep_a2a
+experts over the data axis (the expert dim) and the model axis (the
+FFN hidden dim).
 """
 
 from __future__ import annotations
@@ -51,43 +53,53 @@ def opt_state_from_reference(state, device=None):
                       nu=params_from_reference(state.nu, device))
 
 
-def sharded_dim(spec) -> int:
-    """The dim a leaf's spec shards over the model axis, or -1."""
-    dims = [i for i, a in enumerate(spec) if a is not None]
-    if len(dims) > 1:
-        raise ValueError(f"spec {spec}: more than one sharded dim")
+def spec_dim(spec, axis: str) -> int:
+    """The dim a leaf's spec shards over ``axis``, or -1."""
+    dims = [i for i, a in enumerate(spec) if a == axis]
     return dims[0] if dims else -1
 
 
-def shard_params(tree, specs, tp_index: int, tp: int):
-    """One model rank's local shards of a global tree (numpy arrays or
+def spec_axes(specs) -> set:
+    """Every mesh axis a spec tree shards some leaf over."""
+    if isinstance(specs, dict):
+        return set().union(*(spec_axes(v) for v in specs.values()))
+    return {a for a in specs if a is not None}
+
+
+def shard_params(tree, specs, tp_index: int, tp: int, *, dp_index: int = 0,
+                 dp: int = 1):
+    """One rank's local shards of a global tree (numpy arrays or
     tensors; a params tree, or an AdamW moment tree of the same layout),
-    by the spec tree of ``transformer.param_specs``.  Every leaf is a new
-    contiguous array or tensor."""
+    by the spec tree of ``transformer.param_specs``: dims sharded over
+    "model" cut at ``(tp_index, tp)``, over "data" (ep_a2a experts) at
+    ``(dp_index, dp)``.  Every leaf is a new contiguous array or tensor."""
     if isinstance(tree, dict):
-        return {k: shard_params(v, specs[k], tp_index, tp)
+        return {k: shard_params(v, specs[k], tp_index, tp, dp_index=dp_index,
+                                dp=dp)
                 for k, v in tree.items()}
-    d = sharded_dim(specs)
-    if d >= 0:
-        if tree.shape[d] % tp:
+    coords = {"model": (tp_index, tp), "data": (dp_index, dp)}
+    for d, axis in enumerate(specs):
+        if axis is None:
+            continue
+        i, ways = coords[axis]
+        if tree.shape[d] % ways:
             raise ValueError(f"dim {d} of {tuple(tree.shape)} does not "
-                             f"divide over {tp} model ranks")
-        n = tree.shape[d] // tp
-        tree = tree[(slice(None),) * d + (slice(tp_index * n,
-                                                (tp_index + 1) * n),)]
+                             f"divide over {ways} {axis} ranks")
+        n = tree.shape[d] // ways
+        tree = tree[(slice(None),) * d + (slice(i * n, (i + 1) * n),)]
     if isinstance(tree, np.ndarray):
         return np.array(tree, order="C")
     return tree.clone(memory_format=torch.contiguous_format)
 
 
-def gather_params(shards, specs):
-    """The inverse of ``shard_params`` over the model axis: ``shards`` are
-    the local trees of model ranks 0, 1, ...; sharded leaves are
-    concatenated along their dim, replicated leaves taken from rank 0."""
+def gather_params(shards, specs, axis: str = "model"):
+    """The inverse of ``shard_params`` over ``axis``: ``shards`` are the
+    local trees of ranks 0, 1, ... along it; leaves it shards are
+    concatenated along their dim, the others taken from its rank 0."""
     if isinstance(specs, dict):
-        return {k: gather_params([s[k] for s in shards], v)
+        return {k: gather_params([s[k] for s in shards], v, axis)
                 for k, v in specs.items()}
-    d = sharded_dim(specs)
+    d = spec_dim(specs, axis)
     if d < 0:
         return shards[0]
     if isinstance(shards[0], np.ndarray):

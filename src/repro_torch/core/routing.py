@@ -426,8 +426,8 @@ def execute(plan: RoutePlan, x: torch.Tensor, mesh, *,
     sequence of collectives.  Primary-only plans short-circuit to the
     native collective.
 
-    An all-reduce, all-gather or reduce-scatter is differentiable: see
-    :class:`_Execute`.
+    Every collective here is differentiable (all-reduce, all-gather,
+    reduce-scatter and all-to-all): see :class:`_Execute`.
     """
     if plan.collective in _TRANSPOSE:
         return _Execute.apply(x, plan, mesh, accumulate)
@@ -473,7 +473,8 @@ def _run(plan: RoutePlan, x: torch.Tensor, mesh,
 #: backward runs on the cotangent
 _TRANSPOSE = {Collective.ALL_REDUCE: Collective.ALL_REDUCE,
               Collective.ALL_GATHER: Collective.REDUCE_SCATTER,
-              Collective.REDUCE_SCATTER: Collective.ALL_GATHER}
+              Collective.REDUCE_SCATTER: Collective.ALL_GATHER,
+              Collective.ALL_TO_ALL: Collective.ALL_TO_ALL}
 
 
 def transpose_plan(plan: RoutePlan) -> RoutePlan:
@@ -495,7 +496,11 @@ class _Execute(torch.autograd.Function):
       cotangent, then take the rank's own row, the codec all-gather VJP
       of reference collectives.py:272-282); the reduce-scatter's column
       groups are the gather's payload segments, route for route;
-    * reduce-scatter: the cotangent all-gathered back to x's shape.
+    * reduce-scatter: the cotangent all-gathered back to x's shape;
+    * all-to-all (split = concat = axis 0, equal blocks): its own
+      transpose, since block j of rank r lands as block r of rank j; the
+      cotangent runs the same plan, column group for column group, on the
+      primary collective and the staged ring alike.
 
     The forward runs the plan as it is, codecs included; the backward runs
     :func:`transpose_plan` through :func:`execute`, on the routes the

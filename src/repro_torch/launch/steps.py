@@ -10,7 +10,10 @@ it to the rank's device, split over data and the same on every rank of
 a model line, the ``in_specs=P("data", None)`` of the reference.  The
 params and the optimizer state it takes are RANK-LOCAL: whole on a mesh
 without a model axis, this rank's ``param_specs`` shards on one with it
-(``convert.shard_params``), the reference's in_specs.  ``bucket_mb > 0``
+(``convert.shard_params``; ``rank_specs`` / ``local_params``), the
+reference's in_specs: the expert dim of ep_a2a MoE experts shards over
+the ctx's ep span, the data axis (``ctx.ep_spec_axis()``), as the
+reference's ``param_specs(cfg, data_axis=...)``.  ``bucket_mb > 0``
 builds the bucketed step (train/train_step.py): its buckets go out from
 the backward, and under a lossy wire codec its optimizer state is
 ``(AdamWState, residuals)``, the residuals param-shaped and sharded like
@@ -37,9 +40,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.convert import shard_params, spec_axes
 from repro_torch.core.communicator import CommConfig
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.tp import ParallelCtx
+from repro_torch.models.transformer import param_specs
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.program import StepProgram
 from repro_torch.train.train_step import make_train_step
@@ -56,6 +61,23 @@ def make_ctx(mesh, comm: Optional[CommConfig] = None) -> ParallelCtx:
     return ParallelCtx(tp_axis="model" if tp > 1 else None,
                        dp_axis="data" if dp > 1 else None,
                        tp_size=tp, dp_size=dp, comm_config=comm, mesh=mesh)
+
+
+def rank_specs(cfg: ArchConfig, ctx: ParallelCtx):
+    """The ``param_specs`` tree of a rank of ``ctx``: the ctx's ep span is
+    the expert-dim axis (the reference's steps.py:83)."""
+    return param_specs(cfg, data_axis=ctx.ep_spec_axis() or "data")
+
+
+def local_params(params, specs, ctx: ParallelCtx):
+    """This rank's shards of a GLOBAL tree by ``specs`` (the tree itself
+    when no axis of the ctx shards a leaf)."""
+    data = ctx.ep_size > 1 and "data" in spec_axes(specs)
+    if ctx.tp_size <= 1 and not data:
+        return params
+    return shard_params(params, specs, ctx.tp_index(), ctx.tp_size,
+                        dp_index=ctx.dp_index() if data else 0,
+                        dp=ctx.dp_size if data else 1)
 
 
 def local_batch(batch: Dict[str, np.ndarray], ctx: ParallelCtx,

@@ -7,7 +7,8 @@ Port of ``src/repro/launch/train.py``.  ``--smoke`` swaps in the reduced
 config (2 layers, d_model 256).  The mesh shape is (data, model); every
 rank is a process (``launch.mesh.run_ranks``) that builds the same
 global weights from seed 0 and keeps its model-axis shards of them
-(``convert.shard_params``), takes its rows of the global batch (the same
+(``convert.shard_params``; ep_a2a experts over the data axis as well),
+takes its rows of the global batch (the same
 rows on every rank of a model line), combines its tensor-parallel
 partial results through the model axis's FlexCommunicator and reduces
 its gradients through the data axis's.  The flags are the reference's,
@@ -41,11 +42,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ALIASES, get_config
-from repro_torch.convert import shard_params
+from repro_torch.convert import spec_axes
 from repro_torch.core.communicator import CommConfig
 from repro_torch.data.pipeline import make_batches
-from repro_torch.launch.steps import build_train_program
-from repro_torch.models.transformer import init_params, param_specs
+from repro_torch.launch.steps import (build_train_program, local_params,
+                                      rank_specs)
+from repro_torch.models.transformer import init_params
 from repro_torch.optim.adamw import AdamWConfig, init_state
 from repro_torch.train.loop import LoopConfig, run_loop
 from repro_torch.train.train_step import ef_init_residuals
@@ -87,19 +89,21 @@ def train_rank(args: argparse.Namespace, dims, world: int) -> dict:
     program, ctx = build_train_program(cfg, mesh, comm=comm, opt=opt,
                                        bucket_mb=args.bucket_mb,
                                        device=device)
-    specs = param_specs(cfg)
-    if ctx.tp_size > 1:
-        params = shard_params(params, specs, ctx.tp_index(), ctx.tp_size)
+    specs = rank_specs(cfg, ctx)
+    params = local_params(params, specs, ctx)
     opt_state = init_state(params)
     if args.bucket_mb > 0 and ctx.ef_codec_name():
         # lossy wire codec: the error-feedback residuals ride the
         # optimizer state (train_step.py docstring)
         opt_state = (opt_state, ef_init_residuals(params))
     lead = rank == 0
-    data_row0 = mesh is None or mesh.axis_index("data") == 0
+    # the ranks of data row 0 checkpoint; every rank when the data axis
+    # shards leaves (ep_a2a experts), whose save gathers over it
+    saves = (mesh is None or mesh.axis_index("data") == 0
+             or (ctx.ep_size > 1 and "data" in spec_axes(specs)))
     loop = LoopConfig(total_steps=args.steps, log_every=5 if lead else 0,
                       ckpt_every=args.ckpt_every,
-                      ckpt_dir=(args.ckpt_dir or None) if data_row0
+                      ckpt_dir=(args.ckpt_dir or None) if saves
                       else None, param_specs=specs,
                       tuning_cache=(args.tuning_cache or None) if lead
                       else None)
@@ -201,7 +205,16 @@ def main(argv=None) -> int:
         results = run_ranks(this.train_rank, world, backend=args.dist,
                             device=device, timeout_s=3600,
                             args=(args, dims, world))
-        if any(r["history"] != results[0]["history"] for r in results):
+        # rank = data * tp + model.  A MoE loss carries the router's aux
+        # loss, which each model rank computes from its own copies of the
+        # replicated leaves; those drift apart as the reference's do under
+        # check_vma=False, so only the ranks of one model index agree
+        tp = dims[1]
+        cols = [results[m::tp] for m in range(tp)]
+        if get_config(args.arch).moe is None:
+            cols = [results]
+        if any(r["history"] != col[0]["history"] for col in cols
+               for r in col):
             print("error: the ranks' losses differ", file=sys.stderr)
             return 1
         res = results[0]

@@ -25,8 +25,12 @@ in-flight gradient bucket (train/bucketer.py): its calls land in the
 program's ``name/tag`` sub-recorders and share the open issue window, and
 on a card its work runs on a side stream the ctx owns, which
 :meth:`ParallelCtx.await_all` joins back into the current stream.
-``expert_grad_reduce`` is the identity on a (data, model) mesh, as the
-reference's ``pod_psum`` without a pod axis.
+The expert-parallel span of the MoE ``ep_a2a`` dispatch is the data
+axis alone on a (data, model) mesh (``ep_axes``, ``ep_size``,
+``ep_spec_axis``): ``ep_all_to_all`` is the data axis's flex
+all_to_all, differentiable through ``routing.execute``, and
+``expert_grad_reduce`` is the identity, as the reference's ``pod_psum``
+without a pod axis.
 
 Still raising, each with the ROADMAP queue 1 item that lifts it: a node
 axis (item 12) and a pod axis (item 14).  Serving across devices (item
@@ -290,6 +294,44 @@ class ParallelCtx:
             return pytree.tree_map(
                 lambda g: self.mesh.all_reduce(g, self.dp_axis), grads)
         return grads
+
+    def dp_all_to_all(self, x: torch.Tensor, split_axis: int,
+                      concat_axis: int) -> torch.Tensor:
+        if self._dp_comm is None:
+            return x
+        return self._dp_comm.all_to_all(x, split_axis, concat_axis)
+
+    def dp_index(self) -> int:
+        """This rank's coordinate on the data axis."""
+        if self.dp_axis is None or self.dp_size <= 1:
+            return 0
+        return self.mesh.axis_index(self.dp_axis)
+
+    # -- expert-parallel span (MoE ep_a2a dispatch, DESIGN.md §15) ------------
+
+    @property
+    def ep_axes(self) -> Tuple[str, ...]:
+        """Mesh axes the expert dimension shards over: the data axis when
+        it is wider than 1 (node and pod axes raise, item 12 / 14)."""
+        if self.dp_axis and self.dp_size > 1:
+            return (self.dp_axis,)
+        return ()
+
+    @property
+    def ep_size(self) -> int:
+        """Expert-parallel ways: the product of the ep axes' sizes."""
+        return self.dp_size if self.ep_axes else 1
+
+    def ep_spec_axis(self) -> Optional[str]:
+        """The expert-dim entry of ``param_specs``: None or the data
+        axis's name."""
+        return self.ep_axes[0] if self.ep_axes else None
+
+    def ep_all_to_all(self, x: torch.Tensor, split_axis: int,
+                      concat_axis: int) -> torch.Tensor:
+        """Expert-dispatch all_to_all over the ep span: the flat data-axis
+        flex all_to_all (the reference's single-node form)."""
+        return self.dp_all_to_all(x, split_axis, concat_axis)
 
     def expert_grad_reduce(self, g: torch.Tensor) -> torch.Tensor:
         """Reduce one ep_a2a expert grad over the gradient axes outside

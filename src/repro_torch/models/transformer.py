@@ -1,29 +1,42 @@
-"""The LM engine for the dense family: training forward and loss, and
-serving.
+"""The LM engine: one generic decoder for the dense, MoE, SSM and hybrid
+families: training forward and loss, and serving.
 
 Port of ``src/repro/models/transformer.py``: ``init_params``,
 ``param_specs``, the vocab-parallel ``embed_tokens`` (masked local
 lookup + ``ctx.tp_all_reduce``), ``lm_logits_local``,
 ``vocab_parallel_xent`` (the distributed log-sum-exp), the train/prefill
-``forward`` and ``lm_loss``, the dense decode cache and ``decode_step``,
-and the paged pool and ``paged_decode_step`` (both at tp = 1, item 11).
+``forward`` and ``lm_loss`` (with the MoE router's aux loss), the decode
+caches and ``decode_step``, and the paged pool and ``paged_decode_step``
+(dense and moe; both caches at tp = 1, item 11).  The families:
+
+* dense: a stack of attention + SwiGLU blocks;
+* moe: ``n_dense_prefix`` dense blocks (``prefix``), then attention +
+  MoE blocks (``layers``; models/moe.py, ``tp`` or ``ep_a2a``), their
+  router aux losses summed;
+* ssm: a stack of Mamba2 blocks (models/ssm.py);
+* hybrid (Zamba2): Mamba2 blocks with ONE shared attention + MLP block
+  (``shared_attn``) after every group of ``attn_every`` of them; the
+  remainder layers run without it.
+
 Activation checkpointing (the reference's ``jax.checkpoint`` around each
 scanned block, ``remat=True``) is ``torch.utils.checkpoint`` around each
-layer; the reference's selective ``remat="dots"`` policy has no
+block; the reference's selective ``remat="dots"`` policy has no
 counterpart yet and raises.  ``init_params`` builds the GLOBAL tree with
 the reference's keys and shapes, layers stacked on a leading [L] dim, so
-a reference tree carries over 1:1 (``convert.py``); a rank of a model
-axis holds the local shards ``convert.shard_params`` cuts from it by
-``param_specs``.  ``lax.scan`` over layers becomes a Python loop over the
-[L] dim.  The reference records a collective once per trace, and scan
-traces its body once: here layer 0 records its calls and the later
-layers and the checkpoint recompute run under ``ctx.unrecorded()``.  The
-caches are updated IN PLACE: ``decode_step`` writes each layer's new K/V
-into the [L, ...] cache tensors it was given, and ``paged_decode_step``
-scatters into the pool (models/layers.py).
+a reference tree carries over 1:1 (``convert.py``); a rank holds the
+local shards ``convert.shard_params`` cuts from it by ``param_specs``.
+Each ``lax.scan`` over layers becomes a Python loop over the [L] dim.
+The reference records a collective once per trace, and scan traces its
+body once: here the first block of each scan records its calls (the
+hybrid's first group: its first Mamba2 block, then the shared block),
+and the later ones and the checkpoint recompute run under
+``ctx.unrecorded()``.  The caches are updated IN PLACE: ``decode_step``
+writes each layer's new K/V or SSM state into the [L, ...] cache tensors
+it was given, and ``paged_decode_step`` scatters into the pool
+(models/layers.py).
 
-Families other than dense raise until their slices land (ROADMAP queue 1:
-items 9 and 14 for moe, ssm, hybrid, encdec and vlm).
+The vlm and encdec families raise until their slice lands (ROADMAP
+queue 1 item 9 (vlm, encdec)).
 """
 
 from __future__ import annotations
@@ -36,45 +49,77 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.tp import ParallelCtx
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _require_ported(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"ROADMAP queue 1, item 9 (moe, ssm, hybrid, encdec, vlm) "
-            f"and item 14 (rail-local moe)")
+            f"ROADMAP queue 1, item 9 (vlm, encdec)")
 
 
 # ---------------------------------------------------------------------------
-# init
+# init + specs
 # ---------------------------------------------------------------------------
+
+def _dense_init(gen, cfg: ArchConfig, dtype, device, lead=()):
+    d = cfg.d_model
+    return {
+        "ln1": torch.ones(lead + (d,), dtype=dtype, device=device),
+        "attn": L.init_attention(gen, cfg, dtype, device, lead=lead),
+        "ln2": torch.ones(lead + (d,), dtype=dtype, device=device),
+        "mlp": L.init_mlp(gen, cfg, dtype, device, lead=lead),
+    }
+
+
+def _moe_init(gen, cfg: ArchConfig, dtype, device, lead):
+    d = cfg.d_model
+    return {
+        "ln1": torch.ones(lead + (d,), dtype=dtype, device=device),
+        "attn": L.init_attention(gen, cfg, dtype, device, lead=lead),
+        "ln2": torch.ones(lead + (d,), dtype=dtype, device=device),
+        "moe": M.init_moe(gen, cfg, dtype, device, lead=lead),
+    }
+
+
+def _ssm_init(gen, cfg: ArchConfig, dtype, device, lead):
+    return {"ln": torch.ones(lead + (cfg.d_model,), dtype=dtype,
+                             device=device),
+            "ssm": S.init_ssm(gen, cfg, dtype, device, lead=lead)}
+
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device):
-    """GLOBAL-shaped parameter tree (dense family): the reference's keys
-    and shapes, weights N(0, 0.02^2) in ``cfg.dtype``, norms ones.
-    ``generator`` must live on ``device``."""
+    """GLOBAL-shaped parameter tree: the reference's keys and shapes,
+    weights N(0, 0.02^2) in ``cfg.dtype``, norms ones (the SSM's dt_bias,
+    a_log and d_skip float32).  ``generator`` must live on ``device``."""
     cfg.validate()
     _require_ported(cfg)
-    dtype = cfg.dtype
+    dtype, gen = cfg.dtype, generator
     n, d = cfg.n_layers, cfg.d_model
     p: Dict[str, Any] = {
-        "embed": L._normal(generator, (cfg.vocab_padded, d), dtype, device),
+        "embed": L._normal(gen, (cfg.vocab_padded, d), dtype, device),
         "final_norm": torch.ones((d,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = L._normal(generator, (d, cfg.vocab_padded), dtype,
-                                 device)
-    p["layers"] = {
-        "ln1": torch.ones((n, d), dtype=dtype, device=device),
-        "attn": L.init_attention(generator, cfg, dtype, device, lead=(n,)),
-        "ln2": torch.ones((n, d), dtype=dtype, device=device),
-        "mlp": L.init_mlp(generator, cfg, dtype, device, lead=(n,)),
-    }
+        p["lm_head"] = L._normal(gen, (d, cfg.vocab_padded), dtype, device)
+    fam = cfg.family
+    if fam == "dense":
+        p["layers"] = _dense_init(gen, cfg, dtype, device, (n,))
+    elif fam == "moe":
+        npre = cfg.moe.n_dense_prefix
+        if npre:
+            p["prefix"] = _dense_init(gen, cfg, dtype, device, (npre,))
+        p["layers"] = _moe_init(gen, cfg, dtype, device, (n - npre,))
+    else:                                          # ssm, hybrid
+        p["layers"] = _ssm_init(gen, cfg, dtype, device, (n,))
+        if fam == "hybrid":
+            p["shared_attn"] = _dense_init(gen, cfg, dtype, device)
     return p
 
 
@@ -84,19 +129,35 @@ def _stack_specs(specs):
             for k, v in specs.items()}
 
 
-def param_specs(cfg: ArchConfig, model_axis: str = "model"):
+def param_specs(cfg: ArchConfig, data_axis: str = "data",
+                model_axis: str = "model"):
     """The mesh axis of each dim of every leaf of ``init_params`` (None:
     replicated), as the reference's PartitionSpec tree: the vocabulary
     sharded over the model axis in the embedding and the LM head, the
-    layers' Q/O and MLP as in models/layers.py, norms and K/V
-    replicated."""
+    layers' Q/O, MLP, expert FFN hidden dims and SSM heads over the model
+    axis, and ep_a2a experts over ``data_axis`` (``ctx.ep_spec_axis()``);
+    norms, K/V and routers replicated."""
     _require_ported(cfg)
     sp: Dict[str, Any] = {"embed": (model_axis, None), "final_norm": (None,)}
     if not cfg.tie_embeddings:
         sp["lm_head"] = (None, model_axis)
-    sp["layers"] = _stack_specs({
-        "ln1": (None,), "attn": L.attention_specs(cfg, model_axis),
-        "ln2": (None,), "mlp": L.mlp_specs(model_axis)})
+    dense = {"ln1": (None,), "attn": L.attention_specs(cfg, model_axis),
+             "ln2": (None,), "mlp": L.mlp_specs(model_axis)}
+    fam = cfg.family
+    if fam == "dense":
+        sp["layers"] = _stack_specs(dense)
+    elif fam == "moe":
+        if cfg.moe.n_dense_prefix:
+            sp["prefix"] = _stack_specs(dense)
+        sp["layers"] = _stack_specs({
+            "ln1": (None,), "attn": L.attention_specs(cfg, model_axis),
+            "ln2": (None,),
+            "moe": M.moe_specs(cfg, data_axis, model_axis)})
+    else:                                          # ssm, hybrid
+        sp["layers"] = _stack_specs({"ln": (None,),
+                                     "ssm": S.ssm_specs(model_axis)})
+        if fam == "hybrid":
+            sp["shared_attn"] = dense
     return sp
 
 
@@ -161,54 +222,133 @@ def vocab_parallel_xent(logits_l: torch.Tensor, labels: torch.Tensor,
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _dense_block(lp, x: torch.Tensor, cfg: ArchConfig,
-                 ctx: ParallelCtx) -> torch.Tensor:
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _dense_block(lp, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
     h, _ = L.attention_block(lp["attn"], L.rms_norm(x, lp["ln1"],
                                                     cfg.norm_eps), cfg, ctx)
     x = x + h
-    return x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
-                           ctx)
+    x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                        ctx)
+    return x, _zero(x)
+
+
+def _moe_block(lp, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
+    h, _ = L.attention_block(lp["attn"], L.rms_norm(x, lp["ln1"],
+                                                    cfg.norm_eps), cfg, ctx)
+    x = x + h
+    y, aux = M.moe_block(lp["moe"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                         cfg, ctx)
+    return x + y, aux
+
+
+def _ssm_block(lp, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
+    h, _ = S.ssm_block(lp["ssm"], L.rms_norm(x, lp["ln"], cfg.norm_eps),
+                       cfg, ctx)
+    return x + h, _zero(x)
+
+
+def _apply(block, lp, x, cfg, ctx, remat):
+    """One block, checkpointed with ``remat`` (its recompute unrecorded):
+    (x, aux)."""
+    if not remat:
+        return block(lp, x, cfg, ctx)
+    return checkpoint(block, lp, x, cfg, ctx, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          ctx.unrecorded()))
+
+
+def _first_records(ctx: ParallelCtx, i: int):
+    """Block ``i`` of a scan: the first records its collectives, the
+    later ones repeat them (``lax.scan`` traces its body once)."""
+    return ctx.unrecorded() if i else contextlib.nullcontext()
+
+
+def _scan(stacked, x, block, cfg, ctx, remat, aux, lo=0, hi=None):
+    """Blocks [lo, hi) of a stacked subtree as one ``lax.scan``: the
+    first records; the aux losses summed into ``aux`` in order."""
+    hi = _depth(stacked) if hi is None else hi
+    for i in range(lo, hi):
+        with _first_records(ctx, i - lo):
+            x, a = _apply(block, _layer(stacked, i), x, cfg, ctx, remat)
+        aux = aux + a
+    return x, aux
+
+
+def _depth(stacked) -> int:
+    """The [L] size of a stacked subtree."""
+    v = next(iter(stacked.values()))
+    return _depth(v) if isinstance(v, dict) else v.shape[0]
+
+
+def _stacks(p):
+    """The attention stacks in layer order: the moe family's dense
+    ``prefix`` (when it has one), then ``layers``."""
+    return [p["prefix"], p["layers"]] if "prefix" in p else [p["layers"]]
+
+
+def _hybrid_forward(p, x, cfg: ArchConfig, ctx: ParallelCtx, remat, aux):
+    """Zamba2: groups of ``attn_every`` Mamba2 blocks, each followed by
+    the SHARED attention block (the same weights every time); the
+    remainder blocks run after the last group without it."""
+    k = cfg.hybrid.attn_every
+    g = cfg.n_layers // k
+    for gi in range(g):                          # the group scan
+        with _first_records(ctx, gi):
+            x, aux = _scan(p["layers"], x, _ssm_block, cfg, ctx, remat, aux,
+                           gi * k, (gi + 1) * k)
+            x, a = _apply(_dense_block, p["shared_attn"], x, cfg, ctx,
+                          remat)
+        aux = aux + a
+    if cfg.n_layers > g * k:                     # the remainder scan
+        x, aux = _scan(p["layers"], x, _ssm_block, cfg, ctx, remat, aux,
+                       g * k)
+    return x, aux
 
 
 def forward(p, tokens: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx, *,
             remat=True):
     """Train/prefill forward -> (hidden [B,S,D], aux loss scalar).
 
-    ``remat=True`` recomputes each layer's activations in the backward
-    pass (one checkpoint per layer); ``False`` keeps them.  Layer 0's
-    collectives are recorded, the later layers' and the recompute's not
-    (``lax.scan`` traces the body once)."""
+    ``remat=True`` recomputes each block's activations in the backward
+    pass (one checkpoint per block); ``False`` keeps them."""
     _require_ported(cfg)
     if remat not in (True, False):
         raise NotImplementedError(f"remat={remat!r}: only True (per-layer "
                                   f"checkpointing) and False are ported")
     x = embed_tokens(p, tokens, cfg, ctx)
-    for i in range(cfg.n_layers):                 # lax.scan in the reference
-        lp = _layer(p["layers"], i)
-        with ctx.unrecorded() if i else contextlib.nullcontext():
-            if remat:
-                x = checkpoint(_dense_block, lp, x, cfg, ctx,
-                               use_reentrant=False,
-                               context_fn=lambda: (contextlib.nullcontext(),
-                                                   ctx.unrecorded()))
-            else:
-                x = _dense_block(lp, x, cfg, ctx)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _zero(x)
+    fam = cfg.family
+    if fam == "dense":
+        x, aux = _scan(p["layers"], x, _dense_block, cfg, ctx, remat, aux)
+    elif fam == "moe":
+        if "prefix" in p:                        # its aux is dropped
+            x, _ = _scan(p["prefix"], x, _dense_block, cfg, ctx, remat, aux)
+        x, aux = _scan(p["layers"], x, _moe_block, cfg, ctx, remat, aux)
+    elif fam == "ssm":
+        x, aux = _scan(p["layers"], x, _ssm_block, cfg, ctx, remat, aux)
+    else:
+        x, aux = _hybrid_forward(p, x, cfg, ctx, remat, aux)
     return L.rms_norm(x, p["final_norm"], cfg.norm_eps), aux
 
 
 def lm_loss(p, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             ctx: ParallelCtx, *, remat=True) -> torch.Tensor:
-    """Mean next-token NLL over the local batch shard (the dense family
-    has no auxiliary loss)."""
-    x, _ = forward(p, batch["tokens"], cfg, ctx, remat=remat)
+    """Mean next-token NLL over the local batch shard, plus the MoE
+    router's aux loss times its weight."""
+    x, aux = forward(p, batch["tokens"], cfg, ctx, remat=remat)
     logits_l = lm_logits_local(p, x, cfg, ctx)
-    return vocab_parallel_xent(logits_l, batch["labels"], ctx,
+    loss = vocab_parallel_xent(logits_l, batch["labels"], ctx,
                                cfg.vocab).mean()
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss_weight * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
-# dense decode cache (wave engine)
+# decode caches (wave engine)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -226,15 +366,39 @@ class DecodeConfig:
 
 def init_cache(cfg: ArchConfig, ctx: ParallelCtx, dcfg: DecodeConfig,
                batch_local: int, dtype=None, device=None):
-    """Zero cache: ``{"k", "v"}`` of [L, B, S, kv_w, hd]."""
+    """Zero cache: ``{"k", "v"}`` of [L, B, S, kv_w, hd] (dense, moe);
+    ``{"ssm", "conv"}`` of [L, B, ...] (ssm); both SSM leaves plus
+    ``{"attn_k", "attn_v"}`` of [groups, B, S, kv_w, hd] (hybrid)."""
     _require_ported(cfg)
-    L._one_shard(ctx, "the dense decode cache")
+    L._one_shard(ctx, "the decode cache")
     dtype = dtype or cfg.dtype
-    kv_w = L.head_layout(cfg, ctx)[1]
-    shape = (cfg.n_layers, batch_local, dcfg.cache_len_local, kv_w,
-             cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def kv(n):
+        kv_w = L.head_layout(cfg, ctx)[1]
+        return torch.zeros((n, batch_local, dcfg.cache_len_local, kv_w,
+                            cfg.head_dim_), dtype=dtype, device=device)
+
+    if cfg.family in ("dense", "moe"):
+        return {"k": kv(cfg.n_layers), "v": kv(cfg.n_layers)}
+    c = _ssm_cache(cfg, ctx, batch_local, dtype, device)
+    if cfg.family == "hybrid":
+        g = cfg.n_layers // cfg.hybrid.attn_every
+        c["attn_k"], c["attn_v"] = kv(g), kv(g)
+    return c
+
+
+def _ssm_cache(cfg: ArchConfig, ctx: ParallelCtx, batch_local: int, dtype,
+               device):
+    ssm = cfg.ssm
+    h_l = S._dims(cfg, ctx)[3]
+    return {
+        "ssm": torch.zeros((cfg.n_layers, batch_local, h_l, ssm.d_state,
+                            ssm.head_dim), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros((cfg.n_layers, batch_local,
+                             ssm.conv_kernel - 1, h_l * ssm.head_dim),
+                            dtype=dtype, device=device),
+    }
 
 
 def decode_step(p, cache, token: torch.Tensor, pos, cfg: ArchConfig,
@@ -247,17 +411,55 @@ def decode_step(p, cache, token: torch.Tensor, pos, cfg: ArchConfig,
     steps = torch.arange(token.shape[1], device=x.device)
     positions = pos_arr[:, None] + steps if pos_arr.ndim else pos_arr + steps
 
-    for i in range(cfg.n_layers):                 # lax.scan in the reference
-        lp = _layer(p["layers"], i)
+    def attn(lp, x, ck, cv):
+        """Attention over one cache slice, written back in place."""
         h, (nk, nv) = L.attention_block(
             lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, ctx,
-            positions=positions, kv_cache=(cache["k"][i], cache["v"][i]),
-            cache_pos=pos_arr, window_override=dcfg.window_override)
-        cache["k"][i] = nk
-        cache["v"][i] = nv
-        x = x + h
-        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
-                            ctx)
+            positions=positions, kv_cache=(ck, cv), cache_pos=pos_arr,
+            window_override=dcfg.window_override)
+        ck.copy_(nk)
+        cv.copy_(nv)
+        return x + h
+
+    def ffn(lp, x):
+        xn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if "mlp" in lp:
+            return x + L.mlp_block(lp["mlp"], xn, ctx)
+        return x + M.moe_block(lp["moe"], xn, cfg, ctx)[0]
+
+    def mamba(i, x):
+        lp = _layer(p["layers"], i)
+        h, ns = S.ssm_block(lp["ssm"], L.rms_norm(x, lp["ln"], cfg.norm_eps),
+                            cfg, ctx, state={"ssm": cache["ssm"][i],
+                                             "conv": cache["conv"][i]})
+        cache["ssm"][i] = ns["ssm"]
+        cache["conv"][i] = ns["conv"]
+        return x + h
+
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        # the moe family's dense prefix takes cache layers [0, npre)
+        base = 0
+        for stacked in _stacks(p):
+            for i in range(_depth(stacked)):   # lax.scan in the reference
+                lp = _layer(stacked, i)
+                x = ffn(lp, attn(lp, x, cache["k"][base + i],
+                                 cache["v"][base + i]))
+            base += _depth(stacked)
+    elif fam == "ssm":
+        for i in range(cfg.n_layers):
+            x = mamba(i, x)
+    else:                                    # hybrid
+        k = cfg.hybrid.attn_every
+        g = cfg.n_layers // k
+        sp = p["shared_attn"]
+        for gi in range(g):
+            for i in range(gi * k, (gi + 1) * k):
+                x = mamba(i, x)
+            x = ffn(sp, attn(sp, x, cache["attn_k"][gi],
+                             cache["attn_v"][gi]))
+        for i in range(g * k, cfg.n_layers):
+            x = mamba(i, x)
 
     x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
     return lm_logits_local(p, x[:, -1:], cfg, ctx)[:, 0], cache
@@ -286,11 +488,20 @@ class PagedConfig:
     window_override: Any = "cfg"
 
 
+#: the families the paged engine serves (the reference's, less vlm until
+#: its slice lands)
+PAGED_FAMILIES = ("dense", "vlm", "moe")
+
+
 def init_paged_pool(cfg: ArchConfig, ctx: ParallelCtx, pcfg: PagedConfig,
                     dtype=None, device=None):
     """Zero paged KV pool: ``[L, n_blocks, block_size, kv_w, hd]`` per K
     and V.  Block contents are never zeroed again — reuse relies on
     kv_valid masking (serving/paged_kv.py)."""
+    if cfg.family not in PAGED_FAMILIES:
+        raise ValueError(
+            f"paged serving supports {PAGED_FAMILIES}, got {cfg.family} "
+            f"(ssm/hybrid/encdec stay on the wave engine)")
     _require_ported(cfg)
     L._one_shard(ctx, "the paged pool")
     dtype = dtype or cfg.dtype
@@ -314,8 +525,13 @@ def paged_decode_step(p, pool, tokens: torch.Tensor, positions: torch.Tensor,
         row's sequence-frontier row
 
     Returns (logits [R, V], pool); the pool is updated in place.  Padding
-    rows cost zero attention mass and zero pool writes.
+    rows cost zero attention mass and zero pool writes; the MoE routes
+    them all the same, so they take expert capacity, as the reference's
+    (the capacity counts the padded bucket).  The moe family's dense
+    prefix takes pool layers [0, npre).
     """
+    if cfg.family not in PAGED_FAMILIES:
+        raise ValueError(cfg.family)
     _require_ported(cfg)
     valid = row_req >= 0
     n_req = block_tables.shape[0]
@@ -323,16 +539,23 @@ def paged_decode_step(p, pool, tokens: torch.Tensor, positions: torch.Tensor,
     kv_valid = torch.where(valid, positions + 1, 0)
     x = embed_tokens(p, tokens[:, None], cfg, ctx)           # [T, 1, D]
 
-    for i in range(cfg.n_layers):                 # lax.scan in the reference
-        lp = _layer(p["layers"], i)
-        h, _ = L.paged_attention_block(
-            lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, ctx,
-            positions=positions, kv_valid=kv_valid,
-            pools=(pool["k"][i], pool["v"][i]), block_tables=btab,
-            window_override=pcfg.window_override, impl=pcfg.attn_impl)
-        x = x + h
-        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
-                            ctx)
+    base = 0
+    for stacked in _stacks(p):
+        for i in range(_depth(stacked)):     # lax.scan in the reference
+            lp = _layer(stacked, i)
+            h, _ = L.paged_attention_block(
+                lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, ctx,
+                positions=positions, kv_valid=kv_valid,
+                pools=(pool["k"][base + i], pool["v"][base + i]),
+                block_tables=btab, window_override=pcfg.window_override,
+                impl=pcfg.attn_impl)
+            x = x + h
+            xn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            if "mlp" in lp:
+                x = x + L.mlp_block(lp["mlp"], xn, ctx)
+            else:
+                x = x + M.moe_block(lp["moe"], xn, cfg, ctx)[0]
+        base += _depth(stacked)
 
     x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
     xs = x[torch.clamp(sample_rows, 0, x.shape[0] - 1).long()]  # [R, 1, D]

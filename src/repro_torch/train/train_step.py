@@ -31,8 +31,10 @@ the model axis's backward combines and the data axis's bucket reduces in
 the same order on every rank.  With a lossy wire codec
 (``ctx.ef_codec_name()``) the opt state is ``(AdamWState, residuals)``:
 the error-feedback residuals ride the optimizer state.  ep_a2a expert
-grads come with the MoE family (ROADMAP queue 1 item 9); the sync
-already reduces them through ``ctx.expert_grad_reduce``.
+leaves are sharded over the data axis, and the backward all_to_all has
+already summed their gradients over it: the sync takes them through
+``ctx.expert_grad_reduce`` (the identity on a (data, model) mesh), not
+the data all-reduce, monolithic and bucketed alike.
 """
 
 from __future__ import annotations

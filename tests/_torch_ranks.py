@@ -316,7 +316,8 @@ def _rank_rows(x: np.ndarray, mesh: Mesh) -> torch.Tensor:
 
 def tp_collectives(cases, comm, codec_cases):
     """tests/test_torch_tp_collectives.py on this rank: each model-axis
-    collective of a (data=2, model=4) ctx forward and backward (the loss
+    collective of a (data=2, model=4) ctx, and its data-axis
+    ``ep_all_to_all``, forward and backward (the loss
     sum(out * out * (rank + 1))), with the calls its communicator recorded
     before and after the backward and inside ``unrecorded``; then the
     staged-only codec plans' gradients on the (8,) mesh."""
@@ -330,16 +331,22 @@ def tp_collectives(cases, comm, codec_cases):
     w = float(mesh.rank + 1)
     out = {}
     for name, c in cases.items():
-        fn = getattr(ctx, c["op"])
+        if c["op"] == "ep_all_to_all":
+            comm = ctx.comms()[1]
+
+            def fn(x):
+                return ctx.ep_all_to_all(x, split_axis=0, concat_axis=0)
+        else:
+            comm, fn = tp_comm, getattr(ctx, c["op"])
         x = _rank_rows(c["x"], mesh).requires_grad_(True)
-        tp_comm.reset_issued()
+        comm.reset_issued()
         y = fn(x)
-        recorded = len(tp_comm.issued_calls())
+        recorded = len(comm.issued_calls())
         (y * y * w).sum().backward()
         with ctx.unrecorded():
             again = fn(x.detach())
         out[name] = {"y": as_bits(y.detach()), "grad": as_bits(x.grad),
-                     "recorded": (recorded, len(tp_comm.issued_calls())),
+                     "recorded": (recorded, len(comm.issued_calls())),
                      "unrecorded_equal": bool(torch.equal(again, y))}
     out["signature"] = tuple((a, plain_signature(s))
                              for a, s in ctx.plan_signature())
@@ -752,4 +759,137 @@ def ef_train(params_np, runs):
                                  pytree.tree_leaves(state[1])) if ef else None}
         if run.get("state"):
             out[name]["residuals"] = pytree.tree_map(as_bits, state[1])
+    return out
+
+
+def step_phase() -> str:
+    """Where an executed collective runs: the forward, the checkpoint
+    recompute (inside the backward, grad mode on) or the backward."""
+    if torch._C._current_graph_task_id() == -1:
+        return "forward"
+    return "recompute" if torch.is_grad_enabled() else "backward"
+
+
+@contextlib.contextmanager
+def executed_calls(calls: list):
+    """Within the block, every ``routing.execute`` call adds (axis,
+    collective, step phase) to ``calls``."""
+    execute = routing.execute
+
+    def counted(plan, x, mesh, **kw):
+        calls.append((plan.axis_name, plan.collective.value, step_phase()))
+        return execute(plan, x, mesh, **kw)
+
+    routing.execute = counted
+    try:
+        yield calls
+    finally:
+        routing.execute = execute
+
+
+def moe_ep(params_np, runs, steps, a2a_case, ckpt_dir, work_dir):
+    """tests/test_torch_moe.py on this rank of the (data=2, model=2)
+    mesh:
+
+    * ``ep_all_to_all`` of a (data=2, model=2) ctx on this rank's rows of
+      ``a2a_case["x"]``, forward and backward (the loss
+      sum(out * out * (rank + 1)));
+    * each run of ``runs``: ``steps`` train steps of reduced kimi-k2
+      (ep_a2a, 4 experts) through build_train_program, from the
+      reference's global init cut by ``rank_specs`` (experts over data,
+      their FFN hidden dim over model), the per-step losses, what the
+      communicators recorded after step 1 and the collectives executed a
+      step by phase;
+    * for the run marked ``ckpt``: its final local state, a checkpoint of
+      it (every rank saves, rank (0, 0) writes) and what this rank
+      restores from the file."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_reference
+    from repro_torch.core.communicator import CommConfig
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.launch.steps import (build_train_program, local_params,
+                                          rank_specs)
+    from repro_torch.models.tp import ParallelCtx
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+    out = {}
+    ctx = ParallelCtx(tp_axis="model", dp_axis="data", tp_size=2, dp_size=2,
+                      comm_config=CommConfig(**a2a_case["comm"]), mesh=mesh)
+    x = _rank_rows(a2a_case["x"], mesh).requires_grad_(True)
+    y = ctx.ep_all_to_all(x, split_axis=0, concat_axis=0)
+    (y * y * float(mesh.rank + 1)).sum().backward()
+    out["a2a"] = {"y": as_bits(y.detach()), "grad": as_bits(x.grad)}
+
+    cfg = get_config("kimi-k2-1t-a32b").reduced()
+    for name, run in runs.items():
+        program, ctx = build_train_program(
+            cfg, mesh, comm=CommConfig(**run["comm"]),
+            opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+            device="cpu", name=name)
+        specs = rank_specs(cfg, ctx)
+        params = local_params(params_from_reference(params_np), specs, ctx)
+        opt_state = init_state(params)
+        batches = make_batches(cfg, seq_len=32, batch_per_shard=4, seed=7)
+        losses, rec, calls = [], None, []
+        for i in range(steps):
+            with executed_calls(calls) if i == 0 else \
+                    contextlib.nullcontext():
+                params, opt_state, m = program.step(params, opt_state,
+                                                    next(batches))
+            losses.append(float(m["loss"]))
+            if i == 0 and run.get("record"):
+                rec = recording(ctx, name,
+                                f"{work_dir}/{name}-rank{mesh.rank}.json")
+        program.close()
+        out[name] = {"losses": losses, "recording": rec,
+                     "executed": dict(collections.Counter(calls))}
+        if run.get("ckpt"):
+            Checkpointer(ckpt_dir, ctx=ctx, specs=specs).save(
+                steps, params, opt_state)
+            torch.distributed.barrier()          # rank (0, 0) has written
+            got, got_opt, meta = Checkpointer(
+                ckpt_dir, ctx=ctx, specs=specs).restore(
+                    params, init_state(params))
+            state = {"params": params, "mu": opt_state.mu,
+                     "nu": opt_state.nu}
+            back = {"params": got, "mu": got_opt.mu, "nu": got_opt.nu}
+            out["ckpt"] = {
+                "step": meta["step"],
+                "state": {k: flat_leaves(v) for k, v in state.items()},
+                "restored": {k: flat_leaves(v) for k, v in back.items()}}
+    return out
+
+
+def dp_train(arch, params_np, runs, steps):
+    """tests/test_torch_ssm.py on this rank of the (data=2, model=1)
+    mesh: each run of ``runs``, ``steps`` train steps of ``arch``
+    reduced from the reference's initial params through
+    build_train_program; the per-step losses and the data axis's plan
+    signature after the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_reference
+    from repro_torch.core.communicator import CommConfig
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.launch.steps import build_train_program
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    mesh = Mesh((2, 1), ("data", "model"), device="cpu")
+    cfg = get_config(arch).reduced()
+    out = {}
+    for name, run in runs.items():
+        params = params_from_reference(params_np)
+        opt_state = init_state(params)
+        program, ctx = build_train_program(
+            cfg, mesh, comm=CommConfig(**run["comm"]),
+            opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+            device="cpu", name=name)
+        batches = make_batches(cfg, seq_len=32, batch_per_shard=4, seed=7)
+        losses = []
+        for _ in range(steps):
+            params, opt_state, m = program.step(params, opt_state,
+                                                next(batches))
+            losses.append(float(m["loss"]))
+        program.close()
+        out[name] = {"losses": losses, "signature": tuple(
+            (a, plain_signature(s)) for a, s in ctx.plan_signature())}
     return out

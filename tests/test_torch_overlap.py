@@ -205,10 +205,10 @@ def test_error_feedback_checkpoint_restores_in_both_packages(
     from repro.checkpoint.checkpointer import Checkpointer as JCkpt
     from repro.optim.adamw import init_state as j_init_state
     from repro_torch.configs import get_config
-    from repro_torch.convert import shard_params, sharded_dim
+    from repro_torch.convert import shard_params, spec_dim
     from repro_torch.models.transformer import param_specs
     specs = _torch_ranks.flat_leaves(jax.tree.map(
-        lambda s: np.float32(sharded_dim(s) >= 0),
+        lambda s: np.float32(spec_dim(s, "model") >= 0),
         param_specs(get_config("glm4-9b").reduced()),
         is_leaf=lambda s: isinstance(s, tuple)))
 

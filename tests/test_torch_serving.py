@@ -93,8 +93,8 @@ def test_step_program_counters_match_reference():
 
 
 def test_unported_paths_raise():
-    """Serving across devices (a model axis, item 11) and the families of
-    item 9 raise."""
+    """Serving across devices (a model axis, item 11) and the families
+    still open in item 9 (vlm, encdec) raise."""
     tp2 = types.SimpleNamespace(tp_size=2)
     cfg = t_get_config("glm4-9b").reduced()
     with pytest.raises(NotImplementedError, match="item 11"):
@@ -102,8 +102,9 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
         TT.init_paged_pool(cfg, tp2, TT.PagedConfig())
     gen = torch.Generator().manual_seed(0)
-    for arch in ("mixtral-8x7b", "mamba2-1.3b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for arch in ("internvl2-76b", "whisper-medium"):
+        with pytest.raises(NotImplementedError,
+                           match=r"item 9 \(vlm, encdec\)"):
             TT.init_params(t_get_config(arch).reduced(), gen, "cpu")
 
 
@@ -337,6 +338,21 @@ def test_launcher_paged_kernel_smoke_on_cpu(capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "served 8 requests" in out and "[OK] --assert-warm" in out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_launcher_paged_refuses_ssm_and_hybrid(arch):
+    """``--paged on`` refuses the ssm and hybrid families with the
+    reference's ValueError (they stay on the wave engine), as the
+    reference's launcher does; ``--paged off`` serves them."""
+    from repro.launch import serve as j_serve
+    argv = ["--arch", arch, "--smoke", "--paged", "on", "--requests", "2"]
+    with pytest.raises(ValueError, match="stay on the wave engine"):
+        j_serve.main(argv)
+    with pytest.raises(ValueError, match="stay on the wave engine"):
+        t_serve.main(argv + ["--device", "cpu"])
+    assert t_serve.main(["--arch", arch, "--smoke", "--requests", "2",
+                         "--max-new", "3", "--device", "cpu"]) == 0
 
 
 def test_launcher_without_card_exits_nonzero(monkeypatch, capsys):

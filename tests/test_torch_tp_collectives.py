@@ -1,7 +1,9 @@
 """The port's differentiable model-axis collectives against the reference.
 
 On a (data=2, model=4) mesh, ``tp_all_reduce``, ``tp_all_gather``
-(tiled), ``tp_reduce_scatter`` and ``tp_psum_small`` of a ParallelCtx run
+(tiled), ``tp_reduce_scatter`` and ``tp_psum_small`` of a ParallelCtx,
+and ``ep_all_to_all`` (the MoE dispatch over the data axis, split and
+concat on axis 0), run
 forward and backward on 8 gloo ranks (rank side in ``_torch_ranks.py``,
 spawned once) and, on the same small-integer float32 payloads, inside the
 reference's ``shard_map(check_vma=False)`` on 8 CPU devices.  The loss
@@ -9,9 +11,13 @@ is ``sum(out * out * w)`` with a weight ``w = rank + 1`` that differs
 across ranks, so a wrong transpose shows.  The communicators warm-start
 from a TuningProfile that pins the model axis's slots to primary, staged
 and ortho routes, so the multi-route plans (asserted) run forward and
-transposed.  Forward results and gradients are exact (sums of small
+transposed; the data axis's all_to_all slot is pinned likewise, so its
+primary collective and the staged ring run forward and in the backward
+(an all_to_all is its own transpose).  Forward results and gradients are
+exact (sums of small
 integers), so they must be equal bit for bit; the model axis's plan
-signature equals the reference's.  Backward calls and calls inside
+and data axes' plan signatures equal the reference's.  Backward calls
+and calls inside
 ``ctx.unrecorded()`` record nothing.
 
 Also the reference's codec VJP test (tests/test_codecs.py:213-225): the
@@ -33,6 +39,7 @@ ROWS = 8              # rows of each rank's [ROWS, COLS] payload
 COLS = 12
 CASES = {f"tp_{op}": op for op in OPS}
 CASES["tp_psum_small"] = "psum_small"
+CASES["ep_all_to_all"] = "ep_all_to_all"
 
 
 def _payload(seed, rows, cols):
@@ -44,6 +51,8 @@ def _payload(seed, rows, cols):
 def comm(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("tp") / "pinned.json")
     _torch_ranks.pinned_profile(path, PROFILE, 4, SHARES, ops=OPS)
+    _torch_ranks.pinned_profile(path, PROFILE, 2, SHARES,
+                                ops=("all_to_all",))
     return {"profile": PROFILE, "tuning_cache": path}
 
 
@@ -86,7 +95,10 @@ def reference(port, comm):
     out = {}
     for name, c in cases.items():
         def shard(xs, op=c["op"]):
-            y = getattr(ctx, op)(xs)
+            if op == "ep_all_to_all":
+                y = ctx.ep_all_to_all(xs, split_axis=0, concat_axis=0)
+            else:
+                y = getattr(ctx, op)(xs)
             w = (lax.axis_index("data") * 4 + lax.axis_index("model")
                  + 1).astype(jnp.float32)
             return y, jnp.sum(y * y * w)[None]
@@ -150,6 +162,19 @@ def test_plans_are_multi_route_and_match_reference(port, reference):
         assert set(units) == {"primary", "staged", "ortho"}, units
     assert all(r["signature"] == res[0]["signature"] for r in res)
     assert dict(res[0]["signature"])["model"] == dict(sig)["model"]
+
+
+def test_all_to_all_plan_is_two_route_and_matches_reference(port,
+                                                            reference):
+    """The data axis's all_to_all slot runs the primary collective and the
+    staged ring (its ortho share folds into staged), and both packages
+    sign it alike."""
+    _, res = port
+    data = dict(res[0]["signature"])["data"]
+    assert [op for op, _, _ in data] == ["all_to_all"]
+    units = dict(dict(data[0][2])["chunk_units"])
+    assert set(units) == {"primary", "staged"}, units
+    assert data == dict(reference["signature"])["data"]
 
 
 @pytest.mark.parametrize("name", [n for n in CASES if n != "tp_psum_small"])
