@@ -23,8 +23,9 @@ non-zero:
    dynamic shared memory;
 2. K6, the paged flash-decode kernel, against its plain PyTorch version at
    glm4-9b shapes (Hq 32, Hkv 2, hd 128, block 16), at GQA groups 1,
-   2, 4, 8, 12 and 16 with hd 64 and 128, and at kimi-k2's full width
-   (Hq 64, Hkv 8, hd 112) (T in {1, 8, 32}, max blocks in
+   2, 4, 8, 12 and 16 with hd 64 and 128, at kimi-k2's full width
+   (Hq 64, Hkv 8, hd 112) and at internvl2's (Hq 64, Hkv 8, hd 128)
+   (T in {1, 8, 32}, max blocks in
    {6, 64, 256}; float32 and bfloat16; padding rows and a sliding window)
    at atol 3e-5 (f32) / 2e-2 (bf16), padding rows exact zeros; the
    n_split each call took is printed;
@@ -191,15 +192,36 @@ non-zero:
    seed 0, 4 requests through the wave engine: every request served,
    tokens in the vocabulary, a forward's logits finite, tok/s; then
    mamba2-1.3b on (data=2), 3 steps with ``nccl`` and ``flexlink``:
-   losses falling and bit for bit equal, K1 launched, peak memory.
+   losses falling and bit for bit equal, K1 launched, peak memory;
+18. the vlm and encdec families: (a) reduced float32 internvl2-76b
+   (paged engine through K6 == dense gather == wave engine, K6 launched
+   layers x packed steps, one packed step's logits within 1e-4) and
+   whisper-medium (the wave engine's greedy streams on the card equal
+   its streams on the CPU, the cross-attention cache zero on both, as the
+   reference's served Whisper); (b) InternVL2-76B's backbone at its
+   published widths (depth cut 80 -> 8, bf16, seed 0) through the paged
+   engine with K6, phase 4's 8 mixed requests: every request served, K6
+   launched 8 x packed steps, tok/s and the median step, one packed
+   step's logits kernel vs dense gather within phase 4's bound; (c) the
+   prefill program on that model, batch 2 of 256 stub patch rows and 32
+   tokens, on one rank and on (model=2) (2 gloo ranks on the card, the
+   model axis pinned to 50/25/25): last-row logits of the two within a
+   bound, K1 launches equal to what the executed plans imply, peak
+   memory; (d) whisper-medium at its published widths and depth through
+   the serving launcher on the wave engine, 4 requests: every request
+   served, tokens in the vocabulary, tok/s; (e) whisper-medium whole and
+   reduced internvl2-76b on (data=2), 3 steps each with ``nccl`` and
+   ``flexlink`` (the frontend stubs in the batch): losses falling and bit
+   for bit equal, K1 launched, peak memory, wall time.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  The launches in that line are the
 ranks' own counts from each kernel's path, summed: K1 from phase 7, K2-K4
 from the fp8 training run of phase 11 (the bucketed runs' beside them),
 K5 and the mixed K1 from phase 10 (c), K7 from phase 13 (0: no path
-calls it); K6's row adds phase 15's launches (b, c) and K1's the
-flexlink runs of phases 16 (a) and 17 (a); each rank process sets
+calls it); K6's row adds phase 15's launches (b, c) and phase 18 (b)'s,
+and K1's the flexlink runs of phases 16 (a), 17 (a) and 18 (e) and the
+(model=2) prefill of phase 18 (c); each rank process sets
 its counts to 0 just before that path and reports them just after it.
 A K1 or K5 segment-table launch counts once, whatever its segments.
 Without a CUDA card, or without the rest of the checkout beside this
@@ -435,9 +457,11 @@ def phase1_card_and_build(baseline=None):
 
 # (Hq, Hkv, hd) of phase 2: glm4-9b first, then GQA groups 1 (whisper,
 # zamba2), 2, 4 (mixtral), 8 (deepseek, qwen2), 12 (starcoder2) and 16 at
-# hd 64, and kimi-k2's full width (64 heads over 8, hd 112)
+# hd 64, kimi-k2's full width (64 heads over 8, hd 112) and internvl2's
+# (64 heads over 8, hd 128)
 K6_SHAPES = [(HQ, HKV, HD), (16, 16, 64), (8, 4, 128), (32, 8, 128),
-             (16, 2, 128), (24, 2, 128), (32, 2, 64), (64, 8, 112)]
+             (16, 2, 128), (24, 2, 128), (32, 2, 64), (64, 8, 112),
+             (64, 8, 128)]
 
 
 def phase2_kernel_vs_plain(gen):
@@ -3018,12 +3042,14 @@ def phase15_moe_serving(card):
     return launches
 
 
-def dp_family_rank(arch, layers, lr):
-    """One rank of phases 16 (a) and 17 (a): ``arch`` at its published
-    widths (``layers`` deep, or its full depth with None) on the (data=2)
-    mesh, 3 steps at AdamW ``lr`` with the ``nccl`` backend and
-    ``flexlink``, each from the seed-0 init; the kernel counts set to 0
-    just before each run and read just after it."""
+def dp_family_rank(arch, layers, lr, reduced=False, tuning_cache=""):
+    """One rank of phases 16 (a), 17 (a) and 18 (e): ``arch`` at its
+    published widths (``layers`` deep, or its full depth with None), or
+    its ``reduced()`` config in bf16 (``reduced``), on the (data=2) mesh,
+    3 steps at AdamW ``lr`` with the ``nccl`` backend and ``flexlink``
+    (its slots warm-started from ``tuning_cache`` when one is named), each
+    from the seed-0 init; the kernel counts set to 0 just before each run
+    and read just after it."""
     sys.path.insert(0, str(SRC))
     import dataclasses
     from repro_torch.configs import get_config
@@ -3035,11 +3061,14 @@ def dp_family_rank(arch, layers, lr):
     from repro_torch.optim.adamw import AdamWConfig, init_state
     from repro_torch.train.loop import LoopConfig, run_loop
     cfg = get_config(arch)
+    if reduced:
+        cfg = dataclasses.replace(cfg.reduced(), param_dtype="bfloat16")
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     mesh = Mesh((2, 1), ("data", "model"))
     out = {}
-    for name, comm in (("nccl", {"backend": "nccl"}), ("flexlink", {})):
+    flex = {"tuning_cache": tuning_cache} if tuning_cache else {}
+    for name, comm in (("nccl", {"backend": "nccl"}), ("flexlink", flex)):
         torch.cuda.reset_peak_memory_stats()
         params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
             0), "cuda")
@@ -3302,6 +3331,397 @@ def phase17_ssm_hybrid(card):
                       card)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the vlm and encdec families
+# ---------------------------------------------------------------------------
+
+#: (arch, depth kept) of phase 18 (b, c): InternVL2-76B's backbone at its
+#: widths, 80 -> 8 layers (8.95B params, 17.9 GB in bf16)
+VLM_DEPTH = 8
+#: phase 18 (c): the prefill program's batch (rows, text tokens; the
+#: config's 256 stub patch rows go before the tokens)
+PREFILL_BATCH, PREFILL_TOKENS = 2, 32
+#: phase 18 (c): last-row logits of the (model=2) prefill against the one
+#: rank's, relative L2 over the vocabulary.  Both are bf16 passes of one
+#: model; the two-rank run sums each row-parallel combine's two bf16
+#: halves (through K1 on the staged route) where the one rank takes one
+#: matmul, so the gap is bf16 rounding, as phase 4's 0.0513 at 40 layers
+#: is (the bound was set before this phase first ran: PERF.md)
+PREFILL_TP_VS_ONE = 0.06
+#: phase 18 (e): AdamW lr of Whisper-medium's DP training (1024 wide, as
+#: phase 17's Mamba2 at 2048 takes 1e-3)
+WHISPER_TRAIN_LR = 1e-3
+
+
+def _serve_zero_cross(eng, work, what):
+    """Drain ``work`` through a wave engine of encdec and check its
+    cross-attention cache stayed zero (the reference never writes it)."""
+    fin, wall, _ = _drain(eng, work)
+    check(not bool(eng.cache["xk"].any()) and not bool(
+        eng.cache["xv"].any()), f"{what}: the cross-attention cache was "
+          f"written")
+    eng.close()
+    return fin, wall
+
+
+def _phase18a_reduced():
+    """Reduced float32 internvl2 (paged kernel == paged dense gather ==
+    wave, K6 launched layers x packed steps, packed-step logits within
+    MOE_REDUCED_ATOL) and whisper (wave engine on the card == on the CPU,
+    the cross-attention cache zero on both)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, single_device_ctx
+    from repro_torch.serving.engine import (PagedServeConfig,
+                                            PagedServeEngine, ServeConfig,
+                                            ServeEngine)
+    from torch.utils import _pytree as pytree
+    rng = np.random.default_rng(3)
+    cfg = get_config("internvl2-76b").reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    work = [(rng.integers(1, cfg.vocab, size=s).tolist(), 6)
+            for s in (5, 3, 9, 2, 7, 12)]
+    streams = {}
+    for impl in ("kernel", "reference"):
+        eng = PagedServeEngine(params, cfg, single_device_ctx(),
+                               PagedServeConfig(max_requests=4, cache_len=96,
+                                                kv_block=16,
+                                                max_tokens_in_flight=16,
+                                                min_bucket=4, attn_impl=impl))
+        streams[impl], _, n = _drain(eng, work)
+        steps = eng.serving_report()["steps"]
+        eng.close()
+        want = cfg.n_layers * steps if impl == "kernel" else 0
+        check(n == want, f"reduced internvl2 {impl}: {n} K6 launches, "
+              f"expected {want}")
+    streams["wave"], _, _ = _drain(ServeEngine(
+        params, cfg, single_device_ctx(), ServeConfig(slots=4,
+                                                      cache_len=96)), work)
+    check(streams["kernel"] == streams["reference"] == streams["wave"],
+          f"reduced internvl2: greedy streams differ: {streams}")
+    check(all(len(v) == 6 for v in streams["wave"].values()),
+          "reduced internvl2: streams of the wrong length")
+    err = (_packed_logits(cfg, params, "kernel")
+           - _packed_logits(cfg, params, "reference")).abs().max().item()
+    check(err < MOE_REDUCED_ATOL, f"reduced internvl2: packed-step logits "
+          f"kernel vs dense gather {err} >= {MOE_REDUCED_ATOL}")
+    print(f"phase 18 (a): reduced internvl2-76b f32 (TF32 off): paged "
+          f"kernel == paged dense gather == wave on {len(work)} greedy "
+          f"streams; packed-step logits max abs diff {err:.3g} (< "
+          f"{MOE_REDUCED_ATOL})")
+    cfg = get_config("whisper-medium").reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    host = pytree.tree_map(lambda t: t.cpu(), params)
+    fin = {}
+    for where, p in (("card", params), ("host", host)):
+        fin[where], _ = _serve_zero_cross(ServeEngine(
+            p, cfg, single_device_ctx(), ServeConfig(slots=4, cache_len=96)),
+            work, f"reduced whisper on the {where}")
+    check(fin["card"] == fin["host"], f"reduced whisper: streams on the card "
+          f"{fin['card']} differ from the CPU's {fin['host']}")
+    check(all(len(v) == 6 for v in fin["card"].values()),
+          "reduced whisper: streams of the wrong length")
+    print(f"phase 18 (a): reduced whisper-medium f32 (TF32 off): wave engine "
+          f"on the card == on the CPU on {len(work)} greedy streams; the "
+          f"cross-attention cache stays zero on both (the reference's "
+          f"served Whisper, pinned)")
+
+
+def _pin_prefill(path: str, d_model: int):
+    """Pin the model axis's all-reduce slots of the prefill's two combine
+    sizes (the token embedding's, and the blocks' over the stub rows and
+    the tokens, bf16) to TP_SHARES; returns the buckets."""
+    from repro_torch.control.profile import TuningProfile
+    from repro_torch.core.communicator import bucket_for
+    from repro_torch.core.topology import Collective
+    from repro_torch.core.tuner import SHARE_GRID
+    prof = TuningProfile(path)
+    buckets = sorted({bucket_for(PREFILL_BATCH * rows * d_model * 2)
+                      for rows in (PREFILL_TOKENS, PREFILL_TOKENS + 256)})
+    for bucket in buckets:
+        prof.record("h100", "ring", Collective.ALL_REDUCE, 2, bucket,
+                    SHARE_GRID, TP_SHARES)
+    prof.save(path)
+    return buckets
+
+
+def _pin_data_axis_reduced(path: str):
+    """Pin the data axis's all-reduce slots (2 ranks) of every gradient
+    leaf size of reduced internvl2-76b in bf16 to TP_SHARES: the h100
+    tuner gives such small payloads the primary route only, and the
+    staged ring (K1) runs on sub-32-bit payloads alone.  Returns the
+    buckets."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.control.profile import TuningProfile
+    from repro_torch.core.communicator import bucket_for
+    from repro_torch.core.topology import Collective
+    from repro_torch.core.tuner import SHARE_GRID
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config("internvl2-76b").reduced(),
+                              param_dtype="bfloat16")
+    leaves = pytree.tree_leaves(init_params(cfg, torch.Generator(), "cpu"))
+    buckets = sorted({bucket_for(t.numel() * t.element_size())
+                      for t in leaves})
+    prof = TuningProfile(path)
+    for bucket in buckets:
+        prof.record("h100", "ring", Collective.ALL_REDUCE, 2, bucket,
+                    SHARE_GRID, TP_SHARES)
+    prof.save(path)
+    return buckets
+
+
+def prefill_rank(pinned: str, batch):
+    """One rank of phase 18 (c): InternVL2-76B at its widths (depth cut to
+    VLM_DEPTH, bf16, seed 0) on the (model=2) mesh, this rank's model-axis
+    shards of the global init, through build_prefill_program with the
+    model axis pinned by ``pinned``: a warm-up call, then the timed one,
+    the kernel counts set to 0 just before it and read just after it,
+    every plan it executed recorded."""
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import routing
+    from repro_torch.core.communicator import CommConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import (build_prefill_program,
+                                          local_params, rank_specs)
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config("internvl2-76b"), n_layers=VLM_DEPTH)
+    mesh = Mesh((1, 2), ("data", "model"))
+    program, ctx = build_prefill_program(
+        cfg, mesh, comm=CommConfig(profile="h100", tuning_cache=pinned),
+        name="prefill")
+    params = local_params(init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"),
+        rank_specs(cfg, ctx), ctx)
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls = []
+    execute = routing.execute
+
+    def recorded(plan, x, m, **kw):
+        calls.append((plan, m.axis_size(plan.axis_name), x.dtype))
+        return execute(plan, x, m, **kw)
+
+    routing.execute = recorded
+    try:
+        program(params, batch)              # warm-up: first-call costs
+        torch.cuda.synchronize()
+        calls.clear()
+        torch.cuda.reset_peak_memory_stats()
+        _kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        logits = program(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _kernel_counts()
+    finally:
+        routing.execute = execute
+    program.close()
+    want = collections.Counter()
+    for plan, n, dtype in calls:
+        want += codec_launches(plan, n, dtype)
+    return {"logits": logits.float().cpu().numpy(), "k1": launches["k1"],
+            "k1_want": want["k1"], "wall_s": wall,
+            "combines": len(calls),
+            "plans": sorted({plan.chunk_units for plan, _, _ in calls}),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _phase18bc_internvl2(card):
+    """(b) InternVL2-76B at its widths, depth cut to VLM_DEPTH, through
+    the paged engine with K6; (c) the prefill program on the same model,
+    on one rank and on (model=2).  Returns (K6 launches of (b), K1
+    launches of (c))."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import build_workload
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import init_params, single_device_ctx
+    from repro_torch.serving.engine import PagedServeConfig, PagedServeEngine
+    full = get_config("internvl2-76b")
+    cfg = dataclasses.replace(full, n_layers=VLM_DEPTH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    init_s = time.perf_counter() - t0
+    eng = PagedServeEngine(params, cfg, single_device_ctx(), PagedServeConfig(
+        max_requests=8, cache_len=96, kv_block=16, max_tokens_in_flight=32,
+        attn_impl="kernel"))
+    work = build_workload(np.random.default_rng(0), 8, cfg.vocab, 12, True)
+    fin, wall, k6 = _drain(eng, work)
+    rep = eng.serving_report()
+    eng.close()
+    steps = rep["steps"]
+    tokens = sum(len(v) for v in fin.values())
+    check(len(fin) == 8 and all(len(fin[r]) == m
+                                for r, (_, m) in enumerate(work)),
+          f"internvl2: served {len(fin)} of 8 requests")
+    check(all(0 <= t < cfg.vocab for v in fin.values() for t in v),
+          "internvl2: a token outside the vocabulary")
+    check(k6 == VLM_DEPTH * steps, f"internvl2: K6 launched {k6} times, "
+          f"expected {VLM_DEPTH} x {steps}")
+    kern = _packed_logits(cfg, params, "kernel")
+    dense = _packed_logits(cfg, params, "reference")
+    check(kern.shape == (2, cfg.vocab_padded) and bool(
+        torch.isfinite(kern).all()) and bool(torch.isfinite(dense).all()),
+        f"internvl2: packed-step logits not finite or of shape "
+        f"{tuple(kern.shape)}")
+    gap = ((kern - dense).norm() / dense.norm()).item()
+    check(gap < LOGITS_KERNEL_VS_DENSE, f"internvl2: packed-step logits "
+          f"kernel vs dense bf16 rel L2 {gap} >= {LOGITS_KERNEL_VS_DENSE}")
+    print(f"phase 18 (b): internvl2-76b backbone at its published widths "
+          f"(d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; depth cut "
+          f"{full.n_layers} -> {VLM_DEPTH}), {cfg.param_dtype}, seed 0, "
+          f"{n_params / 1e9:.3f}B params ({init_s:.1f} s to init), paged "
+          f"engine with K6: {len(fin)} requests, {tokens} tokens, {steps} "
+          f"packed steps, K6 launches {k6} = {VLM_DEPTH} x {steps}; "
+          f"{tokens / wall:.1f} tok/s over {wall:.2f} s, median step "
+          f"{rep['step_ms']['median']:.2f} ms; packed-step logits kernel vs "
+          f"dense bf16 rel L2 {gap:.4g} (bound {LOGITS_KERNEL_VS_DENSE}); "
+          f"{card}")
+    rng = np.random.default_rng(18)
+    batch = {"tokens": rng.integers(1, cfg.vocab, (
+        PREFILL_BATCH, PREFILL_TOKENS)).astype(np.int32),
+        "vis_embed": (rng.standard_normal((
+            PREFILL_BATCH, cfg.vlm.n_vis_tokens, cfg.d_model)) * 0.02
+        ).astype(np.float32)}
+    step, _ = build_prefill_step(cfg, device="cuda")
+    step(params, batch)                     # warm-up: first-call costs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one = step(params, batch).float()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    one = one.cpu()
+    del params, eng, kern, dense, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        pinned = f"{tmp}/pinned.json"
+        buckets = _pin_prefill(pinned, cfg.d_model)
+        t0 = time.perf_counter()
+        res = run_ranks(prefill_rank, 2, backend="gloo", device="cuda",
+                        timeout_s=600, args=(pinned, batch))
+        ranks_s = time.perf_counter() - t0
+    two = torch.from_numpy(np.concatenate([r["logits"] for r in res], 1))
+    check(one.shape == two.shape == (PREFILL_BATCH, cfg.vocab_padded),
+          f"prefill logits of shape {tuple(one.shape)} / {tuple(two.shape)}")
+    check(bool(torch.isfinite(one).all() and torch.isfinite(two).all()),
+          "prefill logits not finite")
+    rel = ((two - one).norm() / one.norm()).item()
+    check(rel < PREFILL_TP_VS_ONE, f"prefill (model=2) vs one rank: rel L2 "
+          f"{rel} >= {PREFILL_TP_VS_ONE}")
+    k1 = sum(r["k1"] for r in res)
+    for r, got in enumerate(res):
+        check(got["k1"] == got["k1_want"] > 0, f"prefill rank {r}: K1 "
+              f"launched {got['k1']}, the executed plans imply "
+              f"{got['k1_want']}")
+        check(got["combines"] == 1 + 2 * VLM_DEPTH, f"prefill rank {r}: "
+              f"{got['combines']} model-axis combines, expected "
+              f"{1 + 2 * VLM_DEPTH}")
+    print(f"phase 18 (c): the prefill program on the same depth-"
+          f"{VLM_DEPTH} model, batch {PREFILL_BATCH} x ({cfg.vlm.n_vis_tokens}"
+          f" stub patch rows + {PREFILL_TOKENS} tokens), each timed on its "
+          f"second call: one rank "
+          f"{one_s * 1e3:.1f} ms, peak {one_peak:.2f} GiB; (model=2), 2 gloo "
+          f"ranks on the card, model axis pinned to {TP_SHARES} at buckets "
+          f"{buckets}, plans {res[0]['plans']}: {res[0]['combines']} "
+          f"combines a rank, K1 launches {k1} over 2 ranks (= the plans'), "
+          f"slower rank {max(r['wall_s'] for r in res) * 1e3:.1f} ms "
+          f"({WALL_NOTE}), peak {max(r['peak_gib'] for r in res):.2f} GiB a "
+          f"rank; ranks ran {ranks_s:.1f} s; last-row logits (model=2) vs "
+          f"one rank rel L2 {rel:.4g} (bound {PREFILL_TP_VS_ONE}); {card}")
+    return k6, k1
+
+
+def _phase18d_whisper_serve(card, out_dir: pathlib.Path):
+    """(d) Whisper-medium at its published widths and depth through the
+    serving launcher on the wave engine: 4 requests of 10 tokens, every
+    one served, the printed streams in the vocabulary, tok/s."""
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    cfg = get_config("whisper-medium")
+    record = out_dir / "serve_whisper.json"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--arch", "whisper-medium", "--requests", "4",
+                         "--max-new", "10", "--device", "cuda", "--out",
+                         str(record)])
+    check(rc == 0, f"whisper serve launcher returned {rc}")
+    rec = json.loads(record.read_text())
+    streams = [json.loads(ln.split(":", 1)[1]) for ln in
+               buf.getvalue().splitlines() if ln.startswith("  req ")]
+    check(rec["requests"] == 4 and rec["engine"] == "wave"
+          and rec["tokens"] == 40, f"whisper: served {rec['requests']} "
+          f"requests, {rec['tokens']} tokens on the {rec['engine']} engine")
+    check(len(streams) == 4 and all(
+        len(v) == 10 and all(0 <= t < cfg.vocab for t in v)
+        for v in streams), f"whisper: streams {streams}")
+    print(f"phase 18 (d): whisper-medium at its published widths and depth "
+          f"(d_model {cfg.d_model}, {cfg.encdec.n_enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, {cfg.n_heads} heads of "
+          f"{cfg.head_dim_}, {cfg.encdec.n_frames} frames, vocab "
+          f"{cfg.vocab}), {cfg.param_dtype}, seed 0, through the serving "
+          f"launcher on the wave engine: {rec['requests']} requests, "
+          f"{rec['tokens']} tokens in {rec['serving']['ticks']} ticks, "
+          f"{rec['tokens'] / rec['wall_s']:.1f} tok/s over {rec['wall_s']} "
+          f"s; tokens in the vocabulary; {card}")
+
+
+def phase18_vlm_encdec(card, out_dir: pathlib.Path):
+    """(a) reduced float32 internvl2 and whisper; (b, c) InternVL2-76B at
+    its widths (depth cut) served through K6 and through the prefill
+    program on one rank and on (model=2); (d) Whisper-medium served whole
+    through the serving launcher; (e) Whisper-medium whole and reduced
+    internvl2 trained on (data=2).  Returns (K6 launches of (b), K1
+    launches of (c) and of (e)'s two flexlink runs)."""
+    from repro_torch.launch.mesh import run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    _phase18a_reduced()
+    k6, k1_prefill = _phase18bc_internvl2(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase18d_whisper_serve(card, out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1 = {"prefill": k1_prefill}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        pinned = f"{tmp}/pinned.json"
+        buckets = _pin_data_axis_reduced(pinned)
+        for arch, reduced, lr, what, cache in (
+                ("whisper-medium", False, WHISPER_TRAIN_LR,
+                 "whisper-medium at its published widths and depth, bf16, "
+                 "seed 0, mesh (data=2), stub frames in the batch", ""),
+                ("internvl2-76b", True, 1e-3,
+                 f"reduced internvl2-76b in bf16, seed 0, mesh (data=2), "
+                 f"stub patch rows in the batch, the data axis's "
+                 f"all-reduce slots at buckets {buckets} pinned to "
+                 f"{TP_SHARES}", pinned)):
+            t0 = time.perf_counter()
+            res = run_ranks(dp_family_rank, 2, backend="gloo", device="cuda",
+                            timeout_s=900, args=(arch, None, lr, reduced,
+                                                 cache))
+            print(f"phase 18 (e): {arch} ranks ran "
+                  f"{time.perf_counter() - t0:.1f} s")
+            k1[arch] = _dp_checks("18 (e)", what, res, lr, card)
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return k6, k1
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -3354,6 +3774,8 @@ def main(argv=None) -> int:
     moe_k6 = phase15_moe_serving(card)
     moe_k1 = phase16_moe_training(card)
     ssm_k1 = phase17_ssm_hybrid(card)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        vlm_k6, vlm_k1 = phase18_vlm_encdec(card, pathlib.Path(tmp))
     kernels = [{
         "name": "paged_flash_decode",
         "route": "cuda",
@@ -3381,6 +3803,8 @@ def main(argv=None) -> int:
             f"{arch} depth {depth}": moe_k6[arch]
             for arch, depth, _ in MOE_SERVE},
         "launches_moe_serve_from": "phase 15 (b, c): layers x packed steps",
+        f"launches_vlm_serve_internvl2_depth{VLM_DEPTH}": vlm_k6,
+        "launches_vlm_serve_from": "phase 18 (b): layers x packed steps",
     }, {
         "name": "chunk_accumulate",
         "route": "cuda",
@@ -3410,6 +3834,10 @@ def main(argv=None) -> int:
         "launches_train_tp_flexlink": tp_k1,
         "launches_train_mixtral_dp_flexlink": moe_k1,
         "launches_train_mamba2_dp_flexlink": ssm_k1,
+        "launches_train_whisper_dp_flexlink": vlm_k1["whisper-medium"],
+        "launches_train_internvl2_reduced_dp_flexlink":
+            vlm_k1["internvl2-76b"],
+        "launches_prefill_internvl2_tp2": vlm_k1["prefill"],
         "mixed_f32_bf16": {
             "launches": bf16_launches["k1_mixed"],
             "max_abs_err": path_errs["k1_mixed"],

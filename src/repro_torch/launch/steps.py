@@ -1,8 +1,8 @@
 """Step builders: wire a step function to the rank's mesh and its
 ParallelCtx (and therefore to the FlexLink RoutePlan engine).
 
-Port of ``src/repro/launch/steps.py`` for the train step on a (data,
-model) mesh.  The reference wraps each step in ``shard_map`` and
+Port of ``src/repro/launch/steps.py`` for the train and prefill steps
+on a (data, model) mesh.  The reference wraps each step in ``shard_map`` and
 ``jax.jit``; here each rank runs the step eagerly on its own shard: the
 builder's callable takes the GLOBAL batch (numpy, as
 ``data.pipeline.make_batches`` yields it) and moves this rank's rows of
@@ -23,14 +23,20 @@ step after a Stage-2 share move runs against the SAME balancer state.
 
 Two tiers, as in the reference:
 
-* ``build_train_step``    — one step callable + ctx;
-* ``build_train_program`` — a :class:`~repro_torch.runtime.program.StepProgram`
-  around the same builder: the plan-keyed executable cache plus a
-  per-program Stage-2 replay recorder.
+* ``build_train_step`` / ``build_prefill_step``       — one step callable
+  + ctx;
+* ``build_train_program`` / ``build_prefill_program`` — a
+  :class:`~repro_torch.runtime.program.StepProgram` around the same
+  builder: the plan-keyed executable cache plus a per-program Stage-2
+  replay recorder.
 
+The prefill step runs this rank's rows of a batch, the frontend stubs
+(``vis_embed``, ``enc_embed``) included, through ``forward`` without a
+gradient and returns the last position's local-vocab logits
+``[B_local, V_local]`` (the reference's ``out_specs=P(batch, "model")``).
 Each build returns a fresh closure (the reference's fresh ``jax.jit``);
-nothing is compiled.  The prefill and serve programs of the reference
-come with the serving-across-devices slice (ROADMAP queue 1 item 11).
+nothing is compiled.  The serve program of the reference comes with the
+serving-across-devices slice (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ from repro_torch.convert import shard_params, spec_axes
 from repro_torch.core.communicator import CommConfig
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.tp import ParallelCtx
-from repro_torch.models.transformer import param_specs
+from repro_torch.models.transformer import (forward, lm_logits_local,
+                                            param_specs)
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.program import StepProgram
 from repro_torch.train.train_step import make_train_step
@@ -134,4 +141,41 @@ def build_train_program(cfg: ArchConfig, mesh=None, *,
     isolated Stage-2 replay recorder."""
     builder, ctx = _train_builder(cfg, mesh, comm=comm, opt=opt, remat=remat,
                                   bucket_mb=bucket_mb, device=device)
+    return StepProgram(builder, ctx, name=name), ctx
+
+
+def _prefill_builder(cfg: ArchConfig, mesh, *, comm: Optional[CommConfig],
+                     remat, device):
+    ctx = make_ctx(mesh, comm)
+    dev = mesh.device if mesh is not None else torch.device(device)
+
+    def builder():
+        def prefill(params, batch):
+            b = local_batch(batch, ctx, dev)
+            with torch.no_grad():
+                x, _ = forward(params, b["tokens"], cfg, ctx,
+                               vis_embed=b.get("vis_embed"),
+                               enc_embed=b.get("enc_embed"), remat=remat)
+                return lm_logits_local(params, x[:, -1:], cfg, ctx)[:, 0]
+        return prefill
+
+    return builder, ctx
+
+
+def build_prefill_step(cfg: ArchConfig, mesh=None, *,
+                       comm: Optional[CommConfig] = None, remat=True,
+                       device="cuda"):
+    """Forward-only prefill (global numpy batch in): this rank's
+    last-position local-vocab logits, and the ctx."""
+    builder, ctx = _prefill_builder(cfg, mesh, comm=comm, remat=remat,
+                                    device=device)
+    return builder(), ctx
+
+
+def build_prefill_program(cfg: ArchConfig, mesh=None, *,
+                          comm: Optional[CommConfig] = None, remat=True,
+                          name: str = "", device="cuda"):
+    """The prefill step as a StepProgram."""
+    builder, ctx = _prefill_builder(cfg, mesh, comm=comm, remat=remat,
+                                    device=device)
     return StepProgram(builder, ctx, name=name), ctx

@@ -19,10 +19,11 @@ the reference's conventions:
     (``_kv_slice``).  ``attention_specs`` / ``mlp_specs`` name the sharded
     dim of each leaf (convert.py cuts a rank's shard by them).
 
-Training and prefill run at any tp.  The decode paths (dense cache and
+Training and prefill run at any tp, cross-attention (``xattn_kv``, the
+encdec family's decoder) included.  The decode paths (dense cache and
 paged pool) run at tp = 1 and raise above it: the sequence-sharded decode
 (the reference's ``seq_shard``) and serving across devices come with
-ROADMAP queue 1 item 11; cross-attention with item 9.
+ROADMAP queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -248,32 +249,46 @@ def _one_shard(ctx: ParallelCtx, what: str) -> None:
             f"ported yet (ROADMAP queue 1 item 11)")
 
 
-def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
-    """Q [B,S,Hq_l,hd], K and V [B,S,kv_w,hd] before RoPE."""
-    b, s, _ = x.shape
-    hd = cfg.head_dim_
-    hq_l, kv_w, _ = head_layout(cfg, ctx)
+def _project_q(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
+    """Q [B,S,Hq_l,hd] before RoPE."""
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
+    return q.reshape(*x.shape[:2], head_layout(cfg, ctx)[0], cfg.head_dim_)
+
+
+def _project_kv(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
+    """K and V [B,S,kv_w,hd] of this shard's KV heads, before RoPE (also
+    the cross-attention K/V of an encoder output)."""
+    b, s, _ = x.shape
+    kv_w = head_layout(cfg, ctx)[1]
     wk, bk = _kv_slice(p, cfg, ctx, "k")
     wv, bv = _kv_slice(p, cfg, ctx, "v")
     k = x @ wk
     v = x @ wv
     if bk is not None:
         k, v = k + bk, v + bv
-    return (q.reshape(b, s, hq_l, hd), k.reshape(b, s, kv_w, hd),
-            v.reshape(b, s, kv_w, hd))
+    return (k.reshape(b, s, kv_w, cfg.head_dim_),
+            v.reshape(b, s, kv_w, cfg.head_dim_))
+
+
+def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
+    """Q [B,S,Hq_l,hd], K and V [B,S,kv_w,hd] before RoPE."""
+    return (_project_q(p, x, cfg, ctx), *_project_kv(p, x, cfg, ctx))
 
 
 def attention_block(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx,
                     *, causal: bool = True, positions=None,
-                    kv_cache=None, cache_pos=None, window_override="cfg"):
+                    kv_cache=None, cache_pos=None, window_override="cfg",
+                    xattn_kv=None):
     """One attention sublayer (pre-norm handled by the caller).
 
     kv_cache: (k, v) of [B, S_cache, kv_w, hd] — decode mode; x holds the
       new token(s), cache_pos the write position (scalar, or [B] for
       single-token steps with per-slot positions).
+    xattn_kv: precomputed (k, v) [B, S_enc, kv_w, hd] for cross-attention:
+      only Q is projected, and attended over them unmasked, without RoPE
+      (the reference ropes neither side there) and without a cache write.
     window_override: "cfg" uses cfg.sliding_window; None/int overrides.
     Returns (out [B,S,D], new_cache); the cache argument is not modified.
     """
@@ -284,40 +299,50 @@ def attention_block(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx,
     if positions is None:
         positions = torch.arange(s, device=x.device)
 
+    new_cache = None
+    if xattn_kv is not None:
+        out = chunked_attention(_project_q(p, x, cfg, ctx), *xattn_kv,
+                                causal=False, window=None)
+    else:
+        out, new_cache = _self_attention(p, x, cfg, ctx, causal, positions,
+                                         kv_cache, cache_pos, window)
+    o = out.reshape(b, s, hq_l * cfg.head_dim_) @ p["wo"]
+    o = ctx.tp_all_reduce(o)       # row-parallel combine
+    return o, new_cache
+
+
+def _self_attention(p, x, cfg: ArchConfig, ctx: ParallelCtx, causal,
+                    positions, kv_cache, cache_pos, window):
+    """Self-attention of ``attention_block``: (out [B,S,Hq_l,hd],
+    new_cache), the cache written when one is given."""
+    s = x.shape[1]
     q, k, v = _project_qkv(p, x, cfg, ctx)
     if cfg.rope_theta:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-
-    new_cache = None
     if kv_cache is None:
-        out = chunked_attention(q, k, v, causal=causal, window=window)
+        return chunked_attention(q, k, v, causal=causal, window=window), None
+    _one_shard(ctx, "the dense decode path")
+    ck, cv = kv_cache
+    pos_arr = torch.as_tensor(cache_pos, device=x.device)
+    if pos_arr.ndim:                     # per-slot positions [B]
+        assert s == 1, "vector cache_pos requires single-token steps"
+        sl = torch.arange(ck.shape[1], device=x.device)
+        hit = (sl[None] == pos_arr[:, None])[:, :, None, None]
+        ck = torch.where(hit, k.to(ck.dtype), ck)
+        cv = torch.where(hit, v.to(cv.dtype), cv)
     else:
-        _one_shard(ctx, "the dense decode path")
-        ck, cv = kv_cache
-        pos_arr = torch.as_tensor(cache_pos, device=x.device)
-        if pos_arr.ndim:                     # per-slot positions [B]
-            assert s == 1, "vector cache_pos requires single-token steps"
-            sl = torch.arange(ck.shape[1], device=x.device)
-            hit = (sl[None] == pos_arr[:, None])[:, :, None, None]
-            ck = torch.where(hit, k.to(ck.dtype), ck)
-            cv = torch.where(hit, v.to(cv.dtype), cv)
-        else:
-            # dynamic_update_slice semantics: the start clamps so the
-            # update fits
-            start = min(max(int(cache_pos), 0), ck.shape[1] - s)
-            ck, cv = ck.clone(), cv.clone()
-            ck[:, start:start + s] = k.to(ck.dtype)
-            cv[:, start:start + s] = v.to(cv.dtype)
-        new_cache = (ck, cv)
-        # causal=True keeps multi-token decode steps correct; for s == 1
-        # it is equivalent to the kv_valid bound alone
-        out = chunked_attention(q, ck, cv, causal=True, window=window,
-                                q_offset=pos_arr, kv_valid=pos_arr + s)
-
-    o = out.reshape(b, s, hq_l * cfg.head_dim_) @ p["wo"]
-    o = ctx.tp_all_reduce(o)       # row-parallel combine
-    return o, new_cache
+        # dynamic_update_slice semantics: the start clamps so the
+        # update fits
+        start = min(max(int(cache_pos), 0), ck.shape[1] - s)
+        ck, cv = ck.clone(), cv.clone()
+        ck[:, start:start + s] = k.to(ck.dtype)
+        cv[:, start:start + s] = v.to(cv.dtype)
+    # causal=True keeps multi-token decode steps correct; for s == 1
+    # it is equivalent to the kv_valid bound alone
+    return chunked_attention(q, ck, cv, causal=True, window=window,
+                             q_offset=pos_arr, kv_valid=pos_arr + s), \
+        (ck, cv)
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,14 @@
-"""The LM engine: one generic decoder for the dense, MoE, SSM and hybrid
-families: training forward and loss, and serving.
+"""The LM engine: one generic decoder for the dense, MoE, SSM, hybrid, vlm
+and encdec families: training forward and loss, and serving.
 
 Port of ``src/repro/models/transformer.py``: ``init_params``,
 ``param_specs``, the vocab-parallel ``embed_tokens`` (masked local
 lookup + ``ctx.tp_all_reduce``), ``lm_logits_local``,
 ``vocab_parallel_xent`` (the distributed log-sum-exp), the train/prefill
-``forward`` and ``lm_loss`` (with the MoE router's aux loss), the decode
-caches and ``decode_step``, and the paged pool and ``paged_decode_step``
-(dense and moe; both caches at tp = 1, item 11).  The families:
+``forward`` and ``lm_loss`` (with the MoE router's aux loss and the
+frontend stubs), the decode caches and ``decode_step``, and the paged
+pool and ``paged_decode_step`` (dense, vlm and moe; both caches at tp =
+1, item 11).  The families:
 
 * dense: a stack of attention + SwiGLU blocks;
 * moe: ``n_dense_prefix`` dense blocks (``prefix``), then attention +
@@ -16,7 +17,13 @@ caches and ``decode_step``, and the paged pool and ``paged_decode_step``
 * ssm: a stack of Mamba2 blocks (models/ssm.py);
 * hybrid (Zamba2): Mamba2 blocks with ONE shared attention + MLP block
   (``shared_attn``) after every group of ``attn_every`` of them; the
-  remainder layers run without it.
+  remainder layers run without it;
+* vlm (InternVL2's backbone): the dense stack over ``[vis_embed;
+  tokens]``, the stub patch rows cut off before the final norm;
+* encdec (Whisper): an encoder stack of bidirectional dense blocks over
+  the stub frame embeddings ``enc_embed`` (``enc_layers``, ``enc_norm``),
+  then decoder blocks of self-attention, cross-attention over the encoder
+  output (``ln_x``, ``xattn``) and the MLP.
 
 Activation checkpointing (the reference's ``jax.checkpoint`` around each
 scanned block, ``remat=True``) is ``torch.utils.checkpoint`` around each
@@ -33,16 +40,18 @@ and the later ones and the checkpoint recompute run under
 ``ctx.unrecorded()``.  The caches are updated IN PLACE: ``decode_step``
 writes each layer's new K/V or SSM state into the [L, ...] cache tensors
 it was given, and ``paged_decode_step`` scatters into the pool
-(models/layers.py).
-
-The vlm and encdec families raise until their slice lands (ROADMAP
-queue 1 item 9 (vlm, encdec)).
+(models/layers.py).  Serving reads no frontend stub, as in the
+reference: the paged engine serves vlm on its tokens, and encdec's
+cross-attention cache ``xk``/``xv`` is made zero and never written (the
+prefill program, launch/steps.py, is the serving-side path that feeds the
+stubs through ``forward``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
@@ -53,16 +62,6 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.tp import ParallelCtx
-
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"ROADMAP queue 1, item 9 (vlm, encdec)")
-
 
 # ---------------------------------------------------------------------------
 # init + specs
@@ -99,7 +98,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device):
     weights N(0, 0.02^2) in ``cfg.dtype``, norms ones (the SSM's dt_bias,
     a_log and d_skip float32).  ``generator`` must live on ``device``."""
     cfg.validate()
-    _require_ported(cfg)
     dtype, gen = cfg.dtype, generator
     n, d = cfg.n_layers, cfg.d_model
     p: Dict[str, Any] = {
@@ -109,8 +107,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device):
     if not cfg.tie_embeddings:
         p["lm_head"] = L._normal(gen, (d, cfg.vocab_padded), dtype, device)
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         p["layers"] = _dense_init(gen, cfg, dtype, device, (n,))
+    elif fam == "encdec":
+        p["enc_layers"] = _dense_init(gen, cfg, dtype, device,
+                                      (cfg.encdec.n_enc_layers,))
+        p["enc_norm"] = torch.ones((d,), dtype=dtype, device=device)
+        p["layers"] = _dense_init(gen, cfg, dtype, device, (n,))
+        p["layers"]["ln_x"] = torch.ones((n, d), dtype=dtype, device=device)
+        p["layers"]["xattn"] = L.init_attention(gen, cfg, dtype, device,
+                                                lead=(n,))
     elif fam == "moe":
         npre = cfg.moe.n_dense_prefix
         if npre:
@@ -137,15 +143,19 @@ def param_specs(cfg: ArchConfig, data_axis: str = "data",
     layers' Q/O, MLP, expert FFN hidden dims and SSM heads over the model
     axis, and ep_a2a experts over ``data_axis`` (``ctx.ep_spec_axis()``);
     norms, K/V and routers replicated."""
-    _require_ported(cfg)
     sp: Dict[str, Any] = {"embed": (model_axis, None), "final_norm": (None,)}
     if not cfg.tie_embeddings:
         sp["lm_head"] = (None, model_axis)
     dense = {"ln1": (None,), "attn": L.attention_specs(cfg, model_axis),
              "ln2": (None,), "mlp": L.mlp_specs(model_axis)}
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         sp["layers"] = _stack_specs(dense)
+    elif fam == "encdec":
+        sp["enc_layers"] = _stack_specs(dense)
+        sp["enc_norm"] = (None,)
+        sp["layers"] = _stack_specs(dict(
+            dense, ln_x=(None,), xattn=L.attention_specs(cfg, model_axis)))
     elif fam == "moe":
         if cfg.moe.n_dense_prefix:
             sp["prefix"] = _stack_specs(dense)
@@ -226,9 +236,12 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _dense_block(lp, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
+def _dense_block(lp, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx,
+                 causal=True):
+    """Attention + MLP; ``causal=False`` is Whisper's encoder block."""
     h, _ = L.attention_block(lp["attn"], L.rms_norm(x, lp["ln1"],
-                                                    cfg.norm_eps), cfg, ctx)
+                                                    cfg.norm_eps), cfg, ctx,
+                             causal=causal)
     x = x + h
     x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
                         ctx)
@@ -242,6 +255,31 @@ def _moe_block(lp, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
     y, aux = M.moe_block(lp["moe"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
                          cfg, ctx)
     return x + y, aux
+
+
+#: cross-attention K/V [B, S_enc, kv_w, hd] of the encoder output through
+#: this shard's KV-head columns of ``xattn``'s projections (the
+#: reference's ``_xattn_kv``)
+_xattn_kv = L._project_kv
+
+
+def _decoder_block(lp, carry, cfg: ArchConfig, ctx: ParallelCtx):
+    """Whisper's decoder block over the carry (x, encoder output): causal
+    self-attention, cross-attention on ``rms_norm(x, ln_x)`` with K/V from
+    the encoder output, the MLP.  The encoder output rides the carry (a
+    block input, so a checkpoint recompute sees it) and its gradient sums
+    over every decoder block."""
+    x, enc = carry
+    h, _ = L.attention_block(lp["attn"], L.rms_norm(x, lp["ln1"],
+                                                    cfg.norm_eps), cfg, ctx)
+    x = x + h
+    h, _ = L.attention_block(lp["xattn"], L.rms_norm(x, lp["ln_x"],
+                                                     cfg.norm_eps), cfg, ctx,
+                             xattn_kv=_xattn_kv(lp["xattn"], enc, cfg, ctx))
+    x = x + h
+    x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                        ctx)
+    return (x, enc), _zero(x)
 
 
 def _ssm_block(lp, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
@@ -267,8 +305,9 @@ def _first_records(ctx: ParallelCtx, i: int):
 
 
 def _scan(stacked, x, block, cfg, ctx, remat, aux, lo=0, hi=None):
-    """Blocks [lo, hi) of a stacked subtree as one ``lax.scan``: the
-    first records; the aux losses summed into ``aux`` in order."""
+    """Blocks [lo, hi) of a stacked subtree as one ``lax.scan`` over the
+    carry ``x`` (a tensor, or encdec's (x, encoder output)): the first
+    records; the aux losses summed into ``aux`` in order."""
     hi = _depth(stacked) if hi is None else hi
     for i in range(lo, hi):
         with _first_records(ctx, i - lo):
@@ -308,21 +347,40 @@ def _hybrid_forward(p, x, cfg: ArchConfig, ctx: ParallelCtx, remat, aux):
     return x, aux
 
 
+def _encoder_forward(p, enc_embed: torch.Tensor, cfg: ArchConfig,
+                     ctx: ParallelCtx, remat=True) -> torch.Tensor:
+    """Whisper's encoder: its own scan of bidirectional blocks over the
+    frame embeddings, then ``enc_norm``."""
+    enc, _ = _scan(p["enc_layers"], enc_embed,
+                   functools.partial(_dense_block, causal=False), cfg, ctx,
+                   remat, _zero(enc_embed))
+    return L.rms_norm(enc, p["enc_norm"], cfg.norm_eps)
+
+
 def forward(p, tokens: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx, *,
-            remat=True):
+            vis_embed=None, enc_embed=None, remat=True):
     """Train/prefill forward -> (hidden [B,S,D], aux loss scalar).
 
+    ``vis_embed`` [B, n_vis, D] (vlm) and ``enc_embed`` [B, n_frames, D]
+    (encdec) are the frontend stubs, cast to the activation dtype.
     ``remat=True`` recomputes each block's activations in the backward
     pass (one checkpoint per block); ``False`` keeps them."""
-    _require_ported(cfg)
     if remat not in (True, False):
         raise NotImplementedError(f"remat={remat!r}: only True (per-layer "
                                   f"checkpointing) and False are ported")
     x = embed_tokens(p, tokens, cfg, ctx)
     aux = _zero(x)
     fam = cfg.family
-    if fam == "dense":
+    if fam == "vlm":
+        assert vis_embed is not None, "vlm needs stub patch embeddings"
+        x = torch.cat([vis_embed.to(x.dtype), x], dim=1)
+    if fam in ("dense", "vlm"):
         x, aux = _scan(p["layers"], x, _dense_block, cfg, ctx, remat, aux)
+    elif fam == "encdec":
+        assert enc_embed is not None, "encdec needs stub frame embeddings"
+        enc = _encoder_forward(p, enc_embed.to(x.dtype), cfg, ctx, remat)
+        (x, _), aux = _scan(p["layers"], (x, enc), _decoder_block, cfg, ctx,
+                            remat, aux)
     elif fam == "moe":
         if "prefix" in p:                        # its aux is dropped
             x, _ = _scan(p["prefix"], x, _dense_block, cfg, ctx, remat, aux)
@@ -331,14 +389,19 @@ def forward(p, tokens: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx, *,
         x, aux = _scan(p["layers"], x, _ssm_block, cfg, ctx, remat, aux)
     else:
         x, aux = _hybrid_forward(p, x, cfg, ctx, remat, aux)
+    if fam == "vlm":
+        x = x[:, vis_embed.shape[1]:]
     return L.rms_norm(x, p["final_norm"], cfg.norm_eps), aux
 
 
 def lm_loss(p, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             ctx: ParallelCtx, *, remat=True) -> torch.Tensor:
     """Mean next-token NLL over the local batch shard, plus the MoE
-    router's aux loss times its weight."""
-    x, aux = forward(p, batch["tokens"], cfg, ctx, remat=remat)
+    router's aux loss times its weight.  The batch's frontend stubs
+    (``vis_embed``, ``enc_embed``) go to ``forward``."""
+    x, aux = forward(p, batch["tokens"], cfg, ctx,
+                     vis_embed=batch.get("vis_embed"),
+                     enc_embed=batch.get("enc_embed"), remat=remat)
     logits_l = lm_logits_local(p, x, cfg, ctx)
     loss = vocab_parallel_xent(logits_l, batch["labels"], ctx,
                                cfg.vocab).mean()
@@ -366,20 +429,24 @@ class DecodeConfig:
 
 def init_cache(cfg: ArchConfig, ctx: ParallelCtx, dcfg: DecodeConfig,
                batch_local: int, dtype=None, device=None):
-    """Zero cache: ``{"k", "v"}`` of [L, B, S, kv_w, hd] (dense, moe);
+    """Zero cache: ``{"k", "v"}`` of [L, B, S, kv_w, hd] (dense, vlm,
+    moe), plus ``{"xk", "xv"}`` of [L, B, n_frames, kv_w, hd] (encdec: the
+    cross-attention cache, which nothing writes, as in the reference);
     ``{"ssm", "conv"}`` of [L, B, ...] (ssm); both SSM leaves plus
     ``{"attn_k", "attn_v"}`` of [groups, B, S, kv_w, hd] (hybrid)."""
-    _require_ported(cfg)
     L._one_shard(ctx, "the decode cache")
     dtype = dtype or cfg.dtype
 
-    def kv(n):
+    def kv(n, length=dcfg.cache_len_local):
         kv_w = L.head_layout(cfg, ctx)[1]
-        return torch.zeros((n, batch_local, dcfg.cache_len_local, kv_w,
-                            cfg.head_dim_), dtype=dtype, device=device)
+        return torch.zeros((n, batch_local, length, kv_w, cfg.head_dim_),
+                           dtype=dtype, device=device)
 
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         return {"k": kv(cfg.n_layers), "v": kv(cfg.n_layers)}
+    if cfg.family == "encdec":
+        n, se = cfg.n_layers, cfg.encdec.n_frames
+        return {"k": kv(n), "v": kv(n), "xk": kv(n, se), "xv": kv(n, se)}
     c = _ssm_cache(cfg, ctx, batch_local, dtype, device)
     if cfg.family == "hybrid":
         g = cfg.n_layers // cfg.hybrid.attn_every
@@ -404,8 +471,8 @@ def _ssm_cache(cfg: ArchConfig, ctx: ParallelCtx, batch_local: int, dtype,
 def decode_step(p, cache, token: torch.Tensor, pos, cfg: ArchConfig,
                 ctx: ParallelCtx, dcfg: DecodeConfig):
     """One decode step: token [B,S] int, pos a scalar or [B] ->
-    (logits [B,V], cache).  The cache tensors are updated in place."""
-    _require_ported(cfg)
+    (logits [B,V], cache).  The cache tensors are updated in place;
+    encdec's cross-attention reads the cache's ``xk``/``xv``."""
     x = embed_tokens(p, token, cfg, ctx)
     pos_arr = torch.as_tensor(pos, device=x.device)
     steps = torch.arange(token.shape[1], device=x.device)
@@ -436,8 +503,19 @@ def decode_step(p, cache, token: torch.Tensor, pos, cfg: ArchConfig,
         cache["conv"][i] = ns["conv"]
         return x + h
 
+    def xattn(lp, x, i):
+        h, _ = L.attention_block(
+            lp["xattn"], L.rms_norm(x, lp["ln_x"], cfg.norm_eps), cfg, ctx,
+            xattn_kv=(cache["xk"][i], cache["xv"][i]))
+        return x + h
+
     fam = cfg.family
-    if fam in ("dense", "moe"):
+    if fam == "encdec":
+        for i in range(cfg.n_layers):           # lax.scan in the reference
+            lp = _layer(p["layers"], i)
+            x = ffn(lp, xattn(lp, attn(lp, x, cache["k"][i], cache["v"][i]),
+                              i))
+    elif fam in ("dense", "vlm", "moe"):
         # the moe family's dense prefix takes cache layers [0, npre)
         base = 0
         for stacked in _stacks(p):
@@ -488,8 +566,6 @@ class PagedConfig:
     window_override: Any = "cfg"
 
 
-#: the families the paged engine serves (the reference's, less vlm until
-#: its slice lands)
 PAGED_FAMILIES = ("dense", "vlm", "moe")
 
 
@@ -502,7 +578,6 @@ def init_paged_pool(cfg: ArchConfig, ctx: ParallelCtx, pcfg: PagedConfig,
         raise ValueError(
             f"paged serving supports {PAGED_FAMILIES}, got {cfg.family} "
             f"(ssm/hybrid/encdec stay on the wave engine)")
-    _require_ported(cfg)
     L._one_shard(ctx, "the paged pool")
     dtype = dtype or cfg.dtype
     kv_w = L.head_layout(cfg, ctx)[1]
@@ -532,7 +607,6 @@ def paged_decode_step(p, pool, tokens: torch.Tensor, positions: torch.Tensor,
     """
     if cfg.family not in PAGED_FAMILIES:
         raise ValueError(cfg.family)
-    _require_ported(cfg)
     valid = row_req >= 0
     n_req = block_tables.shape[0]
     btab = block_tables[torch.clamp(row_req, 0, n_req - 1).long()]

@@ -893,3 +893,79 @@ def dp_train(arch, params_np, runs, steps):
         out[name] = {"losses": losses, "signature": tuple(
             (a, plain_signature(s)) for a, s in ctx.plan_signature())}
     return out
+
+
+def vlm_encdec(params_np, runs, steps, prefill_case, ckpt_dir, ref_ckpt_dir,
+               work_dir):
+    """tests/test_torch_vlm_encdec.py on this rank of the (data=2,
+    model=2) mesh, for each arch of ``params_np`` (reduced, from the
+    reference's global init cut to this rank's model-axis shards):
+
+    * each run of ``runs``: ``steps`` train steps through
+      build_train_program, the per-step losses, and for the runs marked
+      ``record`` what the communicators recorded after step 1;
+    * the prefill program on the initial params and ``prefill_case``'s
+      global batch (fresh communicators for each arch and for the prefill,
+      as the reference's runs): this rank's last-position local-vocab logits;
+    * for the arch marked in ``ckpt_dir`` (a dict arch -> dir): the run
+      marked ``ckpt``'s final local state, a checkpoint of it (data row 0
+      saves, model rank 0 writes), and the local shards this rank
+      restores from the reference's checkpoint in ``ref_ckpt_dir``."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_reference
+    from repro_torch.core.communicator import CommConfig, comm_destroy_all
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.launch.steps import (build_prefill_program,
+                                          build_train_program, local_params,
+                                          rank_specs)
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+    out = {}
+    for arch, init in params_np.items():
+        cfg = get_config(arch).reduced()
+        res = out[arch] = {}
+        comm_destroy_all()          # fresh balancers, as the reference's
+        for name, run in runs.items():
+            program, ctx = build_train_program(
+                cfg, mesh, comm=CommConfig(**run["comm"]),
+                opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+                device="cpu", name=name)
+            specs = rank_specs(cfg, ctx)
+            params = local_params(params_from_reference(init), specs, ctx)
+            opt_state = init_state(params)
+            batches = make_batches(cfg, seq_len=32, batch_per_shard=4,
+                                   seed=7)
+            losses, rec = [], None
+            for i in range(steps):
+                params, opt_state, m = program.step(params, opt_state,
+                                                    next(batches))
+                losses.append(float(m["loss"]))
+                if i == 0 and run.get("record"):
+                    rec = recording(ctx, name, f"{work_dir}/{arch}-{name}-"
+                                    f"rank{mesh.rank}.json")
+            program.close()
+            res[name] = {"losses": losses, "recording": rec}
+            if run.get("ckpt") and arch in ckpt_dir:
+                state = {"params": params, "mu": opt_state.mu,
+                         "nu": opt_state.nu}
+                res["state"] = {k: flat_leaves(v) for k, v in state.items()}
+                if mesh.axis_index("data") == 0:
+                    Checkpointer(ckpt_dir[arch], ctx=ctx, specs=specs).save(
+                        steps, params, opt_state)
+                got, got_opt, meta = Checkpointer(
+                    ref_ckpt_dir[arch], ctx=ctx, specs=specs).restore(
+                        params, init_state(params))
+                res["restored"] = {"step": meta["step"],
+                                   "params": flat_leaves(got),
+                                   "mu": flat_leaves(got_opt.mu),
+                                   "nu": flat_leaves(got_opt.nu)}
+        comm_destroy_all()
+        program, ctx = build_prefill_program(
+            cfg, mesh, comm=CommConfig(**prefill_case["comm"]),
+            device="cpu", name="prefill")
+        params = local_params(params_from_reference(init),
+                              rank_specs(cfg, ctx), ctx)
+        res["prefill"] = as_bits(program(params, prefill_case[arch]))
+        program.close()
+    return out

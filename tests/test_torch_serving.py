@@ -93,19 +93,18 @@ def test_step_program_counters_match_reference():
 
 
 def test_unported_paths_raise():
-    """Serving across devices (a model axis, item 11) and the families
-    still open in item 9 (vlm, encdec) raise."""
+    """Serving across devices (a model axis, item 11) raises, for the
+    vlm and encdec caches as for dense."""
     tp2 = types.SimpleNamespace(tp_size=2)
     cfg = t_get_config("glm4-9b").reduced()
     with pytest.raises(NotImplementedError, match="item 11"):
         TT.init_cache(cfg, tp2, TT.DecodeConfig(cache_len_local=8), 1)
     with pytest.raises(NotImplementedError, match="item 11"):
         TT.init_paged_pool(cfg, tp2, TT.PagedConfig())
-    gen = torch.Generator().manual_seed(0)
     for arch in ("internvl2-76b", "whisper-medium"):
-        with pytest.raises(NotImplementedError,
-                           match=r"item 9 \(vlm, encdec\)"):
-            TT.init_params(t_get_config(arch).reduced(), gen, "cpu")
+        with pytest.raises(NotImplementedError, match="item 11"):
+            TT.init_cache(t_get_config(arch).reduced(), tp2,
+                          TT.DecodeConfig(cache_len_local=8), 1)
 
 
 # ---------------------------------------------------------------------------
