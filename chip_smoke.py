@@ -24,8 +24,9 @@ non-zero:
 2. K6, the paged flash-decode kernel, against its plain PyTorch version at
    glm4-9b shapes (Hq 32, Hkv 2, hd 128, block 16), at GQA groups 1,
    2, 4, 8, 12 and 16 with hd 64 and 128, at kimi-k2's full width
-   (Hq 64, Hkv 8, hd 112) and at internvl2's (Hq 64, Hkv 8, hd 128)
-   (T in {1, 8, 32}, max blocks in
+   (Hq 64, Hkv 8, hd 112), at internvl2's (Hq 64, Hkv 8, hd 128) and at
+   glm4-9b's shard at (model=2) (Hq 16, Hkv 1, hd 128) (T in {1, 8, 32},
+   max blocks in
    {6, 64, 256}; float32 and bfloat16; padding rows and a sliding window)
    at atol 3e-5 (f32) / 2e-2 (bf16), padding rows exact zeros; the
    n_split each call took is printed;
@@ -212,16 +213,52 @@ non-zero:
    served, tokens in the vocabulary, tok/s; (e) whisper-medium whole and
    reduced internvl2-76b on (data=2), 3 steps each with ``nccl`` and
    ``flexlink`` (the frontend stubs in the batch): losses falling and bit
-   for bit equal, K1 launched, peak memory, wall time.
+   for bit equal, K1 launched, peak memory, wall time;
+19. serving across devices through ``launch/steps.build_serve_program``,
+   gloo ranks on the card: (a) reduced float32 glm4-9b and zamba2-1.2b
+   (TF32 off) on (model=2) (batch 4, the cache sequence-sharded over
+   model) and on (data=2, model=2) (batch 1, over data x model), 10
+   steps: every rank's logits within 2e-3 (the reference's bound) of the
+   decode over a local cache on the same ranks and, for glm4, of one
+   rank's local decode (zamba2's gap to one rank is printed: a Mamba2
+   block at tp > 1 normalises over each shard's heads, as the
+   reference's); Q gathers issued on the side stream and joined before
+   they are read; (b) glm4-9b at its published widths and depth, bf16,
+   seed 0, on (model=2), batch 8, a 4096 cache (2048 a rank) filled with
+   seeded random K/V at the model's own scale (the same global cache on
+   every mesh and on one rank), 16 greedy steps from 3072 (the argmax of
+   the logits gathered over the model axis), each issued and awaited,
+   the model axis's all-reduce pinned to 50/25/25: K1 launches equal to
+   what the executed plans imply, 81 combines and 40 Q gathers (issued =
+   joined) a step, ms a step, peak memory; the same steps on the shards
+   upcast to float32: the last step's logits within 2e-3 of one rank's
+   float32 decode of the same tokens; (c) the same model, batch 1, the
+   cache over (data=2, model=2) (4 ranks, 32768, 8192 a rank), filled,
+   8 steps from 24572 (the owning shard moves from 2 to 3; shards 0-2
+   hold real keys): K1 = the plans', every rank's bf16 logits' and one
+   rank's distances from one rank's float32 run printed; the same steps
+   on the shards' first 8 layers upcast to float32 (four ranks' whole
+   shards in float32 would not fit the card): every rank's logits within
+   2e-3 of one rank's float32 decode of those layers; (d)
+   ``paged_decode_step`` through K6 at (model=2) (16 Q heads and 1 KV
+   head a rank), 8 requests' prompts packed in one step, then 6 greedy
+   steps: K6 launched 40 x steps a rank, each of those calls against
+   K6's plain version on its own inputs (atol 2e-2), the packed step's
+   bf16 logits and one rank's each within phase 4's bound of one rank's
+   float32 step through K6.  In (b)-(d) the sharded bf16 run's distance
+   from the float32 run is under 1.2 times one rank's.  Then every K1
+   segment table the serve programs of (b) and (c) launched against the
+   plain version, bit for bit (as phase 12 (a)).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  The launches in that line are the
 ranks' own counts from each kernel's path, summed: K1 from phase 7, K2-K4
 from the fp8 training run of phase 11 (the bucketed runs' beside them),
 K5 and the mixed K1 from phase 10 (c), K7 from phase 13 (0: no path
-calls it); K6's row adds phase 15's launches (b, c) and phase 18 (b)'s,
-and K1's the flexlink runs of phases 16 (a), 17 (a) and 18 (e) and the
-(model=2) prefill of phase 18 (c); each rank process sets
+calls it); K6's row adds phase 15's launches (b, c), phase 18 (b)'s and
+phase 19 (d)'s (both ranks), and K1's the flexlink runs of phases 16
+(a), 17 (a) and 18 (e), the (model=2) prefill of phase 18 (c) and the
+serve program's bf16 runs of phase 19 (b) and (c); each rank process sets
 its counts to 0 just before that path and reports them just after it.
 A K1 or K5 segment-table launch counts once, whatever its segments.
 Without a CUDA card, or without the rest of the checkout beside this
@@ -457,11 +494,12 @@ def phase1_card_and_build(baseline=None):
 
 # (Hq, Hkv, hd) of phase 2: glm4-9b first, then GQA groups 1 (whisper,
 # zamba2), 2, 4 (mixtral), 8 (deepseek, qwen2), 12 (starcoder2) and 16 at
-# hd 64, kimi-k2's full width (64 heads over 8, hd 112) and internvl2's
-# (64 heads over 8, hd 128)
+# hd 64, kimi-k2's full width (64 heads over 8, hd 112), internvl2's (64
+# heads over 8, hd 128) and glm4-9b's shard at (model=2) (16 heads over
+# 1, phase 19 (d))
 K6_SHAPES = [(HQ, HKV, HD), (16, 16, 64), (8, 4, 128), (32, 8, 128),
              (16, 2, 128), (24, 2, 128), (32, 2, 64), (64, 8, 112),
-             (64, 8, 128)]
+             (64, 8, 128), (16, 1, 128)]
 
 
 def phase2_kernel_vs_plain(gen):
@@ -2002,20 +2040,29 @@ TP_SEQ = 128
 TP_BATCH = 8                   # global: 4 rows a data rank
 
 
-def _pin_model_axis(path: str, d_model: int) -> int:
-    """Write the TuningProfile that pins the model axis's all-reduce slot
-    (one [4, 128, d_model] bf16 combine) to TP_SHARES; returns its
-    bucket."""
+def _pin_all_reduce(path: str, sizes, ranks: int = 2) -> list:
+    """Write the TuningProfile that pins the all-reduce slots of ``ranks``
+    ranks at the buckets of payloads of ``sizes`` bytes to TP_SHARES (the
+    tuner gives such small payloads the primary route alone, and the
+    staged ring, K1, runs only on a staged share); returns the buckets."""
     from repro_torch.control.profile import TuningProfile
     from repro_torch.core.communicator import bucket_for
     from repro_torch.core.topology import Collective
     from repro_torch.core.tuner import SHARE_GRID
-    nbytes = TP_BATCH // TP_MESH[0] * TP_SEQ * d_model * 2
     prof = TuningProfile(path)
-    prof.record("h100", "ring", Collective.ALL_REDUCE, TP_MESH[1],
-                bucket_for(nbytes), SHARE_GRID, TP_SHARES)
+    buckets = sorted({bucket_for(n) for n in sizes})
+    for bucket in buckets:
+        prof.record("h100", "ring", Collective.ALL_REDUCE, ranks, bucket,
+                    SHARE_GRID, TP_SHARES)
     prof.save(path)
-    return bucket_for(nbytes)
+    return buckets
+
+
+def _pin_model_axis(path: str, d_model: int) -> int:
+    """Pin the model axis's all-reduce slot (one [4, 128, d_model] bf16
+    combine) to TP_SHARES; returns its bucket."""
+    nbytes = TP_BATCH // TP_MESH[0] * TP_SEQ * d_model * 2
+    return _pin_all_reduce(path, (nbytes,), TP_MESH[1])[0]
 
 
 def _step_phase() -> str:
@@ -2244,13 +2291,15 @@ SEGMENT_CALLS = {"k1_segments": ("k1", "k1"),
                  "bf16_pack_segments": ("bf16_pack", "bf16_pack")}
 
 
-def phase12_main_path_check(calls):
+def phase12_main_path_check(calls, phase="12", required=None):
     """Each K1-K5 wrapper against its plain version at every (length,
     dtype, format) its kernel was given on the main path (phases 7, 10,
-    11 and 13), and each K1 and K5 segment-table launch at every table of
-    sub-chunk lengths those phases gave it.  Aligned and one element off
-    (tables also every other segment off), NaN and inf groups included:
-    bit for bit, NaN at the same places."""
+    11 and 13; phase 19's serve program in a second call), and each K1
+    and K5 segment-table launch at every table of sub-chunk lengths those
+    phases gave it.  Aligned and one element off (tables also every other
+    segment off), NaN and inf groups included: bit for bit, NaN at the
+    same places.  Each name in ``required`` (default: every wrapper and
+    segment-table call) must have a recorded call."""
     from repro_torch.kernels import chunk_accumulate as ca
     from repro_torch.kernels import codec, ref
     gen = torch.Generator(device="cuda").manual_seed(121)
@@ -2306,20 +2355,20 @@ def phase12_main_path_check(calls):
         del x, b
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    for name in ("fp8_encode", "fp8_decode_accumulate", "fp8_decode",
-                 "bf16_pack", "k1_mixed", "k1"):
-        check(lengths[name], f"{name}: no call recorded on the main path")
-    for name in SEGMENT_CALLS:
-        check(tables[name], f"{name}: no segment table recorded on the "
-              f"main path")
+    if required is None:
+        required = ("fp8_encode", "fp8_decode_accumulate", "fp8_decode",
+                    "bf16_pack", "k1_mixed", "k1", *SEGMENT_CALLS)
+    for name in required:
+        check(tables[name] if name in SEGMENT_CALLS else lengths[name],
+              f"{name}: no call recorded on the main path")
     lengths = {k: sorted(v) for k, v in lengths.items()}
     tables = {k: sorted(v) for k, v in tables.items()}
-    print(f"phase 12: K1-K5 vs plain versions at every length the main "
+    print(f"phase {phase}: K1-K5 vs plain versions at every length the main "
           f"path gave them ({lengths}), aligned and one off, NaN and inf "
           f"groups: bit for bit, NaN at the same places (NaNs with other "
           f"bits: {stats.get('nan_bits', {})}); max abs err "
           f"{ {k: v for k, v in stats.items() if k != 'nan_bits'} }")
-    print(f"phase 12: K1 and K5 segment tables of the main path, each "
+    print(f"phase {phase}: K1 and K5 segment tables of the main path, each "
           f"launched once aligned, once one element off and once every "
           f"other segment off, bit for bit: {tables}")
     return stats, lengths, tables
@@ -3432,18 +3481,8 @@ def _pin_prefill(path: str, d_model: int):
     """Pin the model axis's all-reduce slots of the prefill's two combine
     sizes (the token embedding's, and the blocks' over the stub rows and
     the tokens, bf16) to TP_SHARES; returns the buckets."""
-    from repro_torch.control.profile import TuningProfile
-    from repro_torch.core.communicator import bucket_for
-    from repro_torch.core.topology import Collective
-    from repro_torch.core.tuner import SHARE_GRID
-    prof = TuningProfile(path)
-    buckets = sorted({bucket_for(PREFILL_BATCH * rows * d_model * 2)
-                      for rows in (PREFILL_TOKENS, PREFILL_TOKENS + 256)})
-    for bucket in buckets:
-        prof.record("h100", "ring", Collective.ALL_REDUCE, 2, bucket,
-                    SHARE_GRID, TP_SHARES)
-    prof.save(path)
-    return buckets
+    return _pin_all_reduce(path, [PREFILL_BATCH * rows * d_model * 2 for rows
+                                  in (PREFILL_TOKENS, PREFILL_TOKENS + 256)])
 
 
 def _pin_data_axis_reduced(path: str):
@@ -3455,22 +3494,12 @@ def _pin_data_axis_reduced(path: str):
     import dataclasses
     from torch.utils import _pytree as pytree
     from repro_torch.configs import get_config
-    from repro_torch.control.profile import TuningProfile
-    from repro_torch.core.communicator import bucket_for
-    from repro_torch.core.topology import Collective
-    from repro_torch.core.tuner import SHARE_GRID
     from repro_torch.models.transformer import init_params
     cfg = dataclasses.replace(get_config("internvl2-76b").reduced(),
                               param_dtype="bfloat16")
     leaves = pytree.tree_leaves(init_params(cfg, torch.Generator(), "cpu"))
-    buckets = sorted({bucket_for(t.numel() * t.element_size())
-                      for t in leaves})
-    prof = TuningProfile(path)
-    for bucket in buckets:
-        prof.record("h100", "ring", Collective.ALL_REDUCE, 2, bucket,
-                    SHARE_GRID, TP_SHARES)
-    prof.save(path)
-    return buckets
+    return _pin_all_reduce(path, [t.numel() * t.element_size()
+                                  for t in leaves])
 
 
 def prefill_rank(pinned: str, batch):
@@ -3722,6 +3751,737 @@ def phase18_vlm_encdec(card, out_dir: pathlib.Path):
     return k6, k1
 
 
+# ---------------------------------------------------------------------------
+# phase 19: serving across devices
+# ---------------------------------------------------------------------------
+
+#: phase 19 (a): reduced float32 archs, the cache's global length and the
+#: decode steps; each rank's logits against the local decode within the
+#: reference's own bound (tests/test_integration.py)
+SERVE_REDUCED = ("glm4-9b", "zamba2-1.2b")
+SERVE_REDUCED_SEQ, SERVE_REDUCED_STEPS, SERVE_REDUCED_BATCH = 16, 10, 4
+SERVE_LOCAL_ATOL = 2e-3
+#: (b): glm4-9b at full width and depth on (model=2): batch 8, a 4096
+#: cache (2048 a rank), greedy steps from position 3072 over a filled
+#: cache, so both shards' partials carry real keys
+SERVE_BATCH, SERVE_SEQ, SERVE_POS, SERVE_STEPS = 8, 4096, 3072, 16
+#: (c): batch 1 on (data=2, model=2): a 32768 cache (8192 a rank), steps
+#: over a filled cache from a position just below the third shard's end:
+#: the owner moves from shard 2 to 3 (data index 1), shards 0-2 hold real
+#: keys, so both axes' merges combine partials with mass
+LONG_SEQ, LONG_POS, LONG_STEPS = 32768, 3 * 8192 - 4, 8
+#: (c)'s float32 pass: the same steps on the shards' first 8 layers
+#: upcast (four ranks' whole shards in float32 would not fit the card)
+LONG_F32_DEPTH = 8
+#: (b)-(c): the filled caches' seed, and the positions drawn from one seed
+#: (every cache slice of these runs is whole blocks of them)
+KV_FILL_SEED, KV_FILL_BLOCK = 1919, 2048
+#: (b)-(d): the sharded bf16 run's distance from one rank's float32 run
+#: over one rank's bf16 distance (1.046-1.075 over an empty cache): bf16
+#: depth and steps move both alike, a wrong combine moves the first
+SHARDED_OVER_ONE = 1.2
+#: (d): paged at (model=2): 8 requests' prompts packed in one step, then
+#: greedy steps of one row a request
+PAGED_TP_REQUESTS, PAGED_TP_GEN = 8, 6
+
+
+def _rel(a: np.ndarray, b: np.ndarray) -> float:
+    """Relative L2 error of ``a`` against ``b`` (float64)."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _fill_kv(cache, cfg, seq_idx: int):
+    """Fill a dense cache's ``k``/``v`` [L, B, S_local, kv, hd] with slice
+    ``seq_idx`` of one global cache (every row, the global positions
+    [seq_idx * S_local, (seq_idx + 1) * S_local)), the same on any mesh and
+    on one rank: each KV_FILL_BLOCK positions of a layer drawn from their
+    own seed, N(0, (0.02 sqrt(d_model))^2) (the std of the model's own
+    K/V: a unit-RMS input through N(0, 0.02^2) weights), rounded to bf16,
+    so a float32 cache holds the same values."""
+    std = 0.02 * cfg.d_model ** 0.5
+    n_layers, b, s_local, heads, hd = cache["k"].shape
+    check(s_local % KV_FILL_BLOCK == 0, f"a cache slice of {s_local} "
+          f"positions is not whole blocks of {KV_FILL_BLOCK}")
+    gen = torch.Generator(device=cache["k"].device)
+    for which, leaf in enumerate((cache["k"], cache["v"])):
+        for layer in range(n_layers):
+            for j in range(0, s_local, KV_FILL_BLOCK):
+                blk = (seq_idx * s_local + j) // KV_FILL_BLOCK
+                gen.manual_seed(((KV_FILL_SEED * 1000 + layer) * 1000
+                                 + blk) * 2 + which)
+                x = torch.randn((b, KV_FILL_BLOCK, heads, hd), generator=gen,
+                                device=leaf.device) * std
+                leaf[layer, :, j:j + KV_FILL_BLOCK] = x.to(
+                    torch.bfloat16).to(leaf.dtype)
+
+
+def _rank_params(cfg, ctx, mesh):
+    """This rank's shards of the seed-0 global init, made on the card one
+    rank at a time (a full-width tree is made whole before it is cut)."""
+    import torch.distributed as dist
+    from repro_torch.launch.steps import local_params, rank_specs
+    from repro_torch.models.transformer import init_params
+    params = None
+    for r in range(mesh.world):
+        if r == mesh.rank:
+            full = init_params(cfg, torch.Generator(
+                device="cuda").manual_seed(0), "cuda")
+            params = local_params(full, rank_specs(cfg, ctx), ctx)
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        dist.barrier()
+    return params
+
+
+def _gather_logits(logits, mesh) -> np.ndarray:
+    """Global [B, V] float32 logits on the host from every rank's
+    [B_local, V_local] (the rows whole on every rank)."""
+    return torch.cat(list(mesh.all_gather(logits.float(), "model")),
+                     dim=1).cpu().numpy()
+
+
+@contextlib.contextmanager
+def _executed(calls: list):
+    """Record every plan ``routing.execute`` runs in the block."""
+    from repro_torch.core import routing
+    execute = routing.execute
+
+    def recorded(plan, x, m, **kw):
+        calls.append((plan, m.axis_size(plan.axis_name), x.dtype))
+        return execute(plan, x, m, **kw)
+
+    routing.execute = recorded
+    try:
+        yield
+    finally:
+        routing.execute = execute
+
+
+def _all_reduces(calls: list) -> int:
+    """How many of the recorded plans are all-reduces (the combines; the
+    rest are the Q gathers)."""
+    return sum(plan.collective.value == "all_reduce" for plan, _, _ in calls)
+
+
+def _q_ag_counts(ctx) -> collections.Counter:
+    """Count the ctx's Q-gather issue scopes and the joins that read their
+    results (the instance's methods are wrapped; a program's await_all
+    joins no tree and is not counted)."""
+    counts = collections.Counter()
+    issue, join = ctx.issue, ctx.join_issued
+
+    def counted_issue(tag, **kw):
+        counts[f"{tag} issued"] += 1
+        return issue(tag, **kw)
+
+    def counted_join(tree):
+        counts["joined"] += tree is not None    # not the step's await_all
+        return join(tree)
+
+    ctx.issue, ctx.join_issued = counted_issue, counted_join
+    return counts
+
+
+def _serve_reduced_rank(mesh, batch: int):
+    """(a) on this rank: reduced float32 glm4-9b and zamba2-1.2b through
+    the serve program (tuned, default h100 comm) for SERVE_REDUCED_STEPS
+    teacher-forced steps; the largest gap of this rank's logits to (i) the
+    decode over a local cache on the same ctx and (ii) one device's local
+    decode of the whole batch (its block)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.communicator import CommConfig, comm_destroy_all
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import (build_serve_program,
+                                          local_params, rank_specs)
+    from repro_torch.models import single_device_ctx
+    from repro_torch.models.transformer import (DecodeConfig, decode_step,
+                                                init_cache, init_params)
+    out = {}
+    dp = mesh.axis_size("data")
+    rows = batch // dp if batch > 1 else batch
+    r0 = mesh.axis_index("data") * rows if batch > 1 else 0
+    m = mesh.axis_index("model")
+    for arch in SERVE_REDUCED:
+        comm_destroy_all()
+        cfg = get_config(arch).reduced()
+        full = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            0), "cuda")
+        toks = np.random.default_rng(19).integers(
+            1, cfg.vocab, (batch, SERVE_REDUCED_STEPS)).astype(np.int32)
+        program, ctx, dcfg = build_serve_program(
+            cfg, mesh, InputShape("a", "decode", SERVE_REDUCED_SEQ, batch),
+            comm=CommConfig(profile="h100"), name="serve")
+        params = local_params(full, rank_specs(cfg, ctx), ctx)
+        counts = _q_ag_counts(ctx)
+        cache = init_cache(cfg, ctx, dcfg, rows, device="cuda")
+        local = DecodeConfig(SERVE_REDUCED_SEQ, seq_shard=None)
+        lcache = init_cache(cfg, ctx, local, rows, device="cuda")
+        one = init_cache(cfg, single_device_ctx(), local, batch,
+                         device="cuda")
+        gaps = {"local": 0.0, "one": 0.0}
+        with torch.no_grad():
+            for t in range(SERVE_REDUCED_STEPS):
+                tok = toks[:, t:t + 1]
+                mine = torch.from_numpy(tok[r0:r0 + rows]).to("cuda")
+                logits, cache = program.step(params, cache, tok, t)
+                lg, lcache = decode_step(params, lcache, mine, t, cfg, ctx,
+                                         local)
+                og, one = decode_step(full, one, torch.from_numpy(tok).to("cuda"),
+                                      t, cfg, single_device_ctx(), local)
+                v = logits.shape[1]
+                og = og[r0:r0 + rows, m * v:(m + 1) * v]
+                check(bool(torch.isfinite(logits).all()),
+                      f"19 (a) {arch}: logits not finite")
+                gaps["local"] = max(gaps["local"],
+                                    (logits - lg).abs().max().item())
+                gaps["one"] = max(gaps["one"],
+                                  (logits - og).abs().max().item())
+        torch.cuda.synchronize()
+        program.close()
+        out[arch] = {"gaps": gaps, "q_ag": dict(counts),
+                     "seq_shard": dcfg.seq_shard,
+                     "cache_len_local": dcfg.cache_len_local}
+    comm_destroy_all()
+    return out
+
+
+def _paged_tp_inputs(vocab: int):
+    """(d)'s packed first step: 8 mixed requests' prompts (the serving
+    launcher's workload), one row a prompt token, each request's blocks
+    after the last's; and the block tables."""
+    from repro_torch.launch.serve import build_workload
+    work = build_workload(np.random.default_rng(0), PAGED_TP_REQUESTS, vocab,
+                          12, True)
+    lens = [len(p) for p, _ in work]
+    maxb = -(-(max(lens) + PAGED_TP_GEN) // BS)
+    tables = torch.arange(PAGED_TP_REQUESTS * maxb,
+                          dtype=torch.int32).reshape(PAGED_TP_REQUESTS, maxb)
+    tokens = torch.tensor([t for p, _ in work for t in p])
+    row_req = torch.tensor([i for i, n in enumerate(lens) for _ in range(n)])
+    positions = torch.tensor([j for n in lens for j in range(n)])
+    sample = torch.tensor(np.cumsum(lens) - 1)
+    return (tokens, positions, row_req, tables, sample), lens, maxb
+
+
+def _paged_tp(params, cfg, ctx, mesh=None):
+    """(d): the packed first step, then PAGED_TP_GEN greedy steps of one
+    row a request, through paged_decode_step with K6 on ``ctx`` (its
+    model axis, or one device): the first step's global logits, the
+    stream and K6's launches; the counts set to 0 just before and read
+    just after."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    from repro_torch.models.transformer import (PagedConfig, init_paged_pool,
+                                                paged_decode_step)
+    packed, lens, maxb = _paged_tp_inputs(cfg.vocab)
+    pcfg = PagedConfig(block_size=BS, n_blocks=PAGED_TP_REQUESTS * maxb,
+                       max_blocks_per_req=maxb, attn_impl="kernel")
+    pool = init_paged_pool(cfg, ctx, pcfg, device="cuda")
+    packed = [t.to("cuda") for t in packed]
+    tables = packed[3]
+    n = PAGED_TP_REQUESTS
+    stream, first, seen = [], None, []
+    steps = 1 + (PAGED_TP_GEN if mesh is not None else 0)
+    torch.cuda.synchronize()
+    fd.launch_count = 0
+    t0 = time.perf_counter()
+    with torch.no_grad(), _k6_inputs(seen if mesh is not None else None):
+        for g in range(steps):
+            logits, pool = paged_decode_step(params, pool, *packed, cfg, ctx,
+                                             pcfg)
+            full = (_gather_logits(logits, mesh) if mesh is not None
+                    else logits.float().cpu().numpy())
+            if g == 0:
+                first = full
+            tok = torch.from_numpy(full.argmax(-1))
+            stream.append(tok.tolist())
+            pos = torch.tensor([ln + g for ln in lens], device="cuda")
+            packed = [tok.to("cuda"), pos, torch.arange(n, device="cuda"),
+                      tables, torch.arange(n, device="cuda")]
+    torch.cuda.synchronize()
+    out = {"first": first, "stream": stream, "k6": fd.launch_count,
+           "steps": steps, "wall_s": time.perf_counter() - t0}
+    # every K6 call of the sharded run against its plain version on the
+    # same inputs, after the counts were read
+    out["k6_err"], out["k6_shapes"] = 0.0, set()
+    for args, kw in seen:
+        got = fd.paged_flash_decode_pool(*args, **kw)
+        want = ref.paged_flash_decode_ref(*args, **kw)
+        out["k6_err"] = max(out["k6_err"],
+                            (got.float() - want.float()).abs().max().item())
+        q, kp, _, tables, _ = args
+        out["k6_shapes"].add((q.shape[0], q.shape[1], kp.shape[2],
+                              q.shape[2], tables.shape[1], str(q.dtype)[6:]))
+    out["k6_checked"] = len(seen)
+    return out
+
+
+@contextlib.contextmanager
+def _k6_inputs(seen):
+    """Within the block, every K6 call's inputs, cloned, join the list
+    ``seen`` (nothing is recorded when it is None); the wrapper and its
+    count are untouched."""
+    from repro_torch.kernels import flash_decode as fd
+    launch = fd.paged_flash_decode_pool
+
+    def recorded(*args, **kw):
+        seen.append(([a.clone() for a in args], kw))
+        return launch(*args, **kw)
+
+    if seen is not None:
+        fd.paged_flash_decode_pool = recorded
+    try:
+        yield
+    finally:
+        fd.paged_flash_decode_pool = launch
+
+
+def serve_tp_rank(pinned: str):
+    """One rank of phase 19 on (model=2): (a) reduced float32 glm4-9b and
+    zamba2-1.2b at batch SERVE_REDUCED_BATCH; (b) glm4-9b at its published
+    widths and depth through the serve program, the model axis pinned by
+    ``pinned``, SERVE_STEPS greedy steps (the argmax of the logits
+    gathered over the model axis), each step issued and awaited, the
+    kernel counts set to 0 just before the run and read just after it,
+    every executed plan recorded; (d) paged_decode_step through K6 on the
+    same shards."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.core.communicator import CommConfig, comm_destroy_all
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import build_serve_program
+    from repro_torch.models.transformer import init_cache
+    mesh = Mesh((1, 2), ("data", "model"))
+    out = {"a": _serve_reduced_rank(mesh, SERVE_REDUCED_BATCH)}
+    cfg = get_config("glm4-9b")
+    comm_destroy_all()
+    program, ctx, dcfg = build_serve_program(
+        cfg, mesh, InputShape("b", "decode", SERVE_SEQ, SERVE_BATCH),
+        comm=CommConfig(profile="h100", tuning_cache=pinned), name="serve")
+    params = _rank_params(cfg, ctx, mesh)
+    cache = init_cache(cfg, ctx, dcfg, SERVE_BATCH, device="cuda")
+    _fill_kv(cache, cfg, mesh.axis_index("model"))
+    counts = _q_ag_counts(ctx)
+    tok = np.random.default_rng(19).integers(
+        1, cfg.vocab, (SERVE_BATCH, 1)).astype(np.int32)
+    stream, calls, ms, k1_calls = [tok[:, 0]], [], [], set()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernel_counts(reset=True)
+    with _executed(calls), recorded_calls(k1_calls):
+        for t in range(SERVE_STEPS):
+            t0 = time.perf_counter()
+            program.issue(params, cache, stream[-1][:, None], SERVE_POS + t)
+            logits, cache = program.await_all()[-1]
+            full = _gather_logits(logits, mesh)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            stream.append(full.argmax(-1).astype(np.int32))
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    want = collections.Counter()
+    for plan, n, dtype in calls:
+        want += codec_launches(plan, n, dtype)
+    rep = program.report()
+    program.close()
+    out["b"] = {"stream": np.stack(stream, 1), "last": full, "ms": ms,
+                "k1": launches["k1"], "k1_want": want["k1"],
+                "k1_calls": k1_calls,
+                "combines": _all_reduces(calls), "q_ag": dict(counts),
+                "plans": sorted({plan.chunk_units for plan, _, _ in calls}),
+                "issued": rep["issued"], "awaits": rep["awaits"],
+                "cache_len_local": dcfg.cache_len_local,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d"] = _paged_tp(params, cfg, ctx, mesh)
+    out["b32"] = _serve_f32(cfg, mesh, pinned, params,
+                            out["b"]["stream"][:, :SERVE_STEPS],
+                            InputShape("b", "decode", SERVE_SEQ, SERVE_BATCH),
+                            SERVE_POS, mesh.axis_index("model"))[-1]
+    comm_destroy_all()
+    return out
+
+
+def _serve_f32(cfg, mesh, pinned, params, tokens, shape, pos0: int,
+               seq_idx: int):
+    """The serve program once more on this rank's shards ``params``
+    upcast to float32 (TF32 off), over the same filled cache (its slice
+    ``seq_idx``): the global ``tokens`` [B, steps] fed from ``pos0``, free
+    of bf16 rounding; every step's global logits."""
+    import dataclasses
+    from repro_torch.core.communicator import CommConfig, comm_destroy_all
+    from repro_torch.launch.steps import build_serve_program
+    from repro_torch.models.transformer import init_cache
+    cfg = dataclasses.replace(cfg, param_dtype="float32")
+    params = _tree(lambda t: t.float(), params)
+    comm_destroy_all()
+    program, ctx, dcfg = build_serve_program(
+        cfg, mesh, shape, comm=CommConfig(profile="h100",
+                                          tuning_cache=pinned), name="serve")
+    cache = init_cache(cfg, ctx, dcfg, tokens.shape[0], device="cuda")
+    _fill_kv(cache, cfg, seq_idx)
+    out = []
+    for t in range(tokens.shape[1]):
+        program.issue(params, cache, tokens[:, t:t + 1], pos0 + t)
+        logits, cache = program.await_all()[-1]
+        out.append(_gather_logits(logits, mesh))
+    program.close()
+    return out
+
+
+def _cut(params, depth: int):
+    """A dense tree's first ``depth`` layers (views of the stacks)."""
+    return {k: _tree(lambda t: t[:depth], v) if k == "layers" else v
+            for k, v in params.items()}
+
+
+def serve_long_rank(pinned: str, tokens):
+    """One rank of phase 19 on (data=2, model=2): (a) reduced float32
+    glm4-9b and zamba2-1.2b at batch 1 (the cache over data x model); (c)
+    glm4-9b at its published widths and depth, batch 1, the model axis
+    pinned by ``pinned``, LONG_STEPS steps of ``tokens`` from LONG_POS,
+    the kernel counts set to 0 just before the run and read just after
+    it, every executed plan recorded; then the same steps on the shards'
+    first LONG_F32_DEPTH layers upcast to float32."""
+    import dataclasses
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.core.communicator import CommConfig, comm_destroy_all
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import build_serve_program
+    from repro_torch.models.transformer import init_cache
+    mesh = Mesh((2, 2), ("data", "model"))
+    out = {"a": _serve_reduced_rank(mesh, 1)}
+    cfg = get_config("glm4-9b")
+    comm_destroy_all()
+    program, ctx, dcfg = build_serve_program(
+        cfg, mesh, InputShape("c", "decode", LONG_SEQ, 1),
+        comm=CommConfig(profile="h100", tuning_cache=pinned), name="serve")
+    params = _rank_params(cfg, ctx, mesh)
+    cache = init_cache(cfg, ctx, dcfg, 1, device="cuda")
+    # the reference's layout of the batch-1 cache: data major
+    seq_idx = (mesh.axis_index("data") * mesh.axis_size("model")
+               + mesh.axis_index("model"))
+    _fill_kv(cache, cfg, seq_idx)
+    counts = _q_ag_counts(ctx)
+    logits_all, calls, ms, k1_calls = [], [], [], set()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernel_counts(reset=True)
+    with _executed(calls), recorded_calls(k1_calls):
+        for t in range(LONG_STEPS):
+            t0 = time.perf_counter()
+            program.issue(params, cache, tokens[:, t:t + 1], LONG_POS + t)
+            logits, cache = program.await_all()[-1]
+            logits_all.append(_gather_logits(logits, mesh))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    want = collections.Counter()
+    for plan, n, dtype in calls:
+        want += codec_launches(plan, n, dtype)
+    program.close()
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    c32 = _serve_f32(dataclasses.replace(cfg, n_layers=LONG_F32_DEPTH), mesh,
+                     pinned, _cut(params, LONG_F32_DEPTH), tokens,
+                     InputShape("c", "decode", LONG_SEQ, 1), LONG_POS,
+                     seq_idx)
+    comm_destroy_all()
+    return dict(out, c32=c32, c={
+        "logits": logits_all, "ms": ms,
+        "k1": launches["k1"], "k1_want": want["k1"], "k1_calls": k1_calls,
+        "combines": _all_reduces(calls),
+        "q_ag": dict(counts), "seq_shard": dcfg.seq_shard,
+        "plans": sorted({plan.chunk_units for plan, _, _ in calls}),
+        "cache_len_local": dcfg.cache_len_local,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+
+
+def _one_rank_decode(params, cfg, tokens, pos0: int, seq: int):
+    """One device's decode over a local cache of ``seq`` filled as the
+    sharded runs' (``_fill_kv``), the global ``tokens`` [B, steps] fed from
+    ``pos0``: each step's float32 logits on the host."""
+    from repro_torch.models import single_device_ctx
+    from repro_torch.models.transformer import (DecodeConfig, decode_step,
+                                                init_cache)
+    dcfg = DecodeConfig(seq, seq_shard=None)
+    cache = init_cache(cfg, single_device_ctx(), dcfg, tokens.shape[0],
+                       device="cuda")
+    _fill_kv(cache, cfg, 0)
+    out = []
+    with torch.no_grad():
+        for t in range(tokens.shape[1]):
+            lg, cache = decode_step(params, cache, torch.from_numpy(
+                np.ascontiguousarray(tokens[:, t:t + 1])).to("cuda"), pos0 + t,
+                cfg, single_device_ctx(), dcfg)
+            out.append(lg.float().cpu().numpy())
+    del cache
+    return out
+
+
+def _phase19a_line(mesh: str, res, card):
+    """Check and print (a)'s gaps on one mesh (every rank's)."""
+    for arch in SERVE_REDUCED:
+        local = max(r["a"][arch]["gaps"]["local"] for r in res)
+        one = max(r["a"][arch]["gaps"]["one"] for r in res)
+        q = res[0]["a"][arch]["q_ag"]
+        check(local < SERVE_LOCAL_ATOL, f"19 (a) {arch} on {mesh}: logits vs "
+              f"the local-cache decode max abs {local} >= {SERVE_LOCAL_ATOL}")
+        # a Mamba2 block at tp > 1 normalises its gated output over each
+        # shard's heads (the reference's), so only attention families
+        # equal one device's decode
+        if arch != "zamba2-1.2b":
+            check(one < SERVE_LOCAL_ATOL, f"19 (a) {arch} on {mesh}: logits "
+                  f"vs one rank's decode max abs {one} >= "
+                  f"{SERVE_LOCAL_ATOL}")
+        print(f"phase 19 (a): reduced {arch} f32 (TF32 off) through the "
+              f"serve program on {mesh}, seq_shard "
+              f"{res[0]['a'][arch]['seq_shard']!r}, cache "
+              f"{res[0]['a'][arch]['cache_len_local']} a rank, "
+              f"{SERVE_REDUCED_STEPS} steps: every rank's logits vs the "
+              f"local-cache decode on the same ranks max abs {local:.3g}, "
+              f"vs one rank's local decode {one:.3g} (bound "
+              f"{SERVE_LOCAL_ATOL}"
+              + ("; not bounded: the SSM's per-shard norm" if arch ==
+                 "zamba2-1.2b" else "")
+              + f"); Q gathers {q.get('q_ag issued', 0)} issued, "
+              f"{q.get('joined', 0)} joined a rank; {card}")
+
+
+def _one_rank_refs(cfg, run):
+    """``run(params, cfg)`` on one rank with the seed-0 weights in bf16,
+    then on the same weights upcast to float32 (TF32 off): the two
+    results."""
+    import dataclasses
+    from repro_torch.models.transformer import init_params
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    bf16 = run(params, cfg)
+    params = _tree(lambda t: t.float(), params)
+    f32 = run(params, dataclasses.replace(cfg, param_dtype="float32"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bf16, f32
+
+
+def _vs_float32(what, tp, one, f32, v, bounded=True):
+    """Relative L2 of the sharded and of one rank's bf16 logits against
+    the float32 run's (over the vocabulary, the largest over the steps
+    given), each bounded as phase 4's bf16 paths are (unless
+    ``bounded`` is false: (b) and (c), many steps over a filled cache,
+    whose float32 check is the sharded program's own float32 run), and
+    the first over the second
+    below SHARDED_OVER_ONE; and the gap between the two bf16 runs,
+    printed."""
+    err_tp = max(_rel(g[:, :v], w[:, :v]) for g, w in zip(tp, f32))
+    err_one = max(_rel(g[:, :v], w[:, :v]) for g, w in zip(one, f32))
+    gap = max(_rel(g[:, :v], w[:, :v]) for g, w in zip(tp, one))
+    check(all(bool(np.isfinite(g[:, :v]).all()) for g in tp + one + f32),
+          f"{what}: logits not finite")
+    for name, err in (("the sharded run", err_tp), ("one rank", err_one)):
+        check(not bounded or err < LOGITS_VS_FLOAT32, f"{what}: {name}'s "
+              f"bf16 logits vs the float32 run rel L2 {err} >= "
+              f"{LOGITS_VS_FLOAT32} (sharded {err_tp}, one rank {err_one})")
+    check(err_tp < SHARDED_OVER_ONE * err_one, f"{what}: the sharded run's "
+          f"distance from the float32 run {err_tp} is {err_tp / err_one} "
+          f"times one rank's {err_one} (bound {SHARDED_OVER_ONE})")
+    bound = (f"bound {LOGITS_VS_FLOAT32} each, phase 4's" if bounded else
+             "not bounded: phase 4's is one packed step's over a short cache; "
+             "the float32 pass holds this run")
+    return (f"logits rel L2 vs one rank's float32 run: sharded bf16 "
+            f"{err_tp:.4g}, one rank's bf16 {err_one:.4g} ({bound}), "
+            f"sharded over one rank {err_tp / err_one:.3f} (bound "
+            f"{SHARDED_OVER_ONE}); sharded vs one rank's bf16 {gap:.4g}")
+
+
+def phase19_serve_sharded(card):
+    """(a) reduced float32 glm4-9b and zamba2-1.2b through the serve
+    program on (model=2) and on (data=2, model=2), against the local
+    decode; (b) glm4-9b whole on (model=2), batch 8, 16 greedy steps; (c)
+    the same model, batch 1, the cache over (data=2, model=2); (d)
+    paged_decode_step through K6 at (model=2).  (b)-(d) hold the sharded
+    bf16 logits and one rank's against one rank's float32 run of the same
+    tokens, (b) and (c) also the sharded program in float32 against it
+    ((c) on the first LONG_F32_DEPTH layers); each K1 table and K6 call of
+    the sharded runs is then held against its plain version.  Returns (K1 launches of (b) and (c), K6
+    launches of (d), the K1 bit check's max abs err and tables)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import single_device_ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config("glm4-9b")
+    d, v = cfg.d_model, cfg.vocab
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        pinned = f"{tmp}/pinned.json"
+        buckets = _pin_all_reduce(pinned, (SERVE_BATCH * d * 2, d * 2))
+        t0 = time.perf_counter()
+        tp = run_ranks(serve_tp_rank, 2, backend="gloo", device="cuda",
+                       timeout_s=900, args=(pinned,))
+        tp_s = time.perf_counter() - t0
+        b = [r["b"] for r in tp]
+        # one rank's references of (b) and (d), before (c)'s ranks
+
+        def refs_bd(params, c):
+            return (_one_rank_decode(params, c, b[0]["stream"][:, :-1],
+                                     SERVE_POS, SERVE_SEQ)[-1],
+                    _paged_tp(params, c, single_device_ctx()))
+        (one_b, d_one), (one_b32, d_one32) = _one_rank_refs(cfg, refs_bd)
+        long_tokens = np.random.default_rng(191).integers(
+            1, cfg.vocab, (1, LONG_STEPS)).astype(np.int32)
+        t0 = time.perf_counter()
+        lg = run_ranks(serve_long_rank, 4, backend="gloo", device="cuda",
+                       timeout_s=900, args=(pinned, long_tokens))
+        long_s = time.perf_counter() - t0
+    _phase19a_line("(model=2)", tp, card)
+    _phase19a_line("(data=2, model=2)", lg, card)
+    # (b)
+    check(all(np.array_equal(r["stream"], b[0]["stream"]) for r in b),
+          "19 (b): the ranks' greedy streams differ")
+    check(all(0 <= t < v for t in b[0]["stream"].ravel()),
+          "19 (b): a token outside the vocabulary")
+    check(b[0]["last"].shape == (SERVE_BATCH, cfg.vocab_padded),
+          f"19 (b): logits of shape {b[0]['last'].shape}")
+    vs_b = _vs_float32("19 (b), the last step", [b[0]["last"]], [one_b],
+                       [one_b32], v, bounded=False)
+    # the sharded program in float32 against one rank's float32 run of the
+    # same tokens: the reference's bound, as (a)
+    b32 = max(float(np.abs(r["b32"][:, :v] - one_b32[:, :v]).max())
+              for r in tp)
+    check(b32 < SERVE_LOCAL_ATOL, f"19 (b) float32: the last step's logits "
+          f"vs one rank's float32 run max abs {b32} >= {SERVE_LOCAL_ATOL}")
+    n_combines = (1 + 2 * cfg.n_layers) * SERVE_STEPS
+    for r, got in enumerate(b):
+        check(got["k1"] == got["k1_want"] > 0, f"19 (b) rank {r}: K1 "
+              f"launched {got['k1']}, the executed plans imply "
+              f"{got['k1_want']}")
+        check(got["combines"] == n_combines, f"19 (b) rank {r}: "
+              f"{got['combines']} model-axis combines, expected {n_combines}")
+        check(got["q_ag"].get("q_ag issued") == got["q_ag"].get("joined")
+              == cfg.n_layers * SERVE_STEPS, f"19 (b) rank {r}: Q gathers "
+              f"{got['q_ag']}, expected {cfg.n_layers} a step")
+        check(got["issued"] == got["awaits"] == SERVE_STEPS, f"19 (b) rank "
+              f"{r}: {got['issued']} steps issued, {got['awaits']} awaited")
+    k1_b = sum(r["k1"] for r in b)
+    ms_b = statistics.median(max(r["ms"][t] for r in b)
+                             for t in range(1, SERVE_STEPS))
+    print(f"phase 19 (b): glm4-9b at its published widths and depth "
+          f"({cfg.n_layers} layers, {cfg.n_heads}/{cfg.n_kv_heads} heads), "
+          f"bf16, seed 0, through the serve program on (model=2), 2 gloo "
+          f"ranks on the card, batch {SERVE_BATCH}, cache {SERVE_SEQ} "
+          f"sequence-sharded over model ({b[0]['cache_len_local']} a rank, "
+          f"every KV head), the model axis's all-reduce pinned to "
+          f"{TP_SHARES} at buckets {buckets}, plans {b[0]['plans']}: "
+          f"the cache filled (seed {KV_FILL_SEED}), {SERVE_STEPS} greedy "
+          f"steps from {SERVE_POS} (argmax of the gathered logits), "
+          f"streams equal on both ranks, median {ms_b:.1f} ms a step (the "
+          f"slower rank, steps 2-{SERVE_STEPS}; first {b[0]['ms'][0]:.1f} "
+          f"ms; {WALL_NOTE}), peak {max(r['peak_gib'] for r in b):.2f} GiB "
+          f"a rank; {b[0]['combines']} combines a rank, K1 launches {k1_b} "
+          f"over 2 ranks (= the plans'); Q gathers "
+          f"{b[0]['q_ag']['q_ag issued']} issued, {b[0]['q_ag']['joined']} "
+          f"joined, steps {b[0]['issued']} issued / {b[0]['awaits']} awaited "
+          f"a rank; last step's {vs_b}; the same {SERVE_STEPS} steps in "
+          f"float32 (the shards upcast, TF32 off): last step's logits vs "
+          f"one rank's float32 run max abs {b32:.3g} (bound "
+          f"{SERVE_LOCAL_ATOL}); ranks ran {tp_s:.1f} s; {card}")
+    # (c)
+    c = [r["c"] for r in lg]
+    def refs_c(params, cf):
+        run = _one_rank_decode(params, cf, long_tokens, LONG_POS, LONG_SEQ)
+        if cf.param_dtype != "float32":
+            return run, None
+        return run, _one_rank_decode(
+            _cut(params, LONG_F32_DEPTH), dataclasses.replace(
+                cf, n_layers=LONG_F32_DEPTH), long_tokens, LONG_POS,
+            LONG_SEQ)
+    (one_c, _), (one_c32, one_c32_cut) = _one_rank_refs(cfg, refs_c)
+    # every rank's logits: a data-axis merge that drops a partial shows on
+    # either data index
+    vs_c = _vs_float32("19 (c), every rank", [g for r in c for g in
+                                             r["logits"]],
+                       one_c * len(c), one_c32 * len(c), v, bounded=False)
+    c32 = max(float(np.abs(g[:, :v] - w[:, :v]).max())
+              for r in lg for g, w in zip(r["c32"], one_c32_cut))
+    check(c32 < SERVE_LOCAL_ATOL, f"19 (c) float32 depth {LONG_F32_DEPTH}: "
+          f"every rank's logits vs one rank's float32 run max abs {c32} >= "
+          f"{SERVE_LOCAL_ATOL}")
+    for r, got in enumerate(c):
+        check(got["k1"] == got["k1_want"] > 0, f"19 (c) rank {r}: K1 "
+              f"launched {got['k1']}, the executed plans imply "
+              f"{got['k1_want']}")
+        check(got["q_ag"].get("q_ag issued") == got["q_ag"].get("joined")
+              == cfg.n_layers * LONG_STEPS, f"19 (c) rank {r}: Q gathers "
+              f"{got['q_ag']}")
+    k1_c = sum(r["k1"] for r in c)
+    ms_c = statistics.median(max(r["ms"][t] for r in c)
+                             for t in range(1, LONG_STEPS))
+    print(f"phase 19 (c): the same model, batch 1, seq_shard "
+          f"{c[0]['seq_shard']!r} on (data=2, model=2), 4 gloo ranks on the "
+          f"card, cache {LONG_SEQ} ({c[0]['cache_len_local']} a rank), "
+          f"the cache filled (seed {KV_FILL_SEED}), {LONG_STEPS} steps from "
+          f"position {LONG_POS} (the owning shard moves 2 -> 3), plans "
+          f"{c[0]['plans']}: median {ms_c:.1f} ms a "
+          f"step (first {c[0]['ms'][0]:.1f} ms; {WALL_NOTE}), peak "
+          f"{max(r['peak_gib'] for r in c):.2f} GiB a rank; "
+          f"{c[0]['combines']} combines a rank, K1 launches {k1_c} over 4 "
+          f"ranks (= the plans'); the largest over the steps and ranks of "
+          f"the {vs_c} (one rank's cache {LONG_SEQ}); the same steps on the "
+          f"shards' first {LONG_F32_DEPTH} layers in float32: every rank's "
+          f"logits vs one rank's float32 run of those layers max abs "
+          f"{c32:.3g} (bound {SERVE_LOCAL_ATOL}); ranks ran {long_s:.1f} s; "
+          f"{card}")
+    # (d)
+    dd = [r["d"] for r in tp]
+    k6 = sum(r["k6"] for r in dd)
+    for r, got in enumerate(dd):
+        check(got["k6"] == cfg.n_layers * got["steps"], f"19 (d) rank {r}: "
+              f"K6 launched {got['k6']}, expected {cfg.n_layers} x "
+              f"{got['steps']}")
+        check(got["k6_checked"] == got["k6"] and got["k6_err"] <= ATOL[
+            torch.bfloat16], f"19 (d) rank {r}: {got['k6_checked']} K6 calls "
+            f"held against the plain version, max abs err {got['k6_err']} "
+            f"(atol {ATOL[torch.bfloat16]})")
+    for got in (d_one, d_one32):
+        check(got["k6"] == cfg.n_layers, f"19 (d) one rank: K6 launched "
+              f"{got['k6']}, expected {cfg.n_layers}")
+    check(dd[0]["stream"] == dd[1]["stream"], "19 (d): the ranks' streams "
+          "differ")
+    vs_d = _vs_float32("19 (d), the packed step", [dd[0]["first"]],
+                       [d_one["first"]], [d_one32["first"]], v)
+    _, lens, _ = _paged_tp_inputs(cfg.vocab)
+    print(f"phase 19 (d): paged_decode_step through K6 on the same model "
+          f"at (model=2) (Hq_l {cfg.n_heads // 2}, kv_w 1, group "
+          f"{cfg.n_heads // 2}, hd {cfg.head_dim_}): {PAGED_TP_REQUESTS} "
+          f"requests' prompts ({sum(lens)} rows) packed in one step, then "
+          f"{PAGED_TP_GEN} greedy steps: K6 launches {k6} over 2 ranks "
+          f"({cfg.n_layers} x {dd[0]['steps']} a rank), {dd[0]['wall_s']:.2f} "
+          f"s a rank ({WALL_NOTE}); every K6 call of both ranks on its own "
+          f"inputs vs the plain version (T, Hq_l, kv_w, hd, maxb, dtype "
+          f"{sorted(set().union(*(r['k6_shapes'] for r in dd)))}): max abs "
+          f"err {max(r['k6_err'] for r in dd):.3g}; the packed step's {vs_d} "
+          f"(one rank through K6 in both dtypes); {card}")
+    # (b) and (c): every K1 segment table the serve programs launched, bit
+    # for bit against the plain version
+    k1_err, _, k1_tables = phase12_main_path_check(
+        set().union(*(r["k1_calls"] for r in b + c)), phase="19",
+        required=("k1",))
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return ({"tp2": k1_b, "model_data": k1_c}, k6,
+            k1_err.get("k1", 0.0), k1_tables)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -3776,6 +4536,8 @@ def main(argv=None) -> int:
     ssm_k1 = phase17_ssm_hybrid(card)
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         vlm_k6, vlm_k1 = phase18_vlm_encdec(card, pathlib.Path(tmp))
+    serve_k1, serve_k6, serve_k1_err, serve_tables = phase19_serve_sharded(
+        card)
     kernels = [{
         "name": "paged_flash_decode",
         "route": "cuda",
@@ -3805,6 +4567,9 @@ def main(argv=None) -> int:
         "launches_moe_serve_from": "phase 15 (b, c): layers x packed steps",
         f"launches_vlm_serve_internvl2_depth{VLM_DEPTH}": vlm_k6,
         "launches_vlm_serve_from": "phase 18 (b): layers x packed steps",
+        "launches_serve_paged_glm4_tp2": serve_k6,
+        "launches_serve_paged_from": "phase 19 (d): 2 ranks, layers x steps "
+                                     "each",
     }, {
         "name": "chunk_accumulate",
         "route": "cuda",
@@ -3838,6 +4603,10 @@ def main(argv=None) -> int:
         "launches_train_internvl2_reduced_dp_flexlink":
             vlm_k1["internvl2-76b"],
         "launches_prefill_internvl2_tp2": vlm_k1["prefill"],
+        "launches_serve_glm4_tp2": serve_k1["tp2"],
+        "launches_serve_glm4_model_data": serve_k1["model_data"],
+        "max_abs_err_serve": serve_k1_err,
+        "segment_tables_serve": serve_tables.get("k1_segments", []),
         "mixed_f32_bf16": {
             "launches": bf16_launches["k1_mixed"],
             "max_abs_err": path_errs["k1_mixed"],

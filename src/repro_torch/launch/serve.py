@@ -1,17 +1,25 @@
 """Serving launcher: batched request serving — wave engine or the
 continuous-batching paged engine (DESIGN.md §13).
 
-Port of ``src/repro/launch/serve.py`` (its single-device flags, workload
-builder and printed lines), plus ``--device`` (default ``cuda``; no card
-means exit 2, never a silent CPU run) and ``--attn-impl`` for the paged
-engine's attention (``kernel`` = the CUDA flash-decode kernel).
+Port of ``src/repro/launch/serve.py`` (its flags, workload builder and
+printed lines), plus ``--device`` (default ``cuda``; no card means exit
+2, never a silent CPU run) and ``--attn-impl`` for the paged engine's
+attention (``kernel`` = the CUDA flash-decode kernel).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
       --requests 8 --paged on --attn-impl kernel --mixed
 
-The reference's communicator flags (--tuning-cache --timing
---secondary-algo --compress --degrade --fault --nodes --pods) only print a
-note on one device there, and come with the communicator port here.
+The launcher serves on one device, as the reference's: the engines take
+no model axis (serving across devices is
+``launch/steps.build_serve_program``).  ``--tuning-cache --timing
+--secondary-algo --compress`` are kept for the reference's command-line
+contract only: they go into the ``CommConfig`` of its one-device ctx,
+which has no communicator, so they change nothing and print the
+reference's note; ``--tuning-cache`` also saves the (empty) profile when
+draining ends.  The communicator's default profile is ``h100`` (the reference's
+launcher uses ``tpu_v5e``).  ``--degrade --fault --nodes --pods`` need
+tiers not ported yet and exit 2 naming the ROADMAP item: 13 (faults), 12
+(two-tier cluster), 14 (pod tier).
 """
 
 from __future__ import annotations
@@ -26,7 +34,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ALIASES, get_config
-from repro_torch.models.tp import single_device_ctx
+from repro_torch.core.communicator import CommConfig
+from repro_torch.launch.train import unported
+from repro_torch.models.tp import ParallelCtx
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import (PagedServeConfig, PagedServeEngine,
                                         ServeConfig, ServeEngine)
@@ -89,8 +99,34 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="",
                     help="write the serve record (serving block + cache "
                          "stats) to this JSON path")
+    ap.add_argument("--tuning-cache", default="",
+                    help="TuningProfile JSON: warm-start Stage-1 shares "
+                         "and persist them back when draining finishes")
+    ap.add_argument("--timing", choices=["sim", "measured"], default="sim",
+                    help="Stage-2 TimingSource (control/timing.py)")
+    ap.add_argument("--secondary-algo", choices=["ring", "tree"],
+                    default="ring")
+    ap.add_argument("--compress", default="",
+                    help="secondary-path wire codecs, e.g. 'secondary=fp8' "
+                         "or 'staged=bf16,ortho=fp8' (DESIGN.md §12)")
+    ap.add_argument("--degrade", default="",
+                    help="fault injection name[:member]=factor: not ported "
+                         "yet (ROADMAP queue 1 item 13), exits 2")
+    ap.add_argument("--fault", default="",
+                    help="fault-timeline schedule over serve ticks: not "
+                         "ported yet (item 13), exits 2")
+    ap.add_argument("--nodes", type=int, default=1,
+                    help="cluster node count: > 1 is not ported yet (item "
+                         "12), exits 2")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pod count: > 1 is not ported yet (item 14), "
+                         "exits 2")
     args = ap.parse_args(argv)
 
+    missing = unported(args)
+    if missing:
+        print(f"error: not ported yet: {missing}", file=sys.stderr)
+        return 2
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print(f"error: --device {args.device} but no CUDA card is present; "
@@ -100,7 +136,19 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    ctx = single_device_ctx()
+    # one device's ctx, with the comm config plumbed so a multi-axis
+    # deployment of this launcher inherits the control-plane flags
+    ctx = ParallelCtx(comm_config=CommConfig(
+        timing=args.timing, secondary_algo=args.secondary_algo,
+        tuning_cache=args.tuning_cache, compress=args.compress))
+    if not ctx.comms() and (args.timing != "sim" or args.tuning_cache
+                            or args.secondary_algo != "ring"
+                            or args.compress):
+        print("note: single-device launch has no communicators — "
+              "--timing/--tuning-cache/--secondary-algo/--nodes/--degrade/"
+              "--fault/--compress take effect only with parallel axes (the "
+              "decode wave itself never crosses the NIC tier; see "
+              "launch/shapes.py)")
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = init_params(cfg, gen, device)
@@ -146,6 +194,9 @@ def main(argv=None) -> int:
         print(f"serving: {srv['scheduler']['preemptions']} preemptions, "
               f"kv blocks peak {kv['peak_in_use']}/{kv['total']}, "
               f"median step {srv['step_ms']['median']:.3f} ms")
+    if args.tuning_cache:
+        n = engine.save_tuning(args.tuning_cache)
+        print(f"tuning profile: {n} slots -> {args.tuning_cache}")
     if args.out:
         d = os.path.dirname(args.out)
         if d:

@@ -23,9 +23,10 @@ step after a Stage-2 share move runs against the SAME balancer state.
 
 Two tiers, as in the reference:
 
-* ``build_train_step`` / ``build_prefill_step``       — one step callable
-  + ctx;
-* ``build_train_program`` / ``build_prefill_program`` — a
+* ``build_train_step`` / ``build_prefill_step`` / ``build_serve_step`` —
+  one step callable + ctx (+ the DecodeConfig for serving);
+* ``build_train_program`` / ``build_prefill_program`` /
+  ``build_serve_program`` — a
   :class:`~repro_torch.runtime.program.StepProgram` around the same
   builder: the plan-keyed executable cache plus a per-program Stage-2
   replay recorder.
@@ -34,9 +35,17 @@ The prefill step runs this rank's rows of a batch, the frontend stubs
 (``vis_embed``, ``enc_embed``) included, through ``forward`` without a
 gradient and returns the last position's local-vocab logits
 ``[B_local, V_local]`` (the reference's ``out_specs=P(batch, "model")``).
-Each build returns a fresh closure (the reference's fresh ``jax.jit``);
-nothing is compiled.  The serve program of the reference comes with the
-serving-across-devices slice (ROADMAP queue 1 item 11).
+The serve step is one ``decode_step`` of the ``DecodeConfig`` that
+``launch/shapes.decode_config`` gives an input shape on this mesh: the KV
+cache sequence-sharded over the model axis for a batch of several rows
+(split over data), over data x model for batch 1.  It takes RANK-LOCAL
+params and a RANK-LOCAL cache (``init_cache`` at ``cache_len_local`` on
+the rank's device, updated in place), the GLOBAL token ``[B, 1]`` (numpy
+or a CPU tensor; this rank's rows go to its device per
+``input_partition_specs``) and the position as a host int, and returns
+this rank's local-vocab logits ``[B_local, V_local]`` and the cache,
+under ``torch.no_grad()``.  Each build returns a fresh closure (the
+reference's fresh ``jax.jit``); nothing is compiled.
 """
 
 from __future__ import annotations
@@ -48,10 +57,11 @@ import torch
 
 from repro_torch.convert import shard_params, spec_axes
 from repro_torch.core.communicator import CommConfig
+from repro_torch.launch import shapes as SH
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.tp import ParallelCtx
-from repro_torch.models.transformer import (forward, lm_logits_local,
-                                            param_specs)
+from repro_torch.models.transformer import (decode_step, forward,
+                                            lm_logits_local, param_specs)
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.program import StepProgram
 from repro_torch.train.train_step import make_train_step
@@ -179,3 +189,42 @@ def build_prefill_program(cfg: ArchConfig, mesh=None, *,
     builder, ctx = _prefill_builder(cfg, mesh, comm=comm, remat=remat,
                                     device=device)
     return StepProgram(builder, ctx, name=name), ctx
+
+
+def _serve_builder(cfg: ArchConfig, mesh, shape: SH.InputShape, *,
+                   comm: Optional[CommConfig], device):
+    ctx = make_ctx(mesh, comm)
+    dcfg = SH.decode_config(cfg, shape, tp=ctx.tp_size, dp=ctx.dp_size)
+    split = SH.input_partition_specs(cfg, shape, tp=ctx.tp_size,
+                                     dp=ctx.dp_size)["token"][0]
+    dev = mesh.device if mesh is not None else torch.device(device)
+
+    def builder():
+        def serve(params, cache, token, pos: int):
+            token = np.array(token)           # numpy or a CPU tensor
+            tok = (local_batch({"token": token}, ctx, dev)["token"]
+                   if split else torch.from_numpy(token).to(dev))
+            with torch.no_grad():
+                return decode_step(params, cache, tok, int(pos), cfg, ctx,
+                                   dcfg)
+        return serve
+
+    return builder, ctx, dcfg
+
+
+def build_serve_step(cfg: ArchConfig, mesh, shape: SH.InputShape, *,
+                     comm: Optional[CommConfig] = None, device="cuda"):
+    """One-token decode over a seq_len KV cache (decode_32k / long_500k):
+    the step callable, its ctx and its DecodeConfig."""
+    builder, ctx, dcfg = _serve_builder(cfg, mesh, shape, comm=comm,
+                                        device=device)
+    return builder(), ctx, dcfg
+
+
+def build_serve_program(cfg: ArchConfig, mesh, shape: SH.InputShape, *,
+                        comm: Optional[CommConfig] = None, name: str = "",
+                        device="cuda"):
+    """The serve step as a StepProgram, its ctx and its DecodeConfig."""
+    builder, ctx, dcfg = _serve_builder(cfg, mesh, shape, comm=comm,
+                                        device=device)
+    return StepProgram(builder, ctx, name=name), ctx, dcfg

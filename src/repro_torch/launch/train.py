@@ -53,9 +53,10 @@ from repro_torch.train.loop import LoopConfig, run_loop
 from repro_torch.train.train_step import ef_init_residuals
 
 
-def _unported(args) -> str:
-    """The ROADMAP item a flag of this run needs, or ""."""
-    if args.nodes > 1 or args.cluster:
+def unported(args) -> str:
+    """The ROADMAP item a flag of this run needs, or "" (the serve
+    launcher's flags too, which have no ``--cluster``)."""
+    if args.nodes > 1 or getattr(args, "cluster", ""):
         return "--nodes/--cluster: ROADMAP queue 1 item 12 (two-tier cluster)"
     if args.pods > 1:
         return "--pods: ROADMAP queue 1 item 14 (pod tier)"
@@ -166,7 +167,7 @@ def main(argv=None) -> int:
                          "pays.  Default: off")
     args = ap.parse_args(argv)
 
-    missing = _unported(args)
+    missing = unported(args)
     if missing:
         print(f"error: not ported yet: {missing}", file=sys.stderr)
         return 2

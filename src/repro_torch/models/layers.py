@@ -19,11 +19,13 @@ the reference's conventions:
     (``_kv_slice``).  ``attention_specs`` / ``mlp_specs`` name the sharded
     dim of each leaf (convert.py cuts a rank's shard by them).
 
-Training and prefill run at any tp, cross-attention (``xattn_kv``, the
-encdec family's decoder) included.  The decode paths (dense cache and
-paged pool) run at tp = 1 and raise above it: the sequence-sharded decode
-(the reference's ``seq_shard``) and serving across devices come with
-ROADMAP queue 1 item 11.
+Every path runs at any tp: training and prefill, cross-attention
+(``xattn_kv``, the encdec family's decoder), the decode over a local cache
+and over a paged pool (this shard's ``kv_w`` heads), and the
+sequence-sharded decode (``seq_shard``, ``_seq_sharded_decode``): the
+cache's sequence dim is split over the model axis (and the data axis too
+for batch 1), every shard attends all heads over its slice, and the
+partials merge by a distributed log-sum-exp.
 """
 
 from __future__ import annotations
@@ -105,13 +107,17 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, window: Optional[int] = None,
-                      q_offset=0, kv_valid=None,
-                      chunk: int = ATTN_CHUNK) -> torch.Tensor:
+                      q_offset=0, k_offset: int = 0, kv_valid=None,
+                      chunk: int = ATTN_CHUNK, with_stats: bool = False):
     """Streaming-softmax attention.
 
     q: [B, Sq, Hq, hd]; k, v: [B, Skv, Hkv, hd] with Hq % Hkv == 0.
     Query positions are q_offset+i (q_offset a scalar or [B]), key
-    positions j; kv_valid (scalar or [B]) bounds the keys attended.
+    positions k_offset+j (k_offset a host int: the first position of a
+    sequence-sharded cache's slice); kv_valid (scalar or [B]) bounds the
+    keys attended.  With ``with_stats`` the result is the un-normalised
+    (acc [B,Hkv,g,Sq,hd], running max [B,Hkv,g,Sq], denominator
+    [B,Hkv,g,Sq]) in float32, for a log-sum-exp merge across shards.
     """
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -129,7 +135,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         # padded slots are masked by LOCAL index: a kv_valid bound alone
-        # would admit them when no bound is given
+        # would admit them when no bound is given, or, with a nonzero
+        # k_offset, where they alias global positions below it
         local_len = skv
     kc = k.reshape(b, n_chunks, chunk, hkv, hd)
     vc = v.reshape(b, n_chunks, chunk, hkv, hd)
@@ -139,13 +146,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l_run = torch.zeros((b, hkv, group, sq), device=dev)
     acc = torch.zeros((b, hkv, group, sq, hd), device=dev)
     for ci in range(n_chunks):                   # lax.scan in the reference
-        k_pos = ci * chunk + torch.arange(chunk, device=dev)
+        k_local = ci * chunk + torch.arange(chunk, device=dev)
         kf = kc[:, ci].float()
         vf = vc[:, ci].float()
         s = torch.einsum("bqhgd,bchd->bhgqc", qg, kf)    # [B,Hkv,g,Sq,chunk]
-        keep = _mask(q_pos, k_pos, causal, window, kv_valid)
+        keep = _mask(q_pos, k_offset + k_local, causal, window, kv_valid)
         if local_len is not None:
-            keep = keep & (k_pos < local_len)
+            keep = keep & (k_local < local_len)
         if keep.ndim == 2:                       # [Sq, chunk]
             keep = keep[None, None, None]
         else:                                    # [B, Sq, chunk]
@@ -164,6 +171,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "bhgqc,bchd->bhgqd", p, vf)
         m_run = m_new
 
+    if with_stats:
+        return acc, m_run, l_run
     denom = torch.clamp(l_run, min=1e-30)
     out = acc / denom[..., None]                          # [B,Hkv,g,Sq,hd]
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd)
@@ -242,13 +251,6 @@ def _kv_slice(p, cfg: ArchConfig, ctx: ParallelCtx, which: str):
     return w, bias
 
 
-def _one_shard(ctx: ParallelCtx, what: str) -> None:
-    if ctx.tp_size > 1:
-        raise NotImplementedError(
-            f"{what} at tp = {ctx.tp_size}: serving across devices is not "
-            f"ported yet (ROADMAP queue 1 item 11)")
-
-
 def _project_q(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
     """Q [B,S,Hq_l,hd] before RoPE."""
     q = x @ p["wq"]
@@ -257,13 +259,21 @@ def _project_q(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
     return q.reshape(*x.shape[:2], head_layout(cfg, ctx)[0], cfg.head_dim_)
 
 
-def _project_kv(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
+def _project_kv(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx,
+                all_heads: bool = False):
     """K and V [B,S,kv_w,hd] of this shard's KV heads, before RoPE (also
-    the cross-attention K/V of an encoder output)."""
+    the cross-attention K/V of an encoder output); ``all_heads`` projects
+    every KV head with the full ``wk``/``wv`` (a sequence-sharded shard
+    attends all heads over its slice)."""
     b, s, _ = x.shape
-    kv_w = head_layout(cfg, ctx)[1]
-    wk, bk = _kv_slice(p, cfg, ctx, "k")
-    wv, bv = _kv_slice(p, cfg, ctx, "v")
+    if all_heads:
+        kv_w = cfg.n_kv_heads
+        wk, bk = p["wk"], p.get("bk")
+        wv, bv = p["wv"], p.get("bv")
+    else:
+        kv_w = head_layout(cfg, ctx)[1]
+        wk, bk = _kv_slice(p, cfg, ctx, "k")
+        wv, bv = _kv_slice(p, cfg, ctx, "v")
     k = x @ wk
     v = x @ wv
     if bk is not None:
@@ -272,20 +282,20 @@ def _project_kv(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
             v.reshape(b, s, kv_w, cfg.head_dim_))
 
 
-def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
-    """Q [B,S,Hq_l,hd], K and V [B,S,kv_w,hd] before RoPE."""
-    return (_project_q(p, x, cfg, ctx), *_project_kv(p, x, cfg, ctx))
-
-
 def attention_block(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx,
                     *, causal: bool = True, positions=None,
-                    kv_cache=None, cache_pos=None, window_override="cfg",
-                    xattn_kv=None):
+                    kv_cache=None, cache_pos=None, seq_shard=None,
+                    window_override="cfg", xattn_kv=None):
     """One attention sublayer (pre-norm handled by the caller).
 
-    kv_cache: (k, v) of [B, S_cache, kv_w, hd] — decode mode; x holds the
-      new token(s), cache_pos the write position (scalar, or [B] for
-      single-token steps with per-slot positions).
+    kv_cache: (k, v) of [B, S_cache_local, kv_w, hd] — decode mode; x holds
+      the new token(s), cache_pos the global write position (scalar, or
+      [B] for single-token steps with per-slot positions).
+    seq_shard: None (a local cache of this shard's kv_w heads), "model" or
+      "model_data": the cache's sequence dim is split over the model axis
+      (and the data axis too, for batch 1), each shard holding all
+      n_kv_heads of its slice; cache_pos is then a host int
+      (``_seq_sharded_decode``).
     xattn_kv: precomputed (k, v) [B, S_enc, kv_w, hd] for cross-attention:
       only Q is projected, and attended over them unmasked, without RoPE
       (the reference ropes neither side there) and without a cache write.
@@ -305,24 +315,29 @@ def attention_block(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx,
                                 causal=False, window=None)
     else:
         out, new_cache = _self_attention(p, x, cfg, ctx, causal, positions,
-                                         kv_cache, cache_pos, window)
+                                         kv_cache, cache_pos, seq_shard,
+                                         window)
     o = out.reshape(b, s, hq_l * cfg.head_dim_) @ p["wo"]
     o = ctx.tp_all_reduce(o)       # row-parallel combine
     return o, new_cache
 
 
 def _self_attention(p, x, cfg: ArchConfig, ctx: ParallelCtx, causal,
-                    positions, kv_cache, cache_pos, window):
+                    positions, kv_cache, cache_pos, seq_shard, window):
     """Self-attention of ``attention_block``: (out [B,S,Hq_l,hd],
     new_cache), the cache written when one is given."""
     s = x.shape[1]
-    q, k, v = _project_qkv(p, x, cfg, ctx)
+    seq = kv_cache is not None and seq_shard is not None
+    q = _project_q(p, x, cfg, ctx)
+    k, v = _project_kv(p, x, cfg, ctx, all_heads=seq)
     if cfg.rope_theta:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if kv_cache is None:
         return chunked_attention(q, k, v, causal=causal, window=window), None
-    _one_shard(ctx, "the dense decode path")
+    if seq:
+        return _seq_sharded_decode(q, k, v, kv_cache, cache_pos, ctx,
+                                   window, seq_shard)
     ck, cv = kv_cache
     pos_arr = torch.as_tensor(cache_pos, device=x.device)
     if pos_arr.ndim:                     # per-slot positions [B]
@@ -343,6 +358,74 @@ def _self_attention(p, x, cfg: ArchConfig, ctx: ParallelCtx, causal,
     return chunked_attention(q, ck, cv, causal=True, window=window,
                              q_offset=pos_arr, kv_valid=pos_arr + s), \
         (ck, cv)
+
+
+def _seq_sharded_decode(q, k_new, v_new, kv_cache, cache_pos: int,
+                        ctx: ParallelCtx, window, seq_shard="model"):
+    """Decode attention over a cache whose SEQUENCE dim is sharded over
+    the model axis (and the data axis too for batch 1, ``"model_data"``).
+
+    Q heads are sharded over the model axis, and so is the sequence, so
+    the standard flash-decode distribution: (1) all-gather the (tiny) Q
+    over the model axis so every shard holds ALL heads, issued as its own
+    in-flight plan on the ctx's side stream; (2) write the new token's
+    full-head K/V into the owning shard's slice (a host branch on the host
+    int ``cache_pos``), the overlap window, after which the current stream
+    waits for the gather; (3) local partial attention over the slice at
+    its global positions; (4) the log-sum-exp merge over the sharding
+    axes; (5) this shard's own Q heads, for the row-parallel ``wo``.
+    """
+    b, s, hq_l, hd = q.shape
+    ck, cv = kv_cache
+    s_local = ck.shape[1]
+    cache_pos = int(cache_pos)
+    tp = max(ctx.tp_size, 1)
+    shard_idx = ctx.tp_index()
+    seq_idx = shard_idx
+    if seq_shard == "model_data":
+        seq_idx = ctx.dp_index() * tp + shard_idx
+    offset = seq_idx * s_local
+
+    # (1) full-head Q on every shard (B x Hq x hd bytes); the gather
+    # overlaps the cache write below, which needs no Q.  Layers >= 1 run
+    # under unrecorded() and repeat the first layer's scope
+    if tp > 1:
+        with ctx.issue("q_ag", repeats=True):
+            qg = ctx.tp_all_gather(q.permute(2, 0, 1, 3).contiguous(),
+                                   tiled=True)
+
+    # (2) the new token's K/V into the owning shard (the reference's
+    # clip(local_pos, 0, s_local - s) under its `owns` select)
+    local_pos = cache_pos - offset
+    if 0 <= local_pos < s_local:
+        start = min(local_pos, s_local - s)
+        ck, cv = ck.clone(), cv.clone()
+        ck[:, start:start + s] = k_new.to(ck.dtype)
+        cv[:, start:start + s] = v_new.to(cv.dtype)
+    q_full = ctx.join_issued(qg).permute(1, 2, 0, 3) if tp > 1 else q
+    hq = q_full.shape[2]
+
+    # (3) local partial attention at global positions
+    acc, m, l = chunked_attention(
+        q_full, ck, cv, causal=True, window=window, q_offset=cache_pos,
+        k_offset=offset, kv_valid=cache_pos + s, with_stats=True)
+    # (4) the distributed log-sum-exp merge
+    m_glob = ctx.tp_pmax_small(m)
+    if seq_shard == "model_data":
+        m_glob = ctx.dp_pmax_small(m_glob)
+    m_safe = torch.where(torch.isfinite(m_glob), m_glob, 0.0)
+    alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+    l_glob = ctx.tp_psum_small(l * alpha)
+    acc_glob = ctx.tp_psum_small(acc * alpha[..., None])
+    if seq_shard == "model_data":
+        l_glob = ctx.dp_psum_small(l_glob)
+        acc_glob = ctx.dp_psum_small(acc_glob)
+    out = acc_glob / torch.clamp(l_glob, min=1e-30)[..., None]
+    # [B, Hkv, group, s, hd] over ALL heads -> [B, s, Hq, hd]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, hd)
+    # (5) this shard's own Q heads for the row-parallel out-projection
+    out = out[:, :, shard_idx * hq_l:(shard_idx + 1) * hq_l]
+    return out.to(q.dtype), (ck, cv)
 
 
 # ---------------------------------------------------------------------------
@@ -375,7 +458,6 @@ def paged_attention_block(p, x: torch.Tensor, cfg: ArchConfig,
 
     Returns (out [T, 1, D], (k_pool, v_pool)).
     """
-    _one_shard(ctx, "paged attention")
     b, s, d = x.shape
     assert s == 1, "paged attention packs single-token rows"
     hd = cfg.head_dim_
@@ -383,7 +465,8 @@ def paged_attention_block(p, x: torch.Tensor, cfg: ArchConfig,
     window = cfg.sliding_window if window_override == "cfg" \
         else window_override
 
-    q, k, v = _project_qkv(p, x, cfg, ctx)
+    q = _project_q(p, x, cfg, ctx)
+    k, v = _project_kv(p, x, cfg, ctx)
     if cfg.rope_theta:
         pos2 = positions[:, None]                 # [T, 1] per-row
         q = apply_rope(q, pos2, cfg.rope_theta)

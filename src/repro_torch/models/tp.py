@@ -24,7 +24,14 @@ crosses a lossy wire codec.  :meth:`ParallelCtx.issue` scopes one
 in-flight gradient bucket (train/bucketer.py): its calls land in the
 program's ``name/tag`` sub-recorders and share the open issue window, and
 on a card its work runs on a side stream the ctx owns, which
-:meth:`ParallelCtx.await_all` joins back into the current stream.
+:meth:`ParallelCtx.join_issued` (a consumer inside the step) and
+:meth:`ParallelCtx.await_all` (the step's end) join back into the current
+stream.  The sequence-sharded decode (models/layers.py) issues its Q
+gather the same way, from every layer of the decode stack: a scope that
+``repeats`` a trace's first one runs unrecorded in the same window, where
+a gradient bucket's scope refuses to.  ``dp_psum_small`` /
+``dp_pmax_small`` are the data axis's plain reductions (the decode's
+log-sum-exp merge over a batch-1 cache split over data x model).
 The expert-parallel span of the MoE ``ep_a2a`` dispatch is the data
 axis alone on a (data, model) mesh (``ep_axes``, ``ep_size``,
 ``ep_spec_axis``): ``ep_all_to_all`` is the data axis's flex
@@ -33,8 +40,7 @@ all_to_all, differentiable through ``routing.execute``, and
 without a pod axis.
 
 Still raising, each with the ROADMAP queue 1 item that lifts it: a node
-axis (item 12) and a pod axis (item 14).  Serving across devices (item
-11) raises in the decode paths (models/layers.py).
+axis (item 12) and a pod axis (item 14).
 """
 
 from __future__ import annotations
@@ -139,7 +145,7 @@ class ParallelCtx:
     # -- issue/await overlap scopes (DESIGN.md §11) ----------------------------
 
     @contextlib.contextmanager
-    def issue(self, tag: str):
+    def issue(self, tag: str, repeats: bool = False):
         """Mark the collectives called inside as ONE in-flight plan.
 
         Their replay records land in the active program's ``name/tag``
@@ -147,11 +153,18 @@ class ParallelCtx:
         communicator; all plans issued before the next :meth:`await_all`
         share the window.  On a card the scope's work runs on
         :attr:`side_stream`, which first waits for the current stream (the
-        producer of what the scope reads).  Every rank must issue the same
-        scopes in the same order.  A ctx without live communicators
-        no-ops."""
+        producer of what the scope reads); a consumer reads its results
+        after :meth:`join_issued`.  Every rank must issue the same scopes
+        in the same order.  A ctx without live communicators no-ops.
+
+        Inside :meth:`unrecorded` a scope is refused unless ``repeats``
+        says it repeats one the step already issued (a decode stack's
+        layers >= 1, the reference's one scope a ``lax.scan`` trace): its
+        calls then run unrecorded, in the same window.  A gradient
+        bucket's scope never repeats, and an unrecorded one would be a
+        lost record."""
         comms = self.comms()
-        if any(c.suppressed for c in comms):
+        if not repeats and any(c.suppressed for c in comms):
             raise RuntimeError(f"issue({tag!r}) inside unrecorded(): a "
                                f"gradient bucket issued from a repeated "
                                f"call would go unrecorded")
@@ -166,12 +179,11 @@ class ParallelCtx:
                 stack.enter_context(torch.cuda.stream(self.side_stream))
             yield
 
-    def await_all(self, tree=None):
-        """Barrier for every issued plan: the current stream waits for
-        the side stream, the CUDA tensors of ``tree`` (made there) are
-        marked as used by the current stream so the caching allocator
-        keeps them until its work is done, and the communicators' open
-        issue windows close.  Returns ``tree``."""
+    def join_issued(self, tree):
+        """The current stream waits for the side stream's work so far, and
+        the CUDA tensors of ``tree`` (made there) are marked as used by the
+        current stream, so the caching allocator keeps them until its work
+        is done; the issue windows stay open.  Returns ``tree``."""
         side = self.side_stream
         if side is not None:
             cur = torch.cuda.current_stream(side.device)
@@ -179,6 +191,13 @@ class ParallelCtx:
             for t in pytree.tree_leaves(tree):
                 if torch.is_tensor(t) and t.is_cuda:
                     t.record_stream(cur)
+        return tree
+
+    def await_all(self, tree=None):
+        """Barrier for every issued plan: :meth:`join_issued` on ``tree``,
+        then the communicators' open issue windows close.  Returns
+        ``tree``."""
+        self.join_issued(tree)
         for comm in self.comms():
             comm.await_barrier()
         return tree
@@ -306,6 +325,19 @@ class ParallelCtx:
         if self.dp_axis is None or self.dp_size <= 1:
             return 0
         return self.mesh.axis_index(self.dp_axis)
+
+    # small latency-bound reductions over the data axis (the batch-1
+    # decode's softmax statistics), on the primary group as the tp ones
+    def dp_psum_small(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dp_axis is None or self.dp_size <= 1:
+            return x
+        return self.mesh.psum(x, self.dp_axis)
+
+    def dp_pmax_small(self, x: torch.Tensor) -> torch.Tensor:
+        """Max over the data axis of a value that carries no gradient."""
+        if self.dp_axis is None or self.dp_size <= 1:
+            return x
+        return self.mesh.all_reduce(x.detach(), self.dp_axis, op="max")
 
     # -- expert-parallel span (MoE ep_a2a dispatch, DESIGN.md §15) ------------
 

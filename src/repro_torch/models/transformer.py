@@ -6,9 +6,11 @@ Port of ``src/repro/models/transformer.py``: ``init_params``,
 lookup + ``ctx.tp_all_reduce``), ``lm_logits_local``,
 ``vocab_parallel_xent`` (the distributed log-sum-exp), the train/prefill
 ``forward`` and ``lm_loss`` (with the MoE router's aux loss and the
-frontend stubs), the decode caches and ``decode_step``, and the paged
-pool and ``paged_decode_step`` (dense, vlm and moe; both caches at tp =
-1, item 11).  The families:
+frontend stubs), the decode caches and ``decode_step`` (a local cache,
+or one sequence-sharded over the model axis, or over data x model for
+batch 1: ``DecodeConfig.seq_shard``), and the paged pool and
+``paged_decode_step`` (dense, vlm and moe), each at any tp.  The
+families:
 
 * dense: a stack of attention + SwiGLU blocks;
 * moe: ``n_dense_prefix`` dense blocks (``prefix``), then attention +
@@ -37,7 +39,9 @@ The reference records a collective once per trace, and scan traces its
 body once: here the first block of each scan records its calls (the
 hybrid's first group: its first Mamba2 block, then the shared block),
 and the later ones and the checkpoint recompute run under
-``ctx.unrecorded()``.  The caches are updated IN PLACE: ``decode_step``
+``ctx.unrecorded()``; the decode paths record the same way, except the
+moe family's dense prefix, a Python loop in the reference whose every
+block records.  The caches are updated IN PLACE: ``decode_step``
 writes each layer's new K/V or SSM state into the [L, ...] cache tensors
 it was given, and ``paged_decode_step`` scatters into the pool
 (models/layers.py).  Serving reads no frontend stub, as in the
@@ -52,7 +56,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -418,35 +422,41 @@ def lm_loss(p, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
 class DecodeConfig:
     """Static decode-shape parameters.
 
-    cache_len_local : sequence length of the KV cache (local to the
-                      device: the reference's sequence-sharded caches
-                      need the communicator, ROADMAP queue 1, item 11)
+    cache_len_local : per-shard sequence slice of the KV cache
+    seq_shard       : None (cache local: this shard's kv_w heads) |
+                      "model" | "model_data" (the sequence split over the
+                      model axis, or data x model; every n_kv_heads)
     window_override : "cfg" or an int/None — the --swa-override variant
     """
     cache_len_local: int
+    seq_shard: Optional[str] = "model"
     window_override: Any = "cfg"
 
 
 def init_cache(cfg: ArchConfig, ctx: ParallelCtx, dcfg: DecodeConfig,
                batch_local: int, dtype=None, device=None):
-    """Zero cache: ``{"k", "v"}`` of [L, B, S, kv_w, hd] (dense, vlm,
-    moe), plus ``{"xk", "xv"}`` of [L, B, n_frames, kv_w, hd] (encdec: the
-    cross-attention cache, which nothing writes, as in the reference);
-    ``{"ssm", "conv"}`` of [L, B, ...] (ssm); both SSM leaves plus
-    ``{"attn_k", "attn_v"}`` of [groups, B, S, kv_w, hd] (hybrid)."""
-    L._one_shard(ctx, "the decode cache")
+    """Zero cache, this shard's local shapes: ``{"k", "v"}`` of [L, B, S,
+    kv, hd] (dense, vlm, moe), plus ``{"xk", "xv"}`` of [L, B, n_frames,
+    kv_w, hd] (encdec: the cross-attention cache, which nothing writes, as
+    in the reference); ``{"ssm", "conv"}`` of [L, B, ...] (ssm, this
+    shard's SSM heads); both SSM leaves plus ``{"attn_k", "attn_v"}`` of
+    [groups, B, S, kv, hd] (hybrid).  ``kv`` is every KV head for a
+    sequence-sharded cache, else this shard's ``kv_w``; the
+    cross-attention cache always holds ``kv_w``."""
     dtype = dtype or cfg.dtype
+    kv_w = L.head_layout(cfg, ctx)[1] if cfg.n_heads else 0
+    kv_s = cfg.n_kv_heads if dcfg.seq_shard is not None else kv_w
 
-    def kv(n, length=dcfg.cache_len_local):
-        kv_w = L.head_layout(cfg, ctx)[1]
-        return torch.zeros((n, batch_local, length, kv_w, cfg.head_dim_),
+    def kv(n, heads=kv_s, length=dcfg.cache_len_local):
+        return torch.zeros((n, batch_local, length, heads, cfg.head_dim_),
                            dtype=dtype, device=device)
 
     if cfg.family in ("dense", "vlm", "moe"):
         return {"k": kv(cfg.n_layers), "v": kv(cfg.n_layers)}
     if cfg.family == "encdec":
         n, se = cfg.n_layers, cfg.encdec.n_frames
-        return {"k": kv(n), "v": kv(n), "xk": kv(n, se), "xv": kv(n, se)}
+        return {"k": kv(n), "v": kv(n), "xk": kv(n, kv_w, se),
+                "xv": kv(n, kv_w, se)}
     c = _ssm_cache(cfg, ctx, batch_local, dtype, device)
     if cfg.family == "hybrid":
         g = cfg.n_layers // cfg.hybrid.attn_every
@@ -468,11 +478,20 @@ def _ssm_cache(cfg: ArchConfig, ctx: ParallelCtx, batch_local: int, dtype,
     }
 
 
+def _prefix_records(ctx: ParallelCtx, stacked, p, i: int):
+    """Block ``i`` of a decode stack: the first of each scan records, and
+    every block of the moe family's dense prefix (a Python loop in the
+    reference's decode paths)."""
+    return _first_records(ctx, 0 if stacked is p.get("prefix") else i)
+
+
 def decode_step(p, cache, token: torch.Tensor, pos, cfg: ArchConfig,
                 ctx: ParallelCtx, dcfg: DecodeConfig):
-    """One decode step: token [B,S] int, pos a scalar or [B] ->
-    (logits [B,V], cache).  The cache tensors are updated in place;
-    encdec's cross-attention reads the cache's ``xk``/``xv``."""
+    """One decode step: token [B,S] int, pos a scalar (a host int for a
+    sequence-sharded cache) or [B] -> (logits [B,V_local], cache).  The
+    cache tensors are updated in place; every self-attention runs over a
+    cache sequence-sharded by ``dcfg.seq_shard``; encdec's cross-attention
+    reads the cache's ``xk``/``xv``."""
     x = embed_tokens(p, token, cfg, ctx)
     pos_arr = torch.as_tensor(pos, device=x.device)
     steps = torch.arange(token.shape[1], device=x.device)
@@ -482,8 +501,8 @@ def decode_step(p, cache, token: torch.Tensor, pos, cfg: ArchConfig,
         """Attention over one cache slice, written back in place."""
         h, (nk, nv) = L.attention_block(
             lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, ctx,
-            positions=positions, kv_cache=(ck, cv), cache_pos=pos_arr,
-            window_override=dcfg.window_override)
+            positions=positions, kv_cache=(ck, cv), cache_pos=pos,
+            seq_shard=dcfg.seq_shard, window_override=dcfg.window_override)
         ck.copy_(nk)
         cv.copy_(nv)
         return x + h
@@ -513,31 +532,37 @@ def decode_step(p, cache, token: torch.Tensor, pos, cfg: ArchConfig,
     if fam == "encdec":
         for i in range(cfg.n_layers):           # lax.scan in the reference
             lp = _layer(p["layers"], i)
-            x = ffn(lp, xattn(lp, attn(lp, x, cache["k"][i], cache["v"][i]),
-                              i))
+            with _first_records(ctx, i):
+                x = ffn(lp, xattn(lp, attn(lp, x, cache["k"][i],
+                                           cache["v"][i]), i))
     elif fam in ("dense", "vlm", "moe"):
         # the moe family's dense prefix takes cache layers [0, npre)
         base = 0
         for stacked in _stacks(p):
             for i in range(_depth(stacked)):   # lax.scan in the reference
                 lp = _layer(stacked, i)
-                x = ffn(lp, attn(lp, x, cache["k"][base + i],
-                                 cache["v"][base + i]))
+                with _prefix_records(ctx, stacked, p, i):
+                    x = ffn(lp, attn(lp, x, cache["k"][base + i],
+                                     cache["v"][base + i]))
             base += _depth(stacked)
     elif fam == "ssm":
         for i in range(cfg.n_layers):
-            x = mamba(i, x)
-    else:                                    # hybrid
-        k = cfg.hybrid.attn_every
+            with _first_records(ctx, i):
+                x = mamba(i, x)
+    else:                                    # hybrid: the group scan, then
+        k = cfg.hybrid.attn_every            # the remainder scan
         g = cfg.n_layers // k
         sp = p["shared_attn"]
         for gi in range(g):
-            for i in range(gi * k, (gi + 1) * k):
-                x = mamba(i, x)
-            x = ffn(sp, attn(sp, x, cache["attn_k"][gi],
-                             cache["attn_v"][gi]))
+            with _first_records(ctx, gi):
+                for i in range(gi * k, (gi + 1) * k):
+                    with _first_records(ctx, i - gi * k):
+                        x = mamba(i, x)
+                x = ffn(sp, attn(sp, x, cache["attn_k"][gi],
+                                 cache["attn_v"][gi]))
         for i in range(g * k, cfg.n_layers):
-            x = mamba(i, x)
+            with _first_records(ctx, i - g * k):
+                x = mamba(i, x)
 
     x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
     return lm_logits_local(p, x[:, -1:], cfg, ctx)[:, 0], cache
@@ -578,7 +603,6 @@ def init_paged_pool(cfg: ArchConfig, ctx: ParallelCtx, pcfg: PagedConfig,
         raise ValueError(
             f"paged serving supports {PAGED_FAMILIES}, got {cfg.family} "
             f"(ssm/hybrid/encdec stay on the wave engine)")
-    L._one_shard(ctx, "the paged pool")
     dtype = dtype or cfg.dtype
     kv_w = L.head_layout(cfg, ctx)[1]
     shape = (cfg.n_layers, pcfg.n_blocks, pcfg.block_size, kv_w,
@@ -599,9 +623,10 @@ def paged_decode_step(p, pool, tokens: torch.Tensor, positions: torch.Tensor,
     sample_rows              : [R] int — packed index of each request
         row's sequence-frontier row
 
-    Returns (logits [R, V], pool); the pool is updated in place.  Padding
-    rows cost zero attention mass and zero pool writes; the MoE routes
-    them all the same, so they take expert capacity, as the reference's
+    Returns (logits [R, V_local], pool); the pool is updated in place.
+    Padding rows cost zero attention mass and zero pool writes; the MoE
+    routes them all the same, so they take expert capacity, as the
+    reference's
     (the capacity counts the padded bucket).  The moe family's dense
     prefix takes pool layers [0, npre).
     """
@@ -617,18 +642,19 @@ def paged_decode_step(p, pool, tokens: torch.Tensor, positions: torch.Tensor,
     for stacked in _stacks(p):
         for i in range(_depth(stacked)):     # lax.scan in the reference
             lp = _layer(stacked, i)
-            h, _ = L.paged_attention_block(
-                lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, ctx,
-                positions=positions, kv_valid=kv_valid,
-                pools=(pool["k"][base + i], pool["v"][base + i]),
-                block_tables=btab, window_override=pcfg.window_override,
-                impl=pcfg.attn_impl)
-            x = x + h
-            xn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            if "mlp" in lp:
-                x = x + L.mlp_block(lp["mlp"], xn, ctx)
-            else:
-                x = x + M.moe_block(lp["moe"], xn, cfg, ctx)[0]
+            with _prefix_records(ctx, stacked, p, i):
+                h, _ = L.paged_attention_block(
+                    lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                    ctx, positions=positions, kv_valid=kv_valid,
+                    pools=(pool["k"][base + i], pool["v"][base + i]),
+                    block_tables=btab, window_override=pcfg.window_override,
+                    impl=pcfg.attn_impl)
+                x = x + h
+                xn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+                if "mlp" in lp:
+                    x = x + L.mlp_block(lp["mlp"], xn, ctx)
+                else:
+                    x = x + M.moe_block(lp["moe"], xn, cfg, ctx)[0]
         base += _depth(stacked)
 
     x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)

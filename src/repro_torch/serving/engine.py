@@ -19,6 +19,11 @@ attention masks out via kv_valid / position overwrites.
 Every step runs through the engine's
 :class:`~repro_torch.runtime.program.StepProgram` issue/await lifecycle,
 so the executable-cache and issue/await reports read as the reference's.
+
+Both engines are one-device, as the reference's: they hold a local
+cache (``seq_shard=None``) and sample full-vocab logits, so they refuse a
+ctx with a model axis.  Serving across devices is the serve program
+(``launch/steps.build_serve_program``).
 """
 
 from __future__ import annotations
@@ -58,6 +63,15 @@ class ServeConfig:
     eos_id: int = -1             # -1: never stops early
 
 
+def _one_device(ctx: ParallelCtx) -> None:
+    if ctx.tp_size > 1:
+        raise ValueError(
+            f"the serving engines are one-device (a local cache, full-vocab "
+            f"logits sampled on the host) and take no model axis (tp = "
+            f"{ctx.tp_size}); serve across devices with "
+            f"launch/steps.build_serve_program")
+
+
 def _host_logits(logits: torch.Tensor) -> np.ndarray:
     """Logits to the host as float32 (exact for bf16 and f32 values)."""
     return logits.float().cpu().numpy()
@@ -66,12 +80,14 @@ def _host_logits(logits: torch.Tensor) -> np.ndarray:
 class ServeEngine:
     def __init__(self, params, cfg: ArchConfig, ctx: ParallelCtx,
                  scfg: ServeConfig, seed: int = 0):
+        _one_device(ctx)
         self.p = params
         self.cfg = cfg
         self.ctx = ctx
         self.scfg = scfg
         self.device = params["embed"].device
-        self.dcfg = DecodeConfig(cache_len_local=scfg.cache_len)
+        self.dcfg = DecodeConfig(cache_len_local=scfg.cache_len,
+                                 seq_shard=None)
         self.cache = init_cache(cfg, ctx, self.dcfg, scfg.slots,
                                 device=self.device)
         self.pos = np.zeros(scfg.slots, np.int32)
@@ -272,6 +288,7 @@ class PagedServeEngine:
 
     def __init__(self, params, cfg: ArchConfig, ctx: ParallelCtx,
                  scfg: PagedServeConfig, seed: int = 0):
+        _one_device(ctx)
         self.p = params
         self.cfg = cfg
         self.ctx = ctx

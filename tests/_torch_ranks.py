@@ -969,3 +969,145 @@ def vlm_encdec(params_np, runs, steps, prefill_case, ckpt_dir, ref_ckpt_dir,
         res["prefill"] = as_bits(program(params, prefill_case[arch]))
         program.close()
     return out
+
+
+def spec_block(x: np.ndarray, spec, coords: dict, sizes: dict) -> np.ndarray:
+    """The block of a global array at the mesh position ``coords`` (axis
+    -> index, ``sizes`` axis -> size) by a per-dim spec of
+    ``launch/shapes.py``: None whole, an axis name split over it, a tuple
+    of axes split over all of them, outermost first."""
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        i, n = 0, 1
+        for a in (axes,) if isinstance(axes, str) else axes:
+            i, n = i * sizes[a] + coords[a], n * sizes[a]
+        size = x.shape[dim] // n
+        x = np.take(x, range(i * size, (i + 1) * size), axis=dim)
+    return np.ascontiguousarray(x)
+
+
+def serve_config(case):
+    """The port's reduced config of a serve case, with its MoE overrides
+    (tests/test_torch_serve_sharded.py builds the reference's the same
+    way)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(case["arch"]).reduced()
+    if case.get("moe"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, **case["moe"]))
+    return cfg
+
+
+def _gathered(logits: torch.Tensor, mesh: Mesh, rows_split: bool):
+    """The global [B, V] logits of every rank's [B_local, V_local]."""
+    full = torch.cat(list(mesh.all_gather(logits, "model")), dim=1)
+    if rows_split:
+        full = torch.cat(list(mesh.all_gather(full, "data")), dim=0)
+    return full
+
+
+def _local_decode(params, cfg, ctx, case, stream, coords, sizes):
+    """This rank's logits each step of the decode over a LOCAL cache
+    (``seq_shard=None``: this shard's KV heads, the whole sequence) on the
+    same ctx, the global tokens ``stream`` fed."""
+    from repro_torch.models import transformer as T
+    dcfg = T.DecodeConfig(cache_len_local=case["seq"], seq_shard=None)
+    split = ("data", None) if stream.shape[0] > 1 else (None, None)
+    cache = T.init_cache(cfg, ctx, dcfg, stream.shape[0] // (
+        2 if split[0] else 1))
+    for k, v in case.get("cache", {}).items():
+        cache[k].copy_(torch.from_numpy(spec_block(
+            v, (None, split[0], None, None, None), coords, sizes)))
+    out = []
+    with torch.no_grad():
+        for t in range(case["steps"]):
+            tok = torch.from_numpy(spec_block(stream[:, t:t + 1], split,
+                                              coords, sizes))
+            logits, cache = T.decode_step(params, cache, tok, t, cfg, ctx,
+                                          dcfg)
+            out.append(as_bits(logits))
+    return out
+
+
+def serve_sharded(inits, cases, comm, paged, work_dir):
+    """tests/test_torch_serve_sharded.py on this rank of the (data=2,
+    model=2) mesh:
+
+    * each serve case through build_serve_program (fresh communicators):
+      ``steps`` decode steps from position 0, the prompt's tokens first,
+      then greedy tokens, the argmax of the logits gathered over the mesh;
+      this rank's logits each step, the stream, what the communicators
+      recorded after step 1 (and in the ``q_ag`` sub-recorder) and the
+      final cache;
+    * ``paged``: ``paged_decode_step`` on a ctx of the model axis alone,
+      for each impl, over the ticks: this rank's logits each tick and
+      the final pool."""
+    from repro_torch.convert import params_from_reference
+    from repro_torch.core.communicator import CommConfig, comm_destroy_all
+    from repro_torch.launch import shapes as SH
+    from repro_torch.launch.steps import (build_serve_program,
+                                          local_params, rank_specs)
+    from repro_torch.models.tp import ParallelCtx
+    from repro_torch.models import transformer as T
+    mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+    coords = {a: mesh.axis_index(a) for a in mesh.axes}
+    sizes = {a: mesh.axis_size(a) for a in mesh.axes}
+    out = {}
+    for name, c in cases.items():
+        cfg = serve_config(c)
+        comm_destroy_all()              # fresh balancers, as the reference's
+        b = c["prompt"].shape[0]
+        shape = SH.InputShape(name, "decode", c["seq"], b)
+        program, ctx, dcfg = build_serve_program(
+            cfg, mesh, shape, comm=CommConfig(**comm), name="serve",
+            device="cpu")
+        params = local_params(params_from_reference(inits[c["arch"]]),
+                              rank_specs(cfg, ctx), ctx)
+        specs = SH.input_partition_specs(cfg, shape, tp=2, dp=2)["cache"]
+        cache = T.init_cache(cfg, ctx, dcfg, b // 2 if b > 1 else 1,
+                             device="cpu")
+        for k, v in c.get("cache", {}).items():   # whisper's cross cache
+            cache[k].copy_(torch.from_numpy(spec_block(v, specs[k], coords,
+                                                       sizes)))
+        toks = [c["prompt"][:, t] for t in range(c["prompt"].shape[1])]
+        res = out[name] = {"logits": []}
+        for t in range(c["steps"]):
+            logits, cache = program.step(params, cache, toks[t][:, None], t)
+            res["logits"].append(as_bits(logits))
+            if t == 0:
+                res["recording"] = recording(
+                    ctx, "serve", f"{work_dir}/{name}-rank{mesh.rank}.json")
+                res["q_ag"] = {comm_.axis_name: [
+                    (op.value, n, win) for op, n, win in
+                    comm_.recorder("serve/q_ag").issued_calls()]
+                    for comm_ in ctx.comms()}
+            if t + 1 >= len(toks):
+                toks.append(_gathered(logits, mesh, b > 1).argmax(-1).numpy()
+                            .astype(np.int32))
+        program.close()
+        res["stream"] = np.stack(toks, 1)
+        res["cache"] = {k: as_bits(v) for k, v in cache.items()}
+        res["local"] = _local_decode(params, cfg, ctx, c, res["stream"],
+                                     coords, sizes)
+    if paged:
+        cfg = serve_config(paged)
+        comm_destroy_all()
+        ctx = ParallelCtx(tp_axis="model", tp_size=2,
+                          comm_config=CommConfig(**comm), mesh=mesh)
+        params = local_params(params_from_reference(inits[paged["arch"]]),
+                              rank_specs(cfg, ctx), ctx)
+        for impl in ("reference", "kernel"):
+            pcfg = T.PagedConfig(attn_impl=impl, **paged["pcfg"])
+            pool = T.init_paged_pool(cfg, ctx, pcfg, device="cpu")
+            logits = []
+            with torch.no_grad():
+                for tick in paged["ticks"]:
+                    lg, pool = T.paged_decode_step(
+                        params, pool, *(torch.from_numpy(a) for a in tick),
+                        cfg, ctx, pcfg)
+                    logits.append(as_bits(lg))
+            out[f"paged-{impl}"] = {"logits": logits, "pool": {
+                k: as_bits(v) for k, v in pool.items()}}
+    return out

@@ -81,7 +81,8 @@ def test_the_tensor_parallel_slice_is_checked():
 
 class _TensorParallel:
     """The part of a model-axis ParallelCtx the decode paths read: tp = 2,
-    this rank model index 0, combines that pass through."""
+    this rank model index 0, combines that pass through, no
+    communicators."""
     tp_size = 2
 
     def tp_index(self):
@@ -90,11 +91,17 @@ class _TensorParallel:
     def tp_all_reduce(self, x):
         return x
 
+    def comms(self):
+        return ()
+
 
 def test_decode_paths_refuse_tensor_parallel():
-    """Serving across devices is ROADMAP queue 1 item 11: the dense decode
-    path, paged attention, and the caches behind both raise at tp > 1 and
-    name it."""
+    """Serving across devices (ROADMAP queue 1 item 11) is ported: at
+    tp = 2 the dense decode path over a local cache and paged attention
+    run on this shard's heads (reduced glm4-9b: 2 of 4 Q heads, 1 of 2 KV
+    heads) and return this shard's shapes; the decode cache holds every KV
+    head when sequence-sharded and this shard's otherwise, the paged pool
+    this shard's."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.convert import shard_params
@@ -105,23 +112,29 @@ def test_decode_paths_refuse_tensor_parallel():
     gen = torch.Generator().manual_seed(0)
     p = shard_params(L.init_attention(gen, cfg, torch.float32, "cpu"),
                      L.attention_specs(cfg), 0, ctx.tp_size)
-    x = torch.zeros(1, 1, cfg.d_model)
+    x = torch.randn(1, 1, cfg.d_model, generator=gen)
     hd = cfg.head_dim_
+    assert L.head_layout(cfg, ctx) == (2, 1, 2)
     cache = (torch.zeros(1, 8, 1, hd), torch.zeros(1, 8, 1, hd))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        L.attention_block(p, x, cfg, ctx, kv_cache=cache, cache_pos=0)
+    out, (ck, cv) = L.attention_block(p, x, cfg, ctx, kv_cache=cache,
+                                      cache_pos=3)
+    assert out.shape == (1, 1, cfg.d_model) and bool(out.isfinite().all())
+    assert ck.shape == cv.shape == (1, 8, 1, hd)
+    assert bool(ck[:, 3].any()) and not bool(ck[:, :3].any())
     pools = (torch.zeros(4, 16, 1, hd), torch.zeros(4, 16, 1, hd))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        L.paged_attention_block(p, x, cfg, ctx,
-                                positions=torch.zeros(1, dtype=torch.long),
-                                kv_valid=torch.ones(1, dtype=torch.long),
-                                pools=pools,
-                                block_tables=torch.zeros(1, 1,
-                                                         dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.init_cache(cfg, ctx, T.DecodeConfig(cache_len_local=8), 1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.init_paged_pool(cfg, ctx, T.PagedConfig())
+    out, (kp, vp) = L.paged_attention_block(
+        p, x, cfg, ctx, positions=torch.zeros(1, dtype=torch.long),
+        kv_valid=torch.ones(1, dtype=torch.long), pools=pools,
+        block_tables=torch.zeros(1, 1, dtype=torch.long))
+    assert out.shape == (1, 1, cfg.d_model) and bool(out.isfinite().all())
+    assert kp.shape == (4, 16, 1, hd) and bool(kp[0, 0].any())
+    c = T.init_cache(cfg, ctx, T.DecodeConfig(cache_len_local=8), 1)
+    assert c["k"].shape == (cfg.n_layers, 1, 8, cfg.n_kv_heads, hd)
+    c = T.init_cache(cfg, ctx, T.DecodeConfig(cache_len_local=8,
+                                              seq_shard=None), 1)
+    assert c["k"].shape == (cfg.n_layers, 1, 8, 1, hd)
+    pool = T.init_paged_pool(cfg, ctx, T.PagedConfig())
+    assert pool["k"].shape == (cfg.n_layers, 64, 16, 1, hd)
     # training and prefill attention (no cache) run at tp > 1
     out, _ = L.attention_block(p, torch.zeros(1, 3, cfg.d_model), cfg, ctx)
     assert out.shape == (1, 3, cfg.d_model)
@@ -129,10 +142,12 @@ def test_decode_paths_refuse_tensor_parallel():
 
 @pytest.mark.parametrize("paged", ["on", "off"])
 def test_serve_launcher_refuses_tensor_parallel(monkeypatch, paged):
-    """The serve launcher's engines refuse a ctx with a model axis wider
-    than 1, naming item 11 (the launcher itself builds one device's)."""
+    """The serve launcher's engines are one-device, as the reference's:
+    given a ctx with a model axis wider than 1 they refuse it, pointing to
+    the serve program (launch/steps.build_serve_program)."""
     from repro_torch.launch import serve
-    monkeypatch.setattr(serve, "single_device_ctx", _TensorParallel)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    monkeypatch.setattr(serve, "ParallelCtx",
+                        lambda **kw: _TensorParallel())
+    with pytest.raises(ValueError, match="one-device.*build_serve_program"):
         serve.main(["--smoke", "--device", "cpu", "--paged", paged,
                     "--requests", "1"])

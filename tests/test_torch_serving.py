@@ -7,7 +7,7 @@ equal to the JAX engines' on the prompts of tests/test_serving.py, the
 port's paged engine equal to its wave engine with one build per batch
 bucket and balanced KV books, preemption/resume, the copied allocator,
 scheduler, configs and StepProgram counters, the bf16 carry-over, the
-paths that must raise until ported, and the launcher.
+decode caches at tp = 2, and the launcher.
 """
 
 import dataclasses
@@ -93,18 +93,33 @@ def test_step_program_counters_match_reference():
 
 
 def test_unported_paths_raise():
-    """Serving across devices (a model axis, item 11) raises, for the
-    vlm and encdec caches as for dense."""
+    """Serving across devices (a model axis, ROADMAP queue 1 item 11) is
+    ported: at tp = 2 the decode caches of dense, vlm, encdec and hybrid
+    have the reference's local shapes, sequence-sharded (every KV head)
+    and not (this shard's), encdec's cross-attention cache and the
+    hybrid's SSM state this shard's; the paged pool this shard's."""
     tp2 = types.SimpleNamespace(tp_size=2)
-    cfg = t_get_config("glm4-9b").reduced()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TT.init_cache(cfg, tp2, TT.DecodeConfig(cache_len_local=8), 1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TT.init_paged_pool(cfg, tp2, TT.PagedConfig())
-    for arch in ("internvl2-76b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            TT.init_cache(t_get_config(arch).reduced(), tp2,
-                          TT.DecodeConfig(cache_len_local=8), 1)
+    for arch in ("glm4-9b", "internvl2-76b", "whisper-medium",
+                 "zamba2-1.2b"):
+        jcfg = j_get_config(arch).reduced()
+        tcfg = t_get_config(arch).reduced()
+        for seq in ("model", None):
+            got = TT.init_cache(tcfg, tp2, TT.DecodeConfig(
+                cache_len_local=8, seq_shard=seq), 1)
+            want = JT.init_cache(jcfg, tp2, JT.DecodeConfig(
+                cache_len_local=8, seq_shard=seq), 1)
+            assert got.keys() == want.keys(), (arch, seq)
+            for k in want:
+                assert tuple(got[k].shape) == want[k].shape, (arch, seq, k)
+                assert str(got[k].dtype).removeprefix("torch.") == \
+                    str(want[k].dtype), (arch, seq, k)
+        if tcfg.family in TT.PAGED_FAMILIES:
+            assert tuple(TT.init_paged_pool(tcfg, tp2, TT.PagedConfig())[
+                "k"].shape) == JT.init_paged_pool(jcfg, tp2, JT.PagedConfig(
+                ))["k"].shape
+    cfg = t_get_config("whisper-medium").reduced()
+    c = TT.init_cache(cfg, tp2, TT.DecodeConfig(cache_len_local=8), 1)
+    assert c["k"].shape[3] == cfg.n_kv_heads and c["xk"].shape[3] == 1
 
 
 # ---------------------------------------------------------------------------
