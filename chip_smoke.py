@@ -248,7 +248,24 @@ non-zero:
    float32 step through K6.  In (b)-(d) the sharded bf16 run's distance
    from the float32 run is under 1.2 times one rank's.  Then every K1
    segment table the serve programs of (b) and (c) launched against the
-   plain version, bit for bit (as phase 12 (a)).
+   plain version, bit for bit (as phase 12 (a));
+20. the two-tier cluster, 4 gloo ranks on the card as (node=2, data=2),
+   ``cluster_for("h100", 2)``, the data axis pinned to 50/25/25 and the
+   node axis (the NIC tier) to rail 50 / xrail 25 / host_tcp 25 at every
+   bucket: (a) the ctx's ClusterCommunicator's hierarchical all-reduce,
+   all-gather and reduce-scatter at 256 MiB a rank of bfloat16 and of
+   float32 (``_pattern`` payloads, [rows, 4096]): bit for bit the exact
+   results (the
+   flat sum, the node-major gather, segment ``i * 2 + node``), the NIC
+   tier's plans on all three routes, K1 launches equal to what the
+   executed plans imply, wall time a call; a (data=4) cluster with the
+   intra tier alone gives the bare communicator's plan signature and
+   bits; (b) Whisper-medium at its published widths and depth, bf16,
+   seed 0, 8 rows a rank, 3 flexlink steps on (node=2, data=2) and on
+   (data=4): losses equal on every rank, the cluster run within 5e-3 of
+   the flat one (the reference's own bound), K1 = the plans', peak
+   memory, wall time; then every K1 segment table of (a) and (b) against
+   the plain version, bit for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  The launches in that line are the
@@ -257,8 +274,10 @@ from the fp8 training run of phase 11 (the bucketed runs' beside them),
 K5 and the mixed K1 from phase 10 (c), K7 from phase 13 (0: no path
 calls it); K6's row adds phase 15's launches (b, c), phase 18 (b)'s and
 phase 19 (d)'s (both ranks), and K1's the flexlink runs of phases 16
-(a), 17 (a) and 18 (e), the (model=2) prefill of phase 18 (c) and the
-serve program's bf16 runs of phase 19 (b) and (c); each rank process sets
+(a), 17 (a) and 18 (e), the (model=2) prefill of phase 18 (c), the
+serve program's bf16 runs of phase 19 (b) and (c), and phase 20's
+hierarchical collectives (a) and cluster training run (b); each rank
+process sets
 its counts to 0 just before that path and reports them just after it.
 A K1 or K5 segment-table launch counts once, whatever its segments.
 Without a CUDA card, or without the rest of the checkout beside this
@@ -4482,6 +4501,286 @@ def phase19_serve_sharded(card):
             k1_err.get("k1", 0.0), k1_tables)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the two-tier cluster
+# ---------------------------------------------------------------------------
+
+#: phase 20: (node, data) of the cluster mesh; the flat run's data axis
+CLUSTER_MESH = (2, 2)
+#: the NIC tier's pin (rail = primary, xrail = staged, host_tcp = the ortho
+#: detour over the data axis); the data axis takes TP_SHARES
+NIC_SHARES = {"rail": 50, "xrail": 25, "host_tcp": 25}
+CLUSTER_BYTES = 256 * MiB
+CLUSTER_COLS = 4096
+CLUSTER_OPS = ("all_reduce", "all_gather", "reduce_scatter")
+#: (b): Whisper-medium rows a rank (global batch 32 on both meshes)
+CLUSTER_ROWS = 8
+#: (b): the cluster run's losses against the flat run's: the reference's
+#: own bound (tests/test_cluster.py test_multi_node_train_matches_single_
+#: node)
+CLUSTER_VS_FLAT = 5e-3
+
+
+def _pin_cluster(path: str) -> str:
+    """Pin both tiers of ``cluster_for("h100", 2)`` at every size bucket
+    and collective of the hierarchical compositions: the data axis (the
+    intra tier, 2 ranks, no ortho axis on (node, data): primary and
+    staged) to TP_SHARES, the node axis (the NIC tier) to NIC_SHARES;
+    returns the NIC tier's profile name."""
+    from repro_torch.cluster.topology import cluster_for
+    from repro_torch.control.profile import TuningProfile
+    from repro_torch.core.communicator import SIZE_BUCKETS
+    from repro_torch.core.topology import Collective
+    from repro_torch.core.tuner import SHARE_GRID
+    nic = cluster_for("h100", CLUSTER_MESH[0]).nic_tier.name
+    prof = TuningProfile(path)
+    for profile, n, shares in (("h100", CLUSTER_MESH[1], TP_SHARES),
+                               (nic, CLUSTER_MESH[0], NIC_SHARES)):
+        for op in CLUSTER_OPS:
+            for bucket in SIZE_BUCKETS:
+                prof.record(profile, "ring", Collective(op), n, bucket,
+                            SHARE_GRID, shares)
+    prof.save(path)
+    return nic
+
+
+def _cluster_op(comm, op, x):
+    if op == "all_gather":
+        return comm.all_gather(x, tiled=True)
+    return getattr(comm, op)(x)
+
+
+def cluster_rank(pinned: str):
+    """One rank of phase 20 on (node=2, data=2): (a) the ctx's
+    ClusterCommunicator's hierarchical collectives at CLUSTER_BYTES of
+    bfloat16 and float32 (``_pattern`` payloads, [rows, CLUSTER_COLS]),
+    every executed plan and K1 call recorded, the kernel counts set to 0
+    just before and read just after; the N=1 parity on (data=4); (b) Whisper-medium whole,
+    bf16, seed 0, TRAIN_STEPS flexlink steps on (node=2, data=2) and then
+    on (data=4), the same global batch."""
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+    from repro_torch.cluster.communicator import ClusterCommunicator
+    from repro_torch.cluster.topology import cluster_for
+    from repro_torch.configs import get_config
+    from repro_torch.core.communicator import (CommConfig, FlexCommunicator,
+                                               comm_destroy_all)
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import build_train_program
+    from repro_torch.models.tp import ParallelCtx
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.loop import LoopConfig, run_loop
+    mesh = Mesh(CLUSTER_MESH, ("node", "data"))
+    flat = Mesh((4,), ("data",))
+    rank, dev = mesh.rank, mesh.device
+    comm = CommConfig(profile="h100", tuning_cache=pinned)
+    ctx = ParallelCtx(dp_axis="data", node_axis="node",
+                      dp_size=CLUSTER_MESH[1], node_size=CLUSTER_MESH[0],
+                      comm_config=comm, mesh=mesh)
+    cc = ctx._cluster_comm
+    out = {"a": {}, "calls": set(), "nic": ctx.cluster.nic_tier.name,
+           "axes": [c.axis_name for c in ctx.comms()]}
+    for dtype in (torch.bfloat16, torch.float32):
+        # [rows, 4096], as phase 7's A_SHAPE: a 1-D payload is one column
+        # of the reduce-scatter's column partition, padded to the grain
+        x = _pattern(CLUSTER_BYTES // dtype.itemsize, rank, dev).to(
+            dtype).reshape(-1, CLUSTER_COLS)
+        for op in CLUSTER_OPS:
+            calls = []
+            torch.cuda.synchronize()
+            _kernel_counts(reset=True)
+            t0 = time.perf_counter()
+            with _executed(calls), recorded_calls(out["calls"]):
+                y = _cluster_op(cc, op, x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _kernel_counts()
+            want = collections.Counter()
+            for plan, n, dt in calls:
+                want += codec_launches(plan, n, dt)
+            out["a"][op, str(dtype)[6:]] = {
+                "digest": _digest(y), "wall_s": wall,
+                "k1": launches["k1"], "k1_want": want["k1"],
+                "plans": sorted({(plan.axis_name, plan.collective.value,
+                                  plan.chunk_units, plan.staged_substeps)
+                                 for plan, _, _ in calls})}
+            del y
+        del x
+    out["signature"] = repr(ctx.plan_signature())
+    # N=1: the intra tier alone on (data=4) is the bare communicator
+    tuned = CommConfig(profile="h100")
+    one = ClusterCommunicator(cluster_for("h100", 1), FlexCommunicator(
+        "data", 4, dataclasses.replace(tuned, tag="n1-cluster"), mesh=flat),
+        None)
+    bare = FlexCommunicator("data", 4, dataclasses.replace(tuned,
+                                                           tag="n1-flat"),
+                            mesh=flat)
+    x = _pattern(CLUSTER_BYTES // 2, rank, dev)
+    out["n1"] = {"digests": [_digest(one.all_reduce(x)),
+                             _digest(bare.all_reduce(x))],
+                 "signatures": [repr(one.plan_signature()),
+                                repr((("data", bare.plan_signature()),))]}
+    del x, one, bare
+    comm_destroy_all()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("whisper-medium")
+    out["b"] = {}
+    for name, m in (("cluster", mesh), ("flat", flat)):
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            0), "cuda")
+        opt_state = init_state(params)
+        program, tctx = build_train_program(
+            cfg, m, comm=comm, opt=AdamWConfig(
+                lr=WHISPER_TRAIN_LR, warmup_steps=1,
+                total_steps=TRAIN_STEPS), name=f"whisper-{name}")
+        batches = make_batches(cfg, seq_len=128,
+                               batch_per_shard=4 * CLUSTER_ROWS)
+        calls = []
+        torch.cuda.synchronize()
+        _kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        with _executed(calls), recorded_calls(out["calls"]):
+            params, opt_state, hist = run_loop(
+                program, params, opt_state, batches, tctx,
+                LoopConfig(total_steps=TRAIN_STEPS, log_every=0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _kernel_counts()
+        want = collections.Counter()
+        for plan, n, dt in calls:
+            want += codec_launches(plan, n, dt)
+        program.close()
+        out["b"][name] = {
+            "losses": hist, "wall_s": wall, "k1": launches["k1"],
+            "k1_want": want["k1"], "node_size": tctx.node_size,
+            "tiers": sorted({plan.axis_name for plan, _, _ in calls}),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del params, opt_state, program, tctx
+        comm_destroy_all()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase20_cluster(card):
+    """The two-tier cluster on 4 gloo ranks sharing the card, mesh (node=2,
+    data=2), profile h100, each tier pinned (``_pin_cluster``): (a) the
+    hierarchical all-reduce, all-gather and reduce-scatter at 256 MiB of
+    bfloat16 and of float32, bit for bit the exact results (the flat sum,
+    the node-major gather, segment ``i * 2 + node``), K1 = the plans', and
+    the N=1 parity; (b) Whisper-medium trained on (node=2, data=2) and on
+    (data=4): losses equal on every rank, the cluster run within
+    CLUSTER_VS_FLAT of the flat one, K1 = the plans'.  Every K1 segment
+    table is then held against the plain version.  Returns (K1 launches of
+    (a) and of (b)'s cluster run over the ranks, the K1 bit check's max
+    abs err and tables)."""
+    from repro_torch.launch.mesh import run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        pinned = f"{tmp}/pinned.json"
+        nic = _pin_cluster(pinned)
+        t0 = time.perf_counter()
+        res = run_ranks(cluster_rank, 4, backend="gloo", device="cuda",
+                        timeout_s=1200, args=(pinned,))
+        ranks_s = time.perf_counter() - t0
+    n, m = CLUSTER_MESH
+    check(all(r["nic"] == nic and r["axes"] == ["data", "node"]
+              for r in res), f"20: tiers {[r['axes'] for r in res]}")
+    check(all(r["signature"] == res[0]["signature"] for r in res),
+          "20 (a): plan_signature differs between ranks")
+    # (a): the exact results, from the same inputs, here
+    k1_a = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        ins = [_pattern(CLUSTER_BYTES // dtype.itemsize, q, dev)
+               for q in range(n * m)]
+        total = sum(x.float() for x in ins)
+        want = {"all_reduce": [_digest(total.to(dtype))] * (n * m),
+                "all_gather": [_digest(torch.cat(ins).to(dtype))] * (n * m)}
+        segs = total.to(dtype).chunk(n * m)
+        want["reduce_scatter"] = [_digest(segs[(r % m) * n + r // m])
+                                  for r in range(n * m)]
+        del ins, total, segs
+        torch.cuda.empty_cache()
+        for op in CLUSTER_OPS:
+            for r, got in enumerate(res):
+                a = got["a"][op, dt]
+                check(a["digest"] == want[op][r], f"20 (a) rank {r} {op} "
+                      f"{dt}: result differs from the exact one")
+                check(a["k1"] == a["k1_want"], f"20 (a) rank {r} {op} {dt}: "
+                      f"K1 launched {a['k1']}, the plans say {a['k1_want']}")
+                check(a["plans"] == res[0]["a"][op, dt]["plans"],
+                      f"20 (a) rank {r} {op} {dt}: other plans")
+                k1_a += a["k1"]
+            a = res[0]["a"][op, dt]
+            routes = {(axis, c): dict(u) for axis, c, u, _ in a["plans"]}
+            print(f"phase 20 (a): hierarchical {op}, {CLUSTER_BYTES // MiB} "
+                  f"MiB of {dt} a rank: exact on every rank; plans "
+                  f"{routes}; K1 over 4 ranks "
+                  f"{sum(r['a'][op, dt]['k1'] for r in res)} = the plans'; "
+                  f"wall {max(r['a'][op, dt]['wall_s'] for r in res):.3f} s "
+                  f"a call, the slower rank ({WALL_NOTE})")
+    node_routes = {frozenset(dict(u)) for r in res
+                   for (op, dt), a in r["a"].items()
+                   for axis, c, u, _ in a["plans"] if axis == "node"}
+    check(all(rt == {"primary", "staged", "ortho"} for rt in node_routes),
+          f"20 (a): the NIC tier's plans ran routes {node_routes}")
+    for r, got in enumerate(res):
+        d, sig = got["n1"]["digests"], got["n1"]["signatures"]
+        check(d[0] == d[1] and sig[0] == sig[1], f"20 (a) rank {r}: the N=1 "
+              f"cluster differs from the bare communicator")
+    print(f"phase 20 (a): N=1, the (data=4) cluster with the intra tier "
+          f"alone: the bare communicator's plan_signature and bits "
+          f"(all-reduce, {CLUSTER_BYTES // MiB} MiB bf16) on every rank")
+    # (b)
+    b = {name: [r["b"][name] for r in res] for name in ("cluster", "flat")}
+    for name, runs in b.items():
+        hist = [r["losses"] for r in runs]
+        check(all(np.isfinite(h).all() for h in hist),
+              f"20 (b) {name}: loss not finite: {hist}")
+        check(all(h == hist[0] for h in hist),
+              f"20 (b) {name}: the ranks' losses differ: {hist}")
+        check(all(r["k1"] == r["k1_want"] for r in runs),
+              f"20 (b) {name}: K1 {[r['k1'] for r in runs]}, the plans say "
+              f"{[r['k1_want'] for r in runs]}")
+    cl, fl = b["cluster"][0], b["flat"][0]
+    check(cl["node_size"] == n and cl["tiers"] == ["data", "node"],
+          f"20 (b): the cluster run ran {cl['tiers']}")
+    gap = float(np.max(np.abs(np.array(cl["losses"])
+                              - np.array(fl["losses"]))))
+    check(gap <= CLUSTER_VS_FLAT, f"20 (b): cluster losses {cl['losses']} "
+          f"vs flat {fl['losses']}: {gap:.3g} > {CLUSTER_VS_FLAT}")
+    k1_b = sum(r["k1"] for r in b["cluster"])
+    check(k1_b > 0, "20 (b): no K1 launch in the cluster run")
+    print(f"phase 20 (b): whisper-medium at its published widths and depth, "
+          f"bf16, seed 0, seq 128, {CLUSTER_ROWS} rows a rank, AdamW lr "
+          f"{WHISPER_TRAIN_LR}, flexlink, {TRAIN_STEPS} steps: on (node=2, "
+          f"data=2) losses {cl['losses']} (equal on every rank), on "
+          f"(data=4) {fl['losses']}, max gap {gap:.3g} (bound "
+          f"{CLUSTER_VS_FLAT}); K1 over 4 ranks {k1_b} (cluster) / "
+          f"{sum(r['k1'] for r in b['flat'])} (flat) = the plans'; wall, "
+          f"the slower rank ({WALL_NOTE}): cluster "
+          f"{max(r['wall_s'] for r in b['cluster']):.2f} s, flat "
+          f"{max(r['wall_s'] for r in b['flat']):.2f} s; peak "
+          f"{max(r['peak_gib'] for r in b['cluster']):.2f} / "
+          f"{max(r['peak_gib'] for r in b['flat']):.2f} GiB a rank; ranks "
+          f"ran {ranks_s:.1f} s; {card}")
+    calls = set().union(*(r["calls"] for r in res))
+    check(any(c[0].startswith("k1") for c in calls),
+          "20: no K1 call recorded")
+    k1_err, _, k1_tables = phase12_main_path_check(
+        calls, phase="20", required=tuple(sorted({c[0] for c in calls})))
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return k1_a, k1_b, k1_err.get("k1", 0.0), k1_tables
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -4538,6 +4837,8 @@ def main(argv=None) -> int:
         vlm_k6, vlm_k1 = phase18_vlm_encdec(card, pathlib.Path(tmp))
     serve_k1, serve_k6, serve_k1_err, serve_tables = phase19_serve_sharded(
         card)
+    cluster_k1, cluster_train_k1, cluster_k1_err, cluster_tables = \
+        phase20_cluster(card)
     kernels = [{
         "name": "paged_flash_decode",
         "route": "cuda",
@@ -4607,6 +4908,12 @@ def main(argv=None) -> int:
         "launches_serve_glm4_model_data": serve_k1["model_data"],
         "max_abs_err_serve": serve_k1_err,
         "segment_tables_serve": serve_tables.get("k1_segments", []),
+        "launches_cluster_collectives": cluster_k1,
+        "launches_train_whisper_cluster_flexlink": cluster_train_k1,
+        "launches_cluster_from": "phase 20 (a, b): 4 ranks on (node=2, "
+                                 "data=2)",
+        "max_abs_err_cluster": cluster_k1_err,
+        "segment_tables_cluster": cluster_tables.get("k1_segments", []),
         "mixed_f32_bf16": {
             "launches": bf16_launches["k1_mixed"],
             "max_abs_err": path_errs["k1_mixed"],

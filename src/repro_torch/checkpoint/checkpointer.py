@@ -107,7 +107,8 @@ class Checkpointer:
         shards ep_a2a experts over, makes the params and moments
         rank-local shards; every rank of the model line (of the mesh,
         when the data axis shards leaves) must then call ``save``, and
-        model rank 0 (of data row 0) writes."""
+        model rank 0 (of data row 0) writes.  On a cluster mesh only the
+        ranks of node 0 write, as data row 0's one tier up."""
         self.dir = directory
         self.keep = keep
         #: whether the data axis shards leaves (ep_a2a experts)
@@ -119,9 +120,10 @@ class Checkpointer:
             raise ValueError("Checkpointer: a model axis needs the param "
                              "specs")
         self.specs = specs
-        self.writer = self.ctx is None or (
-            self.ctx.tp_index() == 0
-            and (not self.data or self.ctx.dp_index() == 0))
+        self.writer = (ctx is None or ctx.node_index() == 0) and (
+            self.ctx is None or (
+                self.ctx.tp_index() == 0
+                and (not self.data or self.ctx.dp_index() == 0)))
         os.makedirs(directory, exist_ok=True)
 
     def _path(self, step: int) -> str:

@@ -12,7 +12,12 @@ row-major over the axis tuple, so rank r sits at
 Each axis has two channels, each its own process group over the same
 ranks: ``"primary"`` carries the native collective and ``"staged"`` the
 explicit point-to-point ring, the separate channel the reference models
-with ``ppermute`` (ROADMAP, route classes).
+with ``ppermute`` (ROADMAP, route classes).  A mesh with a ``"node"`` axis
+(the two-tier cluster, ``(node, data, model)`` as the reference's
+``make_cluster_mesh`` orders it) also gets one primary group over this
+rank's (node, data) plane, :data:`PLANE`, for reductions over both axes
+at once (``all_reduce(x, PLANE)``, the reference's ``lax.psum`` over an
+axis tuple).
 
 The wire follows the backend, chosen by the caller and never by catching
 an error:
@@ -42,8 +47,9 @@ import torch.distributed as dist
 
 #: axis names the reference's meshes use, outermost first
 AXES = ("pod", "node", "data", "model")
-_LATER = {"node": "ROADMAP queue 1 item 12 (two-tier cluster)",
-          "pod": "ROADMAP queue 1 item 14 (pod tier)"}
+_LATER = {"pod": "ROADMAP queue 1 item 14 (pod tier)"}
+#: the gradient plane of a cluster mesh: the axes a step's metrics sum over
+PLANE = ("node", "data")
 CHANNELS = ("primary", "staged")
 
 
@@ -105,10 +111,24 @@ class Mesh:
                         self._groups[(a, ch)] = g
                 if self.rank in ranks:
                     self._line[a] = ranks
+        if all(a in axes for a in PLANE):
+            # every (node, data) plane, in the same order on every rank
+            idx = [axes.index(a) for a in PLANE]
+            rest = [i for i in range(len(axes)) if i not in idx]
+            planes = np.transpose(grid, rest + idx).reshape(
+                -1, int(np.prod([shape[i] for i in idx])))
+            for plane in planes:
+                ranks = tuple(int(r) for r in plane)
+                g = dist.new_group(list(ranks))
+                if self.rank in ranks:
+                    self._groups[(PLANE, "primary")] = g
 
     # -- axis introspection (compat/axes.py) ----------------------------------
 
-    def axis_size(self, axis: str) -> int:
+    def axis_size(self, axis) -> int:
+        """The size of one axis, or the product over a tuple of axes."""
+        if isinstance(axis, tuple):
+            return int(np.prod([self.axis_size(a) for a in axis]))
         return self.shape[self.axes.index(axis)]
 
     def axis_index(self, axis: str) -> int:
@@ -135,9 +155,10 @@ class Mesh:
     def _wire_out(self, h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return h.to(like.device)
 
-    def all_reduce(self, x: torch.Tensor, axis: str,
+    def all_reduce(self, x: torch.Tensor, axis,
                    op: str = "sum") -> torch.Tensor:
-        """Sum (or max) over ``axis``: ``lax.psum`` / ``lax.pmax``."""
+        """Sum (or max) over ``axis``, or over the :data:`PLANE` tuple:
+        ``lax.psum`` / ``lax.pmax``."""
         if self.axis_size(axis) == 1:
             return x.clone()
         h = self._wire_in(x)

@@ -16,10 +16,15 @@ no model axis (serving across devices is
 contract only: they go into the ``CommConfig`` of its one-device ctx,
 which has no communicator, so they change nothing and print the
 reference's note; ``--tuning-cache`` also saves the (empty) profile when
-draining ends.  The communicator's default profile is ``h100`` (the reference's
-launcher uses ``tpu_v5e``).  ``--degrade --fault --nodes --pods`` need
-tiers not ported yet and exit 2 naming the ROADMAP item: 13 (faults), 12
-(two-tier cluster), 14 (pod tier).
+draining ends.  The communicator's default profile is ``h100`` (the
+reference's launcher uses ``tpu_v5e``).  As the reference's, ``--nodes N``
+> 1 builds ``cluster_for(profile, N)`` into the one-device ctx, which
+registers the NIC tier's profile and records the topology (printed, and in
+the ``--out`` record); the decode never crosses the NIC tier.
+``--degrade`` degrades the NIC tier or the node profile of the run's
+fabric (``configs/clusters.resolve_faults``).  ``--fault --pods`` need
+tiers not ported yet and exit 2 naming the ROADMAP item: 13 (faults), 14
+(pod tier).
 """
 
 from __future__ import annotations
@@ -110,14 +115,19 @@ def main(argv=None) -> int:
                     help="secondary-path wire codecs, e.g. 'secondary=fp8' "
                          "or 'staged=bf16,ortho=fp8' (DESIGN.md §12)")
     ap.add_argument("--degrade", default="",
-                    help="fault injection name[:member]=factor: not ported "
-                         "yet (ROADMAP queue 1 item 13), exits 2")
+                    help="launch-time fault injection name[:member]=factor "
+                         "on the NIC tier (with --nodes > 1) or the node "
+                         "profile")
     ap.add_argument("--fault", default="",
                     help="fault-timeline schedule over serve ticks: not "
                          "ported yet (item 13), exits 2")
     ap.add_argument("--nodes", type=int, default=1,
-                    help="cluster node count: > 1 is not ported yet (item "
-                         "12), exits 2")
+                    help="cluster node count: registers the NIC-tier "
+                         "profile (so --tuning-cache keys line up with "
+                         "multi-node launches) and records the topology "
+                         "on the ctx.  This launcher itself is "
+                         "single-device: the decode never crosses the NIC "
+                         "tier")
     ap.add_argument("--pods", type=int, default=1,
                     help="pod count: > 1 is not ported yet (item 14), "
                          "exits 2")
@@ -138,17 +148,34 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     # one device's ctx, with the comm config plumbed so a multi-axis
     # deployment of this launcher inherits the control-plane flags
+    from repro_torch.cluster.topology import cluster_for
+    from repro_torch.configs.clusters import resolve_faults
+    profile = "h100"
+    cluster = cluster_for(profile, args.nodes) if args.nodes > 1 else None
+    try:
+        cluster, profile, _ = resolve_faults(cluster, args.nodes, profile,
+                                             degrade=args.degrade)
+    except (KeyError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     ctx = ParallelCtx(comm_config=CommConfig(
-        timing=args.timing, secondary_algo=args.secondary_algo,
-        tuning_cache=args.tuning_cache, compress=args.compress))
+        profile=profile, timing=args.timing,
+        secondary_algo=args.secondary_algo,
+        tuning_cache=args.tuning_cache, compress=args.compress),
+        cluster=cluster)
     if not ctx.comms() and (args.timing != "sim" or args.tuning_cache
                             or args.secondary_algo != "ring"
+                            or args.nodes > 1 or args.degrade
                             or args.compress):
         print("note: single-device launch has no communicators — "
               "--timing/--tuning-cache/--secondary-algo/--nodes/--degrade/"
               "--fault/--compress take effect only with parallel axes (the "
               "decode wave itself never crosses the NIC tier; see "
               "launch/shapes.py)")
+    if cluster is not None:
+        print(f"cluster: {cluster.name}, {cluster.n_nodes} nodes of "
+              f"{cluster.node.name}, NIC tier {cluster.nic_tier.name} "
+              f"(registered; the decode runs on one device)")
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = init_params(cfg, gen, device)
@@ -206,7 +233,9 @@ def main(argv=None) -> int:
                        "device": str(device), "requests": len(fin),
                        "tokens": total_toks, "wall_s": round(dt, 3),
                        "serving": srv, "executable_cache": ec,
-                       "program": pr}, f, indent=2, default=str)
+                       "program": pr, "profile": profile,
+                       "cluster": cluster.describe() if cluster else None},
+                      f, indent=2, default=str)
         print(f"serve record -> {args.out}")
     for rid in sorted(fin)[:4]:
         print(f"  req {rid}: {fin[rid][:10]}")

@@ -2,12 +2,15 @@
 ParallelCtx (and therefore to the FlexLink RoutePlan engine).
 
 Port of ``src/repro/launch/steps.py`` for the train and prefill steps
-on a (data, model) mesh.  The reference wraps each step in ``shard_map`` and
-``jax.jit``; here each rank runs the step eagerly on its own shard: the
-builder's callable takes the GLOBAL batch (numpy, as
-``data.pipeline.make_batches`` yields it) and moves this rank's rows of
-it to the rank's device, split over data and the same on every rank of
-a model line, the ``in_specs=P("data", None)`` of the reference.  The
+on a (data, model) mesh and a (node, data, model) cluster mesh.  The
+reference wraps each step in ``shard_map`` and ``jax.jit``; here each
+rank runs the step eagerly on its own shard: the builder's callable takes
+the GLOBAL batch (numpy, as ``data.pipeline.make_batches`` yields it) and
+moves this rank's rows of it to the rank's device, split over data (over
+``node * dp + data`` on a cluster mesh) and the same on every rank of a
+model line, the ``in_specs=P("data", None)`` (``P(("node", "data"),
+None)``) of the reference.  A mesh with a node axis gets the cluster
+wiring: the train and prefill builders pass ``cluster=`` to the ctx.  The
 params and the optimizer state it takes are RANK-LOCAL: whole on a mesh
 without a model axis, this rank's ``param_specs`` shards on one with it
 (``convert.shard_params``; ``rank_specs`` / ``local_params``), the
@@ -67,17 +70,25 @@ from repro_torch.runtime.program import StepProgram
 from repro_torch.train.train_step import make_train_step
 
 
-def make_ctx(mesh, comm: Optional[CommConfig] = None) -> ParallelCtx:
+def make_ctx(mesh, comm: Optional[CommConfig] = None,
+             cluster=None) -> ParallelCtx:
     """The ctx of one rank's mesh (a ``launch.mesh.Mesh`` over the axes
-    ``("data", "model")``), or of one device when ``mesh`` is None."""
+    ``("data", "model")`` or ``("node", "data", "model")``), or of one
+    device when ``mesh`` is None.  A node axis wider than 1 gets the
+    cluster wiring (DESIGN.md §9); ``cluster`` names the ClusterTopology,
+    synthesized from the comm profile (``cluster_for``) when None."""
     comm = comm or CommConfig()
     if mesh is None:
-        return ParallelCtx(comm_config=comm)
-    dp = mesh.axis_size("data") if "data" in mesh.axes else 1
-    tp = mesh.axis_size("model") if "model" in mesh.axes else 1
+        return ParallelCtx(comm_config=comm, cluster=cluster)
+
+    def size(a):
+        return mesh.axis_size(a) if a in mesh.axes else 1
+    dp, tp, nodes = size("data"), size("model"), size("node")
     return ParallelCtx(tp_axis="model" if tp > 1 else None,
                        dp_axis="data" if dp > 1 else None,
-                       tp_size=tp, dp_size=dp, comm_config=comm, mesh=mesh)
+                       node_axis="node" if nodes > 1 else None,
+                       tp_size=tp, dp_size=dp, node_size=nodes,
+                       comm_config=comm, cluster=cluster, mesh=mesh)
 
 
 def rank_specs(cfg: ArchConfig, ctx: ParallelCtx):
@@ -99,15 +110,19 @@ def local_params(params, specs, ctx: ParallelCtx):
 
 def local_batch(batch: Dict[str, np.ndarray], ctx: ParallelCtx,
                 device) -> Dict[str, torch.Tensor]:
-    """This rank's rows of a global batch, as tensors on ``device``."""
+    """This rank's rows of a global batch, as tensors on ``device``: shard
+    ``node * dp + data`` of ``dp * nodes`` (``shapes.batch_axes``'
+    outermost-major order)."""
     dp = max(ctx.dp_size, 1)
-    i = ctx.mesh.axis_index(ctx.dp_axis) if dp > 1 else 0
+    shards = dp * max(ctx.node_size, 1)
+    i = ctx.node_index() * dp + (ctx.mesh.axis_index(ctx.dp_axis)
+                                 if dp > 1 else 0)
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % dp:
+        if v.shape[0] % shards:
             raise ValueError(f"batch {k!r}: {v.shape[0]} rows do not divide "
-                             f"over {dp} data ranks")
-        rows = v.shape[0] // dp
+                             f"over {shards} data ranks")
+        rows = v.shape[0] // shards
         out[k] = torch.from_numpy(np.ascontiguousarray(
             v[i * rows:(i + 1) * rows])).to(device)
     return out
@@ -115,8 +130,8 @@ def local_batch(batch: Dict[str, np.ndarray], ctx: ParallelCtx,
 
 def _train_builder(cfg: ArchConfig, mesh, *, comm: Optional[CommConfig],
                    opt: Optional[AdamWConfig], remat, bucket_mb: float,
-                   device):
-    ctx = make_ctx(mesh, comm)
+                   device, cluster=None):
+    ctx = make_ctx(mesh, comm, cluster=cluster)
     opt = opt or AdamWConfig()
     dev = mesh.device if mesh is not None else torch.device(device)
 
@@ -134,11 +149,12 @@ def _train_builder(cfg: ArchConfig, mesh, *, comm: Optional[CommConfig],
 def build_train_step(cfg: ArchConfig, mesh=None, *,
                      comm: Optional[CommConfig] = None,
                      opt: Optional[AdamWConfig] = None, remat=True,
-                     bucket_mb: float = 0.0, device="cuda"):
+                     bucket_mb: float = 0.0, device="cuda", cluster=None):
     """One train-step callable (global numpy batch in) and its ctx.
     ``device`` places the batch when ``mesh`` is None (one device)."""
     builder, ctx = _train_builder(cfg, mesh, comm=comm, opt=opt, remat=remat,
-                                  bucket_mb=bucket_mb, device=device)
+                                  bucket_mb=bucket_mb, device=device,
+                                  cluster=cluster)
     return builder(), ctx
 
 
@@ -146,17 +162,18 @@ def build_train_program(cfg: ArchConfig, mesh=None, *,
                         comm: Optional[CommConfig] = None,
                         opt: Optional[AdamWConfig] = None, remat=True,
                         name: str = "", bucket_mb: float = 0.0,
-                        device="cuda"):
+                        device="cuda", cluster=None):
     """The train step as a StepProgram: plan-keyed executable cache +
     isolated Stage-2 replay recorder."""
     builder, ctx = _train_builder(cfg, mesh, comm=comm, opt=opt, remat=remat,
-                                  bucket_mb=bucket_mb, device=device)
+                                  bucket_mb=bucket_mb, device=device,
+                                  cluster=cluster)
     return StepProgram(builder, ctx, name=name), ctx
 
 
 def _prefill_builder(cfg: ArchConfig, mesh, *, comm: Optional[CommConfig],
-                     remat, device):
-    ctx = make_ctx(mesh, comm)
+                     remat, device, cluster=None):
+    ctx = make_ctx(mesh, comm, cluster=cluster)
     dev = mesh.device if mesh is not None else torch.device(device)
 
     def builder():
@@ -174,20 +191,20 @@ def _prefill_builder(cfg: ArchConfig, mesh, *, comm: Optional[CommConfig],
 
 def build_prefill_step(cfg: ArchConfig, mesh=None, *,
                        comm: Optional[CommConfig] = None, remat=True,
-                       device="cuda"):
+                       device="cuda", cluster=None):
     """Forward-only prefill (global numpy batch in): this rank's
     last-position local-vocab logits, and the ctx."""
     builder, ctx = _prefill_builder(cfg, mesh, comm=comm, remat=remat,
-                                    device=device)
+                                    device=device, cluster=cluster)
     return builder(), ctx
 
 
 def build_prefill_program(cfg: ArchConfig, mesh=None, *,
                           comm: Optional[CommConfig] = None, remat=True,
-                          name: str = "", device="cuda"):
+                          name: str = "", device="cuda", cluster=None):
     """The prefill step as a StepProgram."""
     builder, ctx = _prefill_builder(cfg, mesh, comm=comm, remat=remat,
-                                    device=device)
+                                    device=device, cluster=cluster)
     return StepProgram(builder, ctx, name=name), ctx
 
 

@@ -170,6 +170,11 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig,
     slots, keep = dispatch_indices(experts.reshape(-1), moe.n_experts, cap)
     buf = gather_to_buffers(xk, slots, keep, moe.n_experts, cap)
 
+    if moe.impl == "ep_a2a" and ctx.node_size > 1:
+        raise NotImplementedError(
+            "ep_a2a dispatch on a node mesh (the rail-local all_to_all "
+            "across cluster tiers) is not ported yet: ROADMAP queue 1 "
+            "item 14")
     if moe.impl == "ep_a2a" and ctx.ep_size > 1:
         ep = ctx.ep_size
         n_local = moe.n_experts // ep

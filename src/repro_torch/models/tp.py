@@ -1,9 +1,10 @@
 """Parallelism context — how model code reaches the communication backend.
 
-Port of ``src/repro/models/tp.py`` for one device and for a (data, model)
-mesh.  Model layers call collectives only through a ``ParallelCtx``.  On
-one device every collective is the identity and there are no
-communicators: constant signature, no Stage-2 feedback, empty reports.
+Port of ``src/repro/models/tp.py`` for one device, a (data, model) mesh
+and a (node, data, model) cluster mesh.  Model layers call collectives
+only through a ``ParallelCtx``.  On one device every collective is the
+identity and there are no communicators: constant signature, no Stage-2
+feedback, empty reports.
 With an axis wider than 1 the ctx holds the rank's
 :class:`~repro_torch.launch.mesh.Mesh` and takes that axis's
 :class:`FlexCommunicator` from the memoized ``comm_init_rank`` registry,
@@ -39,8 +40,16 @@ all_to_all, differentiable through ``routing.execute``, and
 ``expert_grad_reduce`` is the identity, as the reference's ``pod_psum``
 without a pod axis.
 
-Still raising, each with the ROADMAP queue 1 item that lifts it: a node
-axis (item 12) and a pod axis (item 14).
+A node axis wider than 1 is the two-tier cluster (DESIGN.md §9): the ctx
+takes (or synthesizes with ``cluster_for``) the :class:`ClusterTopology`,
+builds the node axis's communicator on the NIC tier's profile with the
+data axis (else the model axis) as its ortho axis, and composes it with
+the data axis's into a :class:`~repro_torch.cluster.communicator.
+ClusterCommunicator`: ``grad_all_reduce`` is then the hierarchical
+all-reduce, the ep span is (node, data), ``metrics_reduce`` sums over the
+mesh's (node, data) plane group, and ``comm_report`` adds the cluster's
+block.  The ep_a2a dispatch across tiers and a pod axis still raise,
+naming ROADMAP queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -55,10 +64,8 @@ from torch.utils import _pytree as pytree
 from repro_torch.core.communicator import (CommConfig, FlexCommunicator,
                                            comm_init_rank)
 
-_LATER = (("node_size", "a node axis is not ported yet (ROADMAP queue 1 "
-           "item 12)"),
-          ("pod_size", "a pod axis is not ported yet (ROADMAP queue 1 "
-           "item 14)"))
+_LATER = (("pod_size", "a pod axis is not ported yet (ROADMAP queue 1 "
+           "item 14)"),)
 
 
 @dataclasses.dataclass
@@ -68,6 +75,10 @@ class ParallelCtx:
     tp_axis : tensor-parallel axis ("model"); with tp_size > 1 the ctx
               needs the rank's ``mesh`` and builds the axis's communicator
     dp_axis : data-parallel axis ("data"), likewise
+    node_axis : inter-node axis ("node"), crossing the cluster's NIC tier;
+              gradient reduction becomes the hierarchical all-reduce
+    cluster : the ClusterTopology behind the node axis; synthesized from
+              the comm profile (``cluster_for``) when left None
     mesh    : this rank's Mesh (launch/mesh.py); None on one device
     """
 
@@ -80,9 +91,12 @@ class ParallelCtx:
     node_size: int = 1
     pod_size: int = 1
     comm_config: CommConfig = dataclasses.field(default_factory=CommConfig)
+    cluster: Optional[object] = None      # ClusterTopology
     mesh: Optional[object] = None
     _tp_comm: Optional[FlexCommunicator] = None
     _dp_comm: Optional[FlexCommunicator] = None
+    _node_comm: Optional[FlexCommunicator] = None
+    _cluster_comm: Optional[object] = None  # ClusterCommunicator
     #: the stream issue scopes run on (a CUDA ctx with live
     #: communicators; made by the first scope)
     side_stream: Optional[torch.cuda.Stream] = dataclasses.field(
@@ -94,7 +108,10 @@ class ParallelCtx:
                 raise NotImplementedError(f"ParallelCtx: {msg}")
         tp = bool(self.tp_axis) and self.tp_size > 1
         dp = bool(self.dp_axis) and self.dp_size > 1
-        if (tp or dp) and self.mesh is None:
+        node = bool(self.node_axis) and self.node_size > 1
+        if node:
+            self._check_cluster()
+        if (tp or dp or node) and self.mesh is None:
             raise ValueError("ParallelCtx: an axis wider than 1 needs the "
                              "rank's mesh")
         if tp:
@@ -105,13 +122,54 @@ class ParallelCtx:
             self._dp_comm = comm_init_rank(
                 self.dp_axis, self.dp_size, self.comm_config,
                 ortho_name=self.tp_axis if tp else None, mesh=self.mesh)
+        if node:
+            self._init_cluster(dp, tp)
+
+    def _check_cluster(self) -> None:
+        """Synthesize the node axis's cluster when none is given, and
+        refuse one that does not fit the mesh or the comm profile."""
+        from repro_torch.cluster.topology import cluster_for
+        if self.cluster is None:
+            self.cluster = cluster_for(self.comm_config.profile,
+                                       self.node_size)
+        if self.cluster.n_nodes != self.node_size:
+            raise ValueError(
+                f"cluster {self.cluster.name!r} has "
+                f"{self.cluster.n_nodes} nodes but the mesh's node "
+                f"axis spans {self.node_size}")
+        if self.cluster.node.name != self.comm_config.profile:
+            raise ValueError(
+                f"cluster {self.cluster.name!r} is built from "
+                f"{self.cluster.node.name!r} nodes but the comm "
+                f"profile is {self.comm_config.profile!r} — reports, "
+                f"timing constants and warm-start keys would describe "
+                f"a fabric that never ran")
+        if self.cluster.n_pods > 1:
+            raise NotImplementedError(f"ParallelCtx: {_LATER[0][1]}")
+
+    def _init_cluster(self, dp: bool, tp: bool) -> None:
+        """The node tier's communicator and the cluster's composition
+        (reference tp.py:113-140, without the pod tier)."""
+        from repro_torch.cluster.communicator import ClusterCommunicator
+        # the NIC tier is its own communicator: same CommConfig knobs, the
+        # tier profile's link pool, so its SlotControllers balance the
+        # inter tier independently of the intra fabric
+        inter_cfg = dataclasses.replace(
+            self.comm_config, profile=self.cluster.nic_tier.name)
+        ortho = self.dp_axis if dp else (self.tp_axis if tp else None)
+        self._node_comm = comm_init_rank(
+            self.node_axis, self.node_size, inter_cfg, ortho_name=ortho,
+            mesh=self.mesh)
+        self._cluster_comm = ClusterCommunicator(
+            self.cluster, self._dp_comm, self._node_comm)
 
     # -- plan-engine plumbing -------------------------------------------------
 
     def comms(self) -> Tuple[FlexCommunicator, ...]:
-        """The live communicators behind this ctx (tp, then dp)."""
-        return tuple(c for c in (self._tp_comm, self._dp_comm)
-                     if c is not None)
+        """The live communicators behind this ctx (tp, dp, then the
+        cluster's NIC tier)."""
+        return tuple(c for c in (self._tp_comm, self._dp_comm,
+                                 self._node_comm) if c is not None)
 
     @contextlib.contextmanager
     def unrecorded(self):
@@ -239,7 +297,13 @@ class ParallelCtx:
         return tuple(sigs)
 
     def comm_report(self) -> Dict[str, object]:
-        return {c.axis_name: c.report() for c in self.comms()}
+        """Per-axis communicator reports; a cluster ctx adds the cluster's
+        topology, cross-tier rollup and a2a block under ``"cluster"``."""
+        out: Dict[str, object] = {c.axis_name: c.report()
+                                  for c in self.comms()}
+        if self._cluster_comm is not None:
+            out["cluster"] = self._cluster_comm.summary()
+        return out
 
     def ef_codec_name(self, payload_dtype: str = "float32") -> str:
         """The wire codec the comm config enables that loses bits for
@@ -251,17 +315,34 @@ class ParallelCtx:
     def ef_active_for(self, nbytes: int, dtype, expert: bool = False) -> bool:
         """Does the reduce of one gradient bucket of ``nbytes`` traverse a
         wire codec that loses bits for ``dtype``?  Queries the codec
-        choice of the slot the data-axis all-reduce uses; expert grads
+        choice of every slot the reduce crosses: the data-axis all-reduce,
+        or on a cluster each leg of the hierarchical one; expert grads
         never cross a codec."""
         from repro_torch.core.codecs import get_codec
         from repro_torch.core.communicator import bucket_for
         from repro_torch.core.topology import Collective
-        if expert or self._dp_comm is None:
-            return False
+        legs = []   # (communicator, collective, payload bytes) traversed
+        if expert:
+            pass
+        elif self._cluster_comm is not None:
+            tiers = self._cluster_comm.comms()
+            if len(tiers) > 1:
+                nb = nbytes
+                for t in tiers[:-1]:
+                    legs.append((t, Collective.REDUCE_SCATTER, nb))
+                    nb = max(nb // t.n_ranks, 1)
+                legs.append((tiers[-1], Collective.ALL_REDUCE, nb))
+                for t in reversed(tiers[:-1]):
+                    legs.append((t, Collective.ALL_GATHER, nb))
+                    nb *= t.n_ranks
+            else:
+                legs = [(c, Collective.ALL_REDUCE, nbytes) for c in tiers]
+        elif self._dp_comm is not None:
+            legs.append((self._dp_comm, Collective.ALL_REDUCE, nbytes))
         name = str(dtype).removeprefix("torch.")
-        slot = self._dp_comm.slot(Collective.ALL_REDUCE, bucket_for(nbytes))
         return any(not get_codec(c).lossless_for(name)
-                   for c in slot.codecs.values())
+                   for comm, op, n in legs
+                   for c in comm.slot(op, bucket_for(n)).codecs.values())
 
     # -- tensor-parallel collectives (identity without a tensor axis) ---------
 
@@ -305,8 +386,12 @@ class ParallelCtx:
 
     def grad_all_reduce(self, grads):
         """Sum every tensor of the ``grads`` tree over the data axis through
-        the FlexLink communicator (the identity on one device); a data
-        axis without a communicator takes the mesh's plain all-reduce."""
+        the FlexLink communicator (the identity on one device); with a
+        node axis this is the cluster's hierarchical all-reduce (one
+        RoutePlan a leg); a data axis without a communicator takes the
+        mesh's plain all-reduce."""
+        if self._cluster_comm is not None:
+            return pytree.tree_map(self._cluster_comm.all_reduce, grads)
         if self._dp_comm is not None:
             return pytree.tree_map(self._dp_comm.all_reduce, grads)
         if self.dp_axis and self.dp_size > 1:
@@ -339,59 +424,103 @@ class ParallelCtx:
             return x
         return self.mesh.all_reduce(x.detach(), self.dp_axis, op="max")
 
+    # -- node-axis (NIC tier) collectives --------------------------------------
+
+    def node_psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Plain node-axis reduction on the mesh's primary group (small
+        latency-bound payloads)."""
+        if self.node_axis is None or self.node_size <= 1:
+            return x
+        return self.mesh.psum(x, self.node_axis)
+
+    def node_all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Bandwidth-bound node-axis reduction through the NIC tier's flex
+        communicator (rail / xrail / host_tcp pool) when one is live."""
+        if self._node_comm is None:
+            return self.node_psum(x)
+        return self._node_comm.all_reduce(x)
+
+    def node_index(self) -> int:
+        """This rank's coordinate on the node axis."""
+        if self.node_axis is None or self.node_size <= 1:
+            return 0
+        return self.mesh.axis_index(self.node_axis)
+
     # -- expert-parallel span (MoE ep_a2a dispatch, DESIGN.md §15) ------------
 
     @property
     def ep_axes(self) -> Tuple[str, ...]:
-        """Mesh axes the expert dimension shards over: the data axis when
-        it is wider than 1 (node and pod axes raise, item 12 / 14)."""
+        """Mesh axes the expert dimension shards over, outermost first:
+        (node, data) on a cluster mesh, the tiers the cluster composes."""
+        axes = []
+        if self._node_comm is not None:
+            axes.append(self.node_axis)
         if self.dp_axis and self.dp_size > 1:
-            return (self.dp_axis,)
-        return ()
+            axes.append(self.dp_axis)
+        return tuple(axes)
 
     @property
     def ep_size(self) -> int:
         """Expert-parallel ways: the product of the ep axes' sizes."""
-        return self.dp_size if self.ep_axes else 1
+        sizes = {self.node_axis: self.node_size, self.dp_axis: self.dp_size}
+        s = 1
+        for a in self.ep_axes:
+            s *= sizes[a]
+        return s
 
-    def ep_spec_axis(self) -> Optional[str]:
-        """The expert-dim entry of ``param_specs``: None or the data
-        axis's name."""
-        return self.ep_axes[0] if self.ep_axes else None
+    def ep_spec_axis(self):
+        """The expert-dim entry of ``param_specs``: None, an axis name, or
+        the outermost-major axis tuple."""
+        axes = self.ep_axes
+        if not axes:
+            return None
+        return axes[0] if len(axes) == 1 else axes
 
     def ep_all_to_all(self, x: torch.Tensor, split_axis: int,
                       concat_axis: int) -> torch.Tensor:
         """Expert-dispatch all_to_all over the ep span: the flat data-axis
-        flex all_to_all (the reference's single-node form)."""
+        flex all_to_all (the reference's single-node form); on a cluster
+        the cluster's (whose decomposition across tiers raises, item
+        14)."""
+        if self._cluster_comm is not None:
+            return self._cluster_comm.ep_all_to_all(x, split_axis,
+                                                    concat_axis)
         return self.dp_all_to_all(x, split_axis, concat_axis)
 
     def expert_grad_reduce(self, g: torch.Tensor) -> torch.Tensor:
         """Reduce one ep_a2a expert grad over the gradient axes outside
         the expert-parallel span: the backward all_to_all already summed
-        it over the data axis, and a (data, model) mesh has no other (the
-        reference's ``pod_psum`` without a pod axis)."""
+        it over every ep tier (data, and node on a cluster), and without a
+        pod tier no gradient axis is left (the reference's ``pod_psum``
+        without a pod axis)."""
         return g
 
     def metrics_reduce(self, sums: Dict[str, torch.Tensor],
                        means: Optional[Dict[str, torch.Tensor]] = None
                        ) -> Dict[str, torch.Tensor]:
         """ONE small all-reduce of every step metric stacked in a float32
-        vector over the data axis: ``sums`` come back summed over the
-        ranks (the loss, pre-scaled per rank), ``means`` divided by the
-        rank count (values replicated after the gradient sync).  Without
-        a data axis the inputs pass through."""
+        vector over the gradient axes wider than 1 (data, node; both at
+        once on the mesh's (node, data) plane group): ``sums`` come back
+        summed over the ranks (the loss, pre-scaled per rank), ``means``
+        divided by the rank count (values replicated after the gradient
+        sync).  Without such an axis the inputs pass through."""
         means = means or {}
-        if not (self.dp_axis and self.dp_size > 1):
+        present = tuple(a for a, n in ((self.node_axis, self.node_size),
+                                       (self.dp_axis, self.dp_size))
+                        if a and n > 1)
+        if not present:
             return {**sums, **means}
         vals = torch.stack([torch.as_tensor(v, dtype=torch.float32,
                                             device=self.mesh.device
                                             ).reshape(())
                             for v in list(sums.values())
                             + list(means.values())])
-        red = self.mesh.all_reduce(vals, self.dp_axis)
+        axis = present if len(present) > 1 else present[0]
+        red = self.mesh.all_reduce(vals, axis)
+        n_ranks = self.mesh.axis_size(axis)
         out = {k: red[i] for i, k in enumerate(sums)}
         for j, k in enumerate(means):
-            out[k] = red[len(sums) + j] / self.dp_size
+            out[k] = red[len(sums) + j] / n_ranks
         return out
 
     # -- sizing helpers --------------------------------------------------------

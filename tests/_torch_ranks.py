@@ -1111,3 +1111,172 @@ def serve_sharded(inits, cases, comm, paged, work_dir):
             out[f"paged-{impl}"] = {"logits": logits, "pool": {
                 k: as_bits(v) for k, v in pool.items()}}
     return out
+
+
+def _cluster_comm(layout, profile, cache, mesh, tag):
+    """tests/test_cluster.py's ``_cluster_comm`` on this rank's (node,
+    data) mesh: the intra tier on data, the NIC tier on node (ortho over
+    data), both warm-started from ``cache``."""
+    from repro_torch.cluster.communicator import ClusterCommunicator
+    from repro_torch.cluster.topology import make_cluster
+    from repro_torch.core.communicator import CommConfig, FlexCommunicator
+    n, m = layout
+    topo = make_cluster(profile, n)
+    intra = (FlexCommunicator("data", m, CommConfig(
+        profile=profile, tuning_cache=cache, tag=f"{tag}-intra"),
+        mesh=mesh) if m > 1 else None)
+    inter = (FlexCommunicator("node", n, CommConfig(
+        profile=topo.nic_tier.name, tuning_cache=cache,
+        tag=f"{tag}-inter"), ortho_name="data" if m > 1 else None,
+        mesh=mesh) if n > 1 else None)
+    return ClusterCommunicator(topo, intra, inter)
+
+
+def _cluster_op(cc, op, x):
+    if op == "all_gather":
+        return cc.all_gather(x, tiled=True)
+    return getattr(cc, op)(x)
+
+
+def cluster(case):
+    """tests/test_torch_cluster.py on this rank (8 ranks, or 4):
+
+    * ``coll``: each hierarchical collective of a ClusterCommunicator on
+      its (node, data) layout, this rank's row block of the global
+      payload in, warm-started from ``case["cache"]``; the tiers' plan
+      signatures; the N=1 cases also through the bare intra communicator;
+    * ``ctx``: ParallelCtx cases on (node, data, model) meshes: the
+      gradient reduce of a row block, comms order, plan signature and the
+      comm report's tiers and cluster block;
+    * ``metrics``: the fused metrics reduce on (node, data) and the nested
+      node / data psums;
+    * ``parity``: monolithic and bucketed ``sync_grads`` of small-integer
+      gradients on (node=2, data=4);
+    * ``train``: reduced glm4-9b runs from the reference's initial params
+      through build_train_program on each run's mesh: per-step losses."""
+    import json
+    from types import SimpleNamespace
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_reference
+    from repro_torch.core.communicator import (CommConfig, FlexCommunicator,
+                                               comm_destroy_all)
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.launch.steps import (build_train_program, local_params,
+                                          rank_specs)
+    from repro_torch.models.tp import ParallelCtx
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.train_step import sync_grads
+    world, rank = dist.get_world_size(), dist.get_rank()
+    meshes = {}
+
+    def mesh_of(shape, axes):
+        if (shape, axes) not in meshes:
+            meshes[(shape, axes)] = Mesh(shape, axes, device="cpu")
+        return meshes[(shape, axes)]
+
+    def rows(x):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.split(x, world)[rank]))
+
+    out = {"coll": {}, "ctx": {}, "parity": {}, "train": {}}
+    for name, c in case.get("coll", {}).items():
+        comm_destroy_all()
+        mesh = mesh_of(tuple(c["layout"]), ("node", "data"))
+        cc = _cluster_comm(c["layout"], c["profile"], case["cache"], mesh,
+                           name)
+        xs = {op: rows(c["x_ar" if op == "all_reduce" else "x"]).to(
+            getattr(torch, c["dtype"])) for op in c["ops"]}
+        got = {op: as_bits(_cluster_op(cc, op, xs[op])) for op in c["ops"]}
+        got["signature"] = tuple((a, plain_signature(s))
+                                 for a, s in cc.plan_signature())
+        got["hierarchical"] = cc.hierarchical
+        if c["layout"][0] == 1:         # N=1: the bare communicator
+            flat = FlexCommunicator("data", c["layout"][1], CommConfig(
+                profile=c["profile"], tuning_cache=case["cache"],
+                tag=f"{name}-flat"), mesh=mesh)
+            got["flat"] = {op: as_bits(_cluster_op(flat, op, xs[op]))
+                           for op in c["ops"]}
+            got["flat_signature"] = plain_signature(flat.plan_signature())
+        out["coll"][name] = got
+
+    for name, c in case.get("ctx", {}).items():
+        comm_destroy_all()
+        mesh = mesh_of(tuple(c["shape"]), ("node", "data", "model"))
+        sizes = dict(zip(("node", "data", "model"), c["shape"]))
+        ctx = ParallelCtx(
+            tp_axis="model" if sizes["model"] > 1 else None,
+            dp_axis="data" if sizes["data"] > 1 else None,
+            node_axis="node", tp_size=sizes["model"],
+            dp_size=sizes["data"], node_size=sizes["node"], mesh=mesh,
+            comm_config=CommConfig(profile=c["profile"], tag=name))
+        # the payload splits over (node, data); model ranks share a block
+        shards = sizes["node"] * sizes["data"]
+        i = ctx.node_index() * sizes["data"] + ctx.dp_index()
+        x = torch.from_numpy(np.ascontiguousarray(
+            np.split(c["x"], shards)[i]))
+        y = ctx.grad_all_reduce({"w": x})["w"]
+        rep = ctx.comm_report()
+        out["ctx"][name] = {
+            "y": as_bits(y), "axes": [cm.axis_name for cm in ctx.comms()],
+            "signature": tuple((a, plain_signature(s))
+                               for a, s in ctx.plan_signature()),
+            "tiers": {a: rep[a]["tier"] for a in rep if a != "cluster"},
+            "cluster": json.dumps(rep.get("cluster"), sort_keys=True,
+                                  default=str),
+            "hierarchical": ctx._cluster_comm.hierarchical,
+            "ep": (ctx.ep_axes, ctx.ep_size, ctx.ep_spec_axis())}
+
+    if "metrics" in case:
+        c = case["metrics"]
+        comm_destroy_all()
+        mesh = mesh_of((2, 4), ("node", "data"))
+        ctx = ParallelCtx(dp_axis="data", node_axis="node", dp_size=4,
+                          node_size=2, mesh=mesh,
+                          comm_config=CommConfig(profile="tpu_v5e",
+                                                 tag="ov-metrics"))
+        v = rows(c["x"])
+        fused = ctx.metrics_reduce({"loss": v.sum()},
+                                   {"lr": torch.tensor(0.5)})
+        nested = ctx.node_psum(ctx.dp_psum_small(v.sum()))
+        out["metrics"] = {"loss": as_bits(fused["loss"]),
+                          "lr": as_bits(fused["lr"]),
+                          "nested": as_bits(nested)}
+
+    for name, c in case.get("parity", {}).items():
+        comm_destroy_all()
+        mesh = mesh_of((2, 4), ("node", "data"))
+        ctx = ParallelCtx(dp_axis="data", node_axis="node", dp_size=4,
+                          node_size=2, mesh=mesh,
+                          comm_config=CommConfig(profile="tpu_v5e",
+                                                 tag="ov-node"))
+        cfg = SimpleNamespace(moe=SimpleNamespace(impl="ep_a2a")
+                              if c["ep"] else None)
+        t = pytree.tree_map(lambda a: rows(a).to(getattr(torch, c["dtype"])),
+                            c["grads"])
+        mono = sync_grads(t, cfg, ctx)
+        buck = ctx.await_all(sync_grads(t, cfg, ctx,
+                                        bucket_mb=c["bucket_mb"]))
+        out["parity"][name] = {"mono": flat_leaves(mono),
+                               "buck": flat_leaves(buck)}
+
+    for name, run in case.get("train", {}).items():
+        comm_destroy_all()
+        mesh = mesh_of(tuple(run["shape"]), tuple(run["axes"]))
+        cfg = get_config("glm4-9b").reduced()
+        program, ctx = build_train_program(
+            cfg, mesh, comm=CommConfig(profile="tpu_v5e", tag=name),
+            opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+            device="cpu", name=name)
+        params = local_params(params_from_reference(case["params"]),
+                              rank_specs(cfg, ctx), ctx)
+        opt_state = init_state(params)
+        batches = make_batches(cfg, seq_len=32, batch_per_shard=4, seed=7)
+        _, _, losses = _run_prog(program, params, opt_state, batches,
+                                 run["steps"])
+        program.close()
+        out["train"][name] = {"losses": losses,
+                              "node_size": ctx.node_size,
+                              "cluster": ctx._cluster_comm is not None}
+    comm_destroy_all()
+    return out

@@ -67,6 +67,18 @@ def test_the_training_slice_is_checked():
     assert (PORT / "kernels" / "csrc" / "codec.cu").exists()
 
 
+def test_the_cluster_slice_is_checked():
+    """The two-tier cluster's modules are among those checked above: the
+    copied topology, simulator, cluster presets and fault schedule, and
+    the hierarchical communicator."""
+    for m in ("repro_torch.cluster", "repro_torch.cluster.topology",
+              "repro_torch.cluster.simulator",
+              "repro_torch.cluster.communicator",
+              "repro_torch.configs.clusters", "repro_torch.faults",
+              "repro_torch.faults.schedule"):
+        assert m in MODULES, m
+
+
 def test_the_tensor_parallel_slice_is_checked():
     """The modules the tensor-parallel train step added or changed are
     among those checked above: K7's wrapper and source, the differentiable

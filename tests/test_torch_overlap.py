@@ -9,8 +9,8 @@ Four gloo ranks are spawned ONCE for the module (rank side in
   bfloat16, so any summation order gives the same bits — are equal bit
   for bit, and equal to the reference's bucketed output, at the fixed
   grid of tests/test_overlap.py's flat cases (float32 / bfloat16 x ep
-  off / on; its ``cluster`` cases wait for the two-tier cluster, ROADMAP
-  queue 1 item 12);
+  off / on; its ``cluster`` cases run on (node=2, data=4) in
+  tests/test_torch_cluster.py);
 * the StepProgram issue/await lifecycle through ``ctx.issue``;
 * on (data=2, model=2), reduced glm4-9b: the train step whose buckets go
   out from the backward's tensor hooks issues the tags, plans and

@@ -27,6 +27,7 @@ the reference's under a ``shard_map`` on (model=2).
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -512,10 +513,34 @@ def test_serve_launcher_flags_take_the_reference_note(tmp_path, capsys):
     (["--nodes", "2"], "item 12"), (["--pods", "2"], "item 14"),
     (["--degrade", "nvlink=0.5"], "item 13"),
     (["--fault", "nvlink@step2=0.5"], "item 13")])
-def test_serve_launcher_refuses_unported_tiers(flags, item, capsys):
-    """``--nodes``, ``--pods``, ``--degrade`` and ``--fault`` need tiers
-    not ported yet: exit 2 naming the ROADMAP item, before any work."""
-    rc = t_serve.main(["--smoke", "--device", "cpu", *flags])
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and item in err
+def test_serve_launcher_refuses_unported_tiers(flags, item, capsys,
+                                               tmp_path):
+    """``--pods`` and ``--fault`` need tiers not ported yet: exit 2 naming
+    the ROADMAP item, before any work.  ``--nodes`` and the launch-time
+    ``--degrade`` came with the two-tier cluster (item 12), as the
+    reference's: ``--nodes 2`` serves on one device and reports the
+    cluster it registered, equal to the reference's ``cluster_for``;
+    ``--degrade`` serves on the degraded profile, named as the
+    reference's ``resolve_faults`` names it."""
+    from repro.cluster.topology import cluster_for as j_cluster_for
+    from repro.configs.clusters import resolve_faults as j_resolve
+    rec = tmp_path / "serve.json"
+    rc = t_serve.main(["--smoke", "--device", "cpu", "--requests", "2",
+                       "--max-new", "3", "--out", str(rec), *flags])
+    out, err = capsys.readouterr()
+    if flags[0] in ("--pods", "--fault"):
+        assert rc == 2
+        assert "not ported yet" in err and item in err
+        return
+    assert rc == 0 and "served 2 requests" in out
+    got = json.loads(rec.read_text())
+    if flags[0] == "--nodes":
+        want = j_cluster_for("h100", 2)
+        assert got["cluster"] == want.describe()
+        assert f"NIC tier {want.nic_tier.name}" in out
+        assert got["profile"] == "h100"
+    else:
+        assert got["cluster"] is None
+        assert got["profile"] == j_resolve(None, 1, "h100",
+                                           degrade=flags[1])[1]
+        assert got["profile"] == "h100!nvlink=0.5"

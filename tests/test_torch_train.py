@@ -339,9 +339,18 @@ def test_train_launcher_bucketed_smoke_learns():
 
 
 def test_train_launcher_refuses_what_is_not_ported():
+    """--pods (item 14), --fault (item 13), ep_a2a dispatch on a node mesh
+    (item 14) and a batch that does not divide over node x data exit 2;
+    --nodes itself is ported (tests/test_torch_cluster.py)."""
     from repro_torch.launch import train
     assert train.main(["--smoke", "--device", "cpu", "--dist", "gloo",
-                       "--nodes", "2", "--mesh-shape", "2,1"]) == 2
+                       "--fault", "nvlink@step2=0.5",
+                       "--mesh-shape", "2,1"]) == 2
+    assert train.main(["--smoke", "--device", "cpu", "--dist", "gloo",
+                       "--arch", "kimi-k2-1t-a32b", "--nodes", "2",
+                       "--mesh-shape", "2,1"]) == 2
+    assert train.main(["--smoke", "--device", "cpu", "--dist", "gloo",
+                       "--nodes", "3", "--mesh-shape", "2,1"]) == 2
     assert train.main(["--smoke", "--device", "cpu", "--dist", "gloo",
                        "--pods", "2", "--mesh-shape", "2,1"]) == 2
     assert train.main(["--smoke", "--device", "cpu", "--mesh-shape",
