@@ -226,7 +226,7 @@ non-zero:
    they are read; (b) glm4-9b at its published widths and depth, bf16,
    seed 0, on (model=2), batch 8, a 4096 cache (2048 a rank) filled with
    seeded random K/V at the model's own scale (the same global cache on
-   every mesh and on one rank), 16 greedy steps from 3072 (the argmax of
+   every mesh and on one rank), 8 greedy steps from 3072 (the argmax of
    the logits gathered over the model axis), each issued and awaited,
    the model axis's all-reduce pinned to 50/25/25: K1 launches equal to
    what the executed plans imply, 81 combines and 40 Q gathers (issued =
@@ -234,7 +234,7 @@ non-zero:
    upcast to float32: the last step's logits within 2e-3 of one rank's
    float32 decode of the same tokens; (c) the same model, batch 1, the
    cache over (data=2, model=2) (4 ranks, 32768, 8192 a rank), filled,
-   8 steps from 24572 (the owning shard moves from 2 to 3; shards 0-2
+   6 steps from 24572 (the owning shard moves from 2 to 3; shards 0-2
    hold real keys): K1 = the plans', every rank's bf16 logits' and one
    rank's distances from one rank's float32 run printed; the same steps
    on the shards' first 8 layers upcast to float32 (four ranks' whole
@@ -261,11 +261,32 @@ non-zero:
    executed plans imply, wall time a call; a (data=4) cluster with the
    intra tier alone gives the bare communicator's plan signature and
    bits; (b) Whisper-medium at its published widths and depth, bf16,
-   seed 0, 8 rows a rank, 3 flexlink steps on (node=2, data=2) and on
+   seed 0, 8 rows a rank, 2 flexlink steps on (node=2, data=2) and on
    (data=4): losses equal on every rank, the cluster run within 5e-3 of
    the flat one (the reference's own bound), K1 = the plans', peak
    memory, wall time; then every K1 segment table of (a) and (b) against
-   the plain version, bit for bit.
+   the plain version, bit for bit;
+21. live faults on the same 4 ranks and cluster, both tiers pinned as in
+   20 and the rail3-degraded NIC tier at the same class shares: (a) 14
+   ticks of a 64 MiB bf16 hierarchical all-reduce a rank under
+   ``rail3@step2=0.25,rail3@step9=1.0``, a FabricClock on the ctx
+   advanced at the top of each tick: every tick exact; every rank commits
+   the degrade at tick 5 and the restore at 12 (step + K - 1), the NIC
+   tier re-keys twice (``transition:exact``) and the data tier never, the
+   clock reports equal on every rank; the plan signature moves at 5 and
+   returns to the healthy one at 12; rail3 carries fewer member units
+   than each healthy rail in the degraded plans; K1 = the plans' every
+   tick; then rail2 flapping every tick over 10 ticks: no re-key,
+   suppressed flaps, one signature; (b) Whisper-medium at its published
+   widths, depth cut 24 + 24 -> 4 + 4, bf16, seed 0, seq 128, 8 rows a
+   rank, ``node1@step1=down``, a snapshot every 3 steps, 6 steps: the
+   drop commits at step 4, ranks 2 and 3 leave, ranks 0 and 1 build
+   their process groups alone, resume from snapshot 3 on (data=2) and
+   run steps 3-5 (7 losses); every param leaf bit-equal to a fresh
+   (data=2) launch restoring snapshot 3; K1 = the plans' before the drop
+   (the hierarchical legs) and after it (the data axis); peak memory and
+   the wall of each part; then every K1 segment table of (a) and (b)
+   against the plain version, bit for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  The launches in that line are the
@@ -275,9 +296,9 @@ K5 and the mixed K1 from phase 10 (c), K7 from phase 13 (0: no path
 calls it); K6's row adds phase 15's launches (b, c), phase 18 (b)'s and
 phase 19 (d)'s (both ranks), and K1's the flexlink runs of phases 16
 (a), 17 (a) and 18 (e), the (model=2) prefill of phase 18 (c), the
-serve program's bf16 runs of phase 19 (b) and (c), and phase 20's
-hierarchical collectives (a) and cluster training run (b); each rank
-process sets
+serve program's bf16 runs of phase 19 (b) and (c), phase 20's
+hierarchical collectives (a) and cluster training run (b), and phase
+21's degrade run (a) and elastic run (b); each rank process sets
 its counts to 0 just before that path and reports them just after it.
 A K1 or K5 segment-table launch counts once, whatever its segments.
 Without a CUDA card, or without the rest of the checkout beside this
@@ -289,6 +310,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import gc
 import hashlib
 import importlib.util
@@ -3783,12 +3805,12 @@ SERVE_LOCAL_ATOL = 2e-3
 #: (b): glm4-9b at full width and depth on (model=2): batch 8, a 4096
 #: cache (2048 a rank), greedy steps from position 3072 over a filled
 #: cache, so both shards' partials carry real keys
-SERVE_BATCH, SERVE_SEQ, SERVE_POS, SERVE_STEPS = 8, 4096, 3072, 16
+SERVE_BATCH, SERVE_SEQ, SERVE_POS, SERVE_STEPS = 8, 4096, 3072, 8
 #: (c): batch 1 on (data=2, model=2): a 32768 cache (8192 a rank), steps
 #: over a filled cache from a position just below the third shard's end:
 #: the owner moves from shard 2 to 3 (data index 1), shards 0-2 hold real
 #: keys, so both axes' merges combine partials with mass
-LONG_SEQ, LONG_POS, LONG_STEPS = 32768, 3 * 8192 - 4, 8
+LONG_SEQ, LONG_POS, LONG_STEPS = 32768, 3 * 8192 - 4, 6
 #: (c)'s float32 pass: the same steps on the shards' first 8 layers
 #: upcast (four ranks' whole shards in float32 would not fit the card)
 LONG_F32_DEPTH = 8
@@ -4325,7 +4347,7 @@ def _vs_float32(what, tp, one, f32, v, bounded=True):
 def phase19_serve_sharded(card):
     """(a) reduced float32 glm4-9b and zamba2-1.2b through the serve
     program on (model=2) and on (data=2, model=2), against the local
-    decode; (b) glm4-9b whole on (model=2), batch 8, 16 greedy steps; (c)
+    decode; (b) glm4-9b whole on (model=2), batch 8, 8 greedy steps; (c)
     the same model, batch 1, the cache over (data=2, model=2); (d)
     paged_decode_step through K6 at (model=2).  (b)-(d) hold the sharded
     bf16 logits and one rank's against one rank's float32 run of the same
@@ -4519,6 +4541,8 @@ CLUSTER_ROWS = 8
 #: own bound (tests/test_cluster.py test_multi_node_train_matches_single_
 #: node)
 CLUSTER_VS_FLAT = 5e-3
+#: (b): steps of each run (3 until phase 21 needed the time)
+CLUSTER_STEPS = 2
 
 
 def _pin_cluster(path: str) -> str:
@@ -4556,7 +4580,7 @@ def cluster_rank(pinned: str):
     bfloat16 and float32 (``_pattern`` payloads, [rows, CLUSTER_COLS]),
     every executed plan and K1 call recorded, the kernel counts set to 0
     just before and read just after; the N=1 parity on (data=4); (b) Whisper-medium whole,
-    bf16, seed 0, TRAIN_STEPS flexlink steps on (node=2, data=2) and then
+    bf16, seed 0, CLUSTER_STEPS flexlink steps on (node=2, data=2) and then
     on (data=4), the same global batch."""
     sys.path.insert(0, str(SRC))
     import dataclasses
@@ -4636,7 +4660,7 @@ def cluster_rank(pinned: str):
         program, tctx = build_train_program(
             cfg, m, comm=comm, opt=AdamWConfig(
                 lr=WHISPER_TRAIN_LR, warmup_steps=1,
-                total_steps=TRAIN_STEPS), name=f"whisper-{name}")
+                total_steps=CLUSTER_STEPS), name=f"whisper-{name}")
         batches = make_batches(cfg, seq_len=128,
                                batch_per_shard=4 * CLUSTER_ROWS)
         calls = []
@@ -4646,7 +4670,7 @@ def cluster_rank(pinned: str):
         with _executed(calls), recorded_calls(out["calls"]):
             params, opt_state, hist = run_loop(
                 program, params, opt_state, batches, tctx,
-                LoopConfig(total_steps=TRAIN_STEPS, log_every=0))
+                LoopConfig(total_steps=CLUSTER_STEPS, log_every=0))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _kernel_counts()
@@ -4761,7 +4785,7 @@ def phase20_cluster(card):
     check(k1_b > 0, "20 (b): no K1 launch in the cluster run")
     print(f"phase 20 (b): whisper-medium at its published widths and depth, "
           f"bf16, seed 0, seq 128, {CLUSTER_ROWS} rows a rank, AdamW lr "
-          f"{WHISPER_TRAIN_LR}, flexlink, {TRAIN_STEPS} steps: on (node=2, "
+          f"{WHISPER_TRAIN_LR}, flexlink, {CLUSTER_STEPS} steps: on (node=2, "
           f"data=2) losses {cl['losses']} (equal on every rank), on "
           f"(data=4) {fl['losses']}, max gap {gap:.3g} (bound "
           f"{CLUSTER_VS_FLAT}); K1 over 4 ranks {k1_b} (cluster) / "
@@ -4778,6 +4802,431 @@ def phase20_cluster(card):
     k1_err, _, k1_tables = phase12_main_path_check(
         calls, phase="20", required=tuple(sorted({c[0] for c in calls})))
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return k1_a, k1_b, k1_err.get("k1", 0.0), k1_tables
+
+
+# ---------------------------------------------------------------------------
+# phase 21: live faults
+# ---------------------------------------------------------------------------
+
+#: (a): a bf16 hierarchical all-reduce of this many bytes a rank, one a
+#: tick, under a rail degrade that commits at 2 + K - 1 = 5 and a restore
+#: at 9 + K - 1 = 12; then a rail flapping every tick, which never commits
+FAULT_BYTES = 64 * MiB
+FAULT_SCHEDULE, FAULT_TICKS = "rail3@step2=0.25,rail3@step9=1.0", 14
+FLAP_TICKS = 10
+FLAP_SCHEDULE = ",".join(f"rail2@step{t}={0.25 if t % 2 else 1.0}"
+                         for t in range(1, FLAP_TICKS))
+#: (b): Whisper-medium at its widths, encoder and decoder depth cut 24 ->
+#: ELASTIC_DEPTH; node 1 lost at step 1 commits at 4, the survivors resume
+#: from snapshot 3
+ELASTIC_SCHEDULE, ELASTIC_STEPS, ELASTIC_EVERY = "node1@step1=down", 6, 3
+ELASTIC_DEPTH = 4
+
+
+def _pin_faults(path: str) -> str:
+    """``_pin_cluster``'s pins, plus the NIC tier degraded by rail3 at
+    NIC_SHARES (the same class shares), so (a)'s degrade re-keys
+    ``transition:exact``; returns that degraded profile's name."""
+    from repro_torch.control.profile import TuningProfile
+    from repro_torch.core.communicator import SIZE_BUCKETS
+    from repro_torch.core.links import PROFILES, degrade_profile
+    from repro_torch.core.topology import Collective
+    from repro_torch.core.tuner import SHARE_GRID
+    nic = _pin_cluster(path)
+    sick = degrade_profile(PROFILES[nic], "rail:rail3=0.25").name
+    prof = TuningProfile.load(path)
+    for op in CLUSTER_OPS:
+        for bucket in SIZE_BUCKETS:
+            prof.record(sick, "ring", Collective(op), CLUSTER_MESH[0],
+                        bucket, SHARE_GRID, NIC_SHARES)
+    prof.save(path)
+    return sick
+
+
+def _elastic_cfg():
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-medium")
+    return dataclasses.replace(
+        cfg, n_layers=ELASTIC_DEPTH, encdec=dataclasses.replace(
+            cfg.encdec, n_enc_layers=ELASTIC_DEPTH))
+
+
+def _leaf_digests(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaf_digests(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = _digest(v)
+    return out
+
+
+def _launch_want(calls) -> int:
+    want = collections.Counter()
+    for plan, n, dt in calls:
+        want += codec_launches(plan, n, dt)
+    return want["k1"]
+
+
+def fault_rank(pinned: str, ckpt_dir: str):
+    """One rank of phase 21 on (node=2, data=2), ``cluster_for("h100",
+    2)``: (a) under FAULT_SCHEDULE (then FLAP_SCHEDULE), a FabricClock on
+    the ctx advanced at the top of each tick, then one hierarchical
+    all-reduce of FAULT_BYTES of bf16 (``_pattern``) through the ctx's
+    ClusterCommunicator, K1 counted and the executed plans recorded a
+    tick; (b) Whisper-medium (ELASTIC_DEPTH + ELASTIC_DEPTH layers) from
+    seed 0, both tiers pinned as in (a), under ELASTIC_SCHEDULE with
+    snapshots every ELASTIC_EVERY steps to ``ckpt_dir``: the lost node's
+    ranks leave, the survivors resume on (data=2), K1 counted before and
+    after the drop; then, on the survivors, a fresh (data=2) launch
+    restoring the same snapshot."""
+    sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.clusters import resolve_faults
+    from repro_torch.core.communicator import CommConfig, comm_destroy_all
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.faults import (FabricClock, make_train_resume,
+                                    restore_templates)
+    from repro_torch.launch.mesh import Mesh, without_node
+    from repro_torch.launch.steps import build_train_program, rank_specs
+    from repro_torch.models.tp import ParallelCtx
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.loop import LoopConfig, run_loop
+    mesh = Mesh(CLUSTER_MESH, ("node", "data"))
+    rank, dev = mesh.rank, mesh.device
+    out = {"a": {}, "calls": set()}
+    x = _pattern(FAULT_BYTES // 2, rank, dev).reshape(-1, CLUSTER_COLS)
+    for name, schedule, ticks in (("degrade", FAULT_SCHEDULE, FAULT_TICKS),
+                                  ("flap", FLAP_SCHEDULE, FLAP_TICKS)):
+        comm_destroy_all()
+        cluster, profile, tl = resolve_faults(None, CLUSTER_MESH[0], "h100",
+                                              fault=schedule)
+        ctx = ParallelCtx(dp_axis="data", node_axis="node",
+                          dp_size=CLUSTER_MESH[1], node_size=CLUSTER_MESH[0],
+                          comm_config=CommConfig(profile=profile,
+                                                 tuning_cache=pinned,
+                                                 fault=tl.spec()),
+                          cluster=cluster, mesh=mesh)
+        clock = FabricClock(tl).attach(ctx)
+        run = []
+        for t in range(ticks):
+            committed = [tr["kind"] for tr in clock.advance(t)]
+            calls = []
+            torch.cuda.synchronize()
+            _kernel_counts(reset=True)
+            t0 = time.perf_counter()
+            with _executed(calls), recorded_calls(out["calls"]):
+                y = ctx._cluster_comm.all_reduce(x)
+            torch.cuda.synchronize()
+            run.append({
+                "tick": t, "committed": committed, "digest": _digest(y),
+                "wall_s": time.perf_counter() - t0,
+                "k1": _kernel_counts()["k1"], "k1_want": _launch_want(calls),
+                "sig": repr(ctx.plan_signature()),
+                "node_layouts": sorted({plan.member_layout
+                                        for plan, _, _ in calls
+                                        if plan.axis_name == "node"}),
+                "origins": {c.axis_name: sorted(
+                    {str(sc.origin) for sc in c.slot_controllers()})
+                    for c in ctx.comms()}})
+            del y
+        out["a"][name] = {"ticks": run, "report": json.dumps(
+            clock.report(), sort_keys=True, default=str),
+            "rekeys": clock.rekeys, "flaps": clock.suppressed_flaps,
+            "rekeyed": [sorted(tr.get("rekeyed", {}))
+                        for tr in clock.transitions]}
+    del x
+    comm_destroy_all()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b): elastic node loss
+    cfg = _elastic_cfg()
+    cluster, profile, tl = resolve_faults(None, CLUSTER_MESH[0], "h100",
+                                          fault=ELASTIC_SCHEDULE)
+    comm = CommConfig(profile=profile, tuning_cache=pinned, fault=tl.spec())
+    opt = AdamWConfig(lr=WHISPER_TRAIN_LR, warmup_steps=1,
+                      total_steps=ELASTIC_STEPS)
+
+    def batches_fn():
+        return make_batches(cfg, seq_len=128,
+                            batch_per_shard=4 * CLUSTER_ROWS)
+
+    torch.cuda.reset_peak_memory_stats()
+    train_mesh = Mesh(CLUSTER_MESH + (1,), ("node", "data", "model"))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    program, ctx = build_train_program(cfg, train_mesh, comm=comm, opt=opt,
+                                       name="whisper-elastic",
+                                       cluster=cluster)
+    specs = rank_specs(cfg, ctx)
+    clock = FabricClock(tl).attach(ctx)
+    logs, calls, at_drop = [], [], {}
+    handler = make_train_resume(cfg, opt=opt, comm_config=comm,
+                                mesh=train_mesh, cluster=ctx.cluster,
+                                ckpt_dir=ckpt_dir, batches_fn=batches_fn,
+                                log=logs.append)
+
+    def on_loss(tr, step):
+        # K1 and the executed plans before the drop; the rest after it
+        torch.cuda.synchronize()
+        at_drop.update(k1=_kernel_counts()["k1"],
+                       k1_want=_launch_want(calls),
+                       tiers=sorted({p.axis_name for p, _, _ in calls}),
+                       wall_s=time.perf_counter() - t0)
+        calls.clear()
+        _kernel_counts(reset=True)
+        t1 = time.perf_counter()
+        swap = handler(tr, step)
+        at_drop["rebuild_s"] = time.perf_counter() - t1
+        return swap
+
+    loop = LoopConfig(total_steps=ELASTIC_STEPS, log_every=0,
+                      ckpt_every=ELASTIC_EVERY, ckpt_dir=ckpt_dir,
+                      param_specs=specs, faults=clock, on_node_loss=on_loss)
+    torch.cuda.synchronize()
+    _kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    with _executed(calls), recorded_calls(out["calls"]):
+        params, opt_state, hist = run_loop(program, params,
+                                           init_state(params), batches_fn(),
+                                           ctx, loop, log=lambda *_: None)
+    torch.cuda.synchronize()
+    b = {"history": hist, "dropped_at": loop.report.get("dropped_at"),
+         "at_drop": at_drop, "logs": logs,
+         "transitions": json.dumps(clock.transitions, default=str),
+         "wall_s": time.perf_counter() - t0,
+         "reattached": clock.ctx is not ctx,
+         "mesh": (clock.ctx.mesh.ranks, clock.ctx.mesh.axes)}
+    if b["dropped_at"] is None:
+        b.update(k1=_kernel_counts()["k1"], k1_want=_launch_want(calls),
+                 tiers=sorted({p.axis_name for p, _, _ in calls}),
+                 params=_leaf_digests(params))
+    program.close()
+    del params, opt_state, program, ctx
+    survivors = without_node(train_mesh, 1)
+    comm_destroy_all()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if dist.get_rank() in survivors:
+        # the fresh (data=2) launch at the post-drop topology
+        t0 = time.perf_counter()
+        fresh = Mesh((CLUSTER_MESH[1], 1), ("data", "model"),
+                     ranks=survivors)
+        program, ctx = build_train_program(cfg, fresh, comm=comm, opt=opt,
+                                           name="whisper-fresh")
+        fspecs = rank_specs(cfg, ctx)
+        p_tmpl, o_tmpl = restore_templates(cfg, ctx, fspecs)
+        params, opt_state, meta = Checkpointer(
+            ckpt_dir, ctx=ctx, specs=fspecs).restore(p_tmpl, o_tmpl,
+                                                     ELASTIC_EVERY)
+        batches = batches_fn()
+        fhist = []
+        for _ in range(ELASTIC_EVERY, ELASTIC_STEPS):
+            params, opt_state, metrics = program.step(params, opt_state,
+                                                      next(batches))
+            fhist.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        program.close()
+        b["fresh"] = {"history": fhist, "meta_step": meta["step"],
+                      "params": _leaf_digests(params),
+                      "wall_s": time.perf_counter() - t0}
+        del params, opt_state, program, ctx
+    b["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["b"] = b
+    comm_destroy_all()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase21_faults(card):
+    """Live faults on 4 gloo ranks sharing the card as (node=2, data=2),
+    ``cluster_for("h100", 2)``, both tiers pinned as in phase 20 and the
+    rail3-degraded NIC tier at the same class shares: (a) FAULT_TICKS
+    ticks of a FAULT_BYTES bf16 hierarchical all-reduce under
+    FAULT_SCHEDULE: every tick exact; every rank commits the degrade at
+    tick 5 and the restore at 12, the NIC tier re-keys twice
+    (``transition:exact``) and the data tier never, the clock reports
+    equal on every rank; the plan signature moves at 5 and returns to the
+    healthy one at 12; in the degraded plans rail3 carries fewer member
+    units than each healthy rail; K1 = the plans' every tick; then a rail
+    flapping every tick: no re-key, suppressed flaps, one signature.  (b)
+    Whisper-medium (depth ELASTIC_DEPTH + ELASTIC_DEPTH, bf16, seed 0,
+    seq 128, 8 rows a rank) under ELASTIC_SCHEDULE: the drop commits at
+    step 4, ranks 2 and 3 leave, ranks 0 and 1 resume from snapshot 3 on
+    (data=2) and run steps 3-5; every param leaf bit-equal to a fresh
+    (data=2) launch from snapshot 3; 7 losses; K1 = the plans' before
+    (the hierarchical legs) and after (the data axis).  Every K1 segment
+    table against the plain version.  Returns (K1 over the ranks in (a)'s
+    degrade run, in (b), the K1 check's max abs err and tables)."""
+    from repro_torch.faults import HYSTERESIS_K
+    from repro_torch.launch.mesh import run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        pinned = f"{tmp}/pinned.json"
+        sick = _pin_faults(pinned)
+        t0 = time.perf_counter()
+        res = run_ranks(fault_rank, 4, backend="gloo", device="cuda",
+                        timeout_s=900, args=(pinned, f"{tmp}/ckpt"))
+        ranks_s = time.perf_counter() - t0
+    n, m = CLUSTER_MESH
+    k = HYSTERESIS_K
+    ins = [_pattern(FAULT_BYTES // 2, q, dev) for q in range(n * m)]
+    exact = _digest(sum(x.float() for x in ins).to(torch.bfloat16))
+    del ins
+    torch.cuda.empty_cache()
+    # (a)
+    deg = [r["a"]["degrade"] for r in res]
+    commits = {2 + k - 1: ["degrade"], 9 + k - 1: ["degrade"]}
+    for r, run in enumerate(deg):
+        ticks = run["ticks"]
+        check(all(t["digest"] == exact for t in ticks),
+              f"21 (a) rank {r}: a tick's all-reduce is not the exact sum")
+        check(all(t["committed"] == commits.get(t["tick"], [])
+                  for t in ticks), f"21 (a) rank {r}: commits "
+              f"{[(t['tick'], t['committed']) for t in ticks]}")
+        check(all(t["k1"] == t["k1_want"] > 0 for t in ticks),
+              f"21 (a) rank {r}: K1 {[t['k1'] for t in ticks]}, the plans "
+              f"say {[t['k1_want'] for t in ticks]}")
+        check(run["rekeys"] == 2 and run["rekeyed"] == [["node"], ["node"]],
+              f"21 (a) rank {r}: re-keys {run['rekeys']} {run['rekeyed']}")
+        check(run["report"] == deg[0]["report"],
+              f"21 (a) rank {r}: the clock's report differs from rank 0's")
+        sigs = [t["sig"] for t in ticks]
+        check(all(sig == sigs[0] for sig in sigs[:5] + sigs[12:])
+              and all(sig == sigs[5] for sig in sigs[5:12])
+              and sigs[5] != sigs[0] and sigs == [t["sig"] for t in
+                                                  deg[0]["ticks"]],
+              f"21 (a) rank {r}: plan signatures move at "
+              f"{[t for t in range(1, len(sigs)) if sigs[t] != sigs[t-1]]}")
+        for t in ticks:
+            sick_tick = 5 <= t["tick"] < 12
+            lay = t["node_layouts"]
+            if not sick_tick:
+                check(lay == [()], f"21 (a) rank {r} tick {t['tick']}: "
+                      f"healthy member layout {lay}")
+                continue
+            rails = [dict(units) for layout in lay for _, units in layout
+                     if "rail3" in dict(units)]
+            check(rails and all(u["rail3"] < min(
+                v for name, v in u.items() if name != "rail3")
+                for u in rails), f"21 (a) rank {r} tick {t['tick']}: "
+                f"degraded member layout {lay}")
+        check(ticks[5]["origins"]["node"] == ["transition:exact"]
+              and ticks[12]["origins"]["node"] == ["transition:exact"]
+              and all("transition" not in o for t in ticks
+                      for o in t["origins"]["data"]),
+              f"21 (a) rank {r}: origins {ticks[5]['origins']} / "
+              f"{ticks[12]['origins']}")
+    flap = [r["a"]["flap"] for r in res]
+    for r, run in enumerate(flap):
+        sigs = {t["sig"] for t in run["ticks"]}
+        check(run["rekeys"] == 0 and run["flaps"] > 0 and len(sigs) == 1
+              and all(t["digest"] == exact and t["k1"] == t["k1_want"]
+                      for t in run["ticks"]),
+              f"21 (a) rank {r} flap: {run['rekeys']} re-keys, "
+              f"{run['flaps']} flaps, {len(sigs)} signatures")
+    k1_a = sum(t["k1"] for run in deg for t in run["ticks"])
+    t0 = deg[0]["ticks"]
+    lay = next(layout for layout in t0[5]["node_layouts"] if layout)
+    walls = [max(run["ticks"][t]["wall_s"] for run in deg)
+             for t in range(FAULT_TICKS)]
+    print(f"phase 21 (a): {FAULT_SCHEDULE!r} over {FAULT_TICKS} ticks of a "
+          f"{FAULT_BYTES // MiB} MiB bf16 hierarchical all-reduce a rank "
+          f"(the NIC tier, its rail3-degraded form too, pinned rail/xrail/"
+          f"host_tcp {NIC_SHARES}): every tick exact on every rank; the "
+          f"degrade committed at tick {2 + k - 1} and the restore at "
+          f"{9 + k - 1} on every rank (K {k}), the NIC tier re-keyed twice "
+          f"(transition:exact, to {sick!r} and back), the data tier never; "
+          f"clock reports equal on every rank; the plan signature moved at "
+          f"ticks 5 and 12, back to the healthy one; degraded member layout "
+          f"{lay}; K1 over 4 ranks {k1_a} = the plans' "
+          f"({t0[0]['k1']} a tick a rank); wall a tick, the slower rank "
+          f"({WALL_NOTE}): median {statistics.median(walls):.3f} s; then "
+          f"{FLAP_TICKS} ticks of rail2 flapping every tick: 0 re-keys, "
+          f"{flap[0]['flaps']} suppressed flaps, one plan signature, exact")
+    # (b)
+    b = [r["b"] for r in res]
+    commit = 1 + k - 1
+    lost, live = [2, 3], [0, 1]
+    for r in lost:
+        check(b[r]["dropped_at"] == commit and len(b[r]["history"]) == commit
+              and "fresh" not in b[r], f"21 (b) rank {r}: dropped at "
+              f"{b[r]['dropped_at']}, {len(b[r]['history'])} losses")
+    steps_after = ELASTIC_STEPS - ELASTIC_EVERY
+    for r in live:
+        g = b[r]
+        trs = json.loads(g["transitions"])
+        check(g["dropped_at"] is None and g["reattached"]
+              and trs == [{"kind": "node", "node": 1, "step": commit}]
+              and g["mesh"] == (tuple(live), ("data", "model")),
+              f"21 (b) rank {r}: {trs}, mesh {g['mesh']}")
+        check(any(f"from checkpoint step {ELASTIC_EVERY}" in msg
+                  for msg in g["logs"]), f"21 (b) rank {r}: {g['logs']}")
+        check(len(g["history"]) == commit + steps_after == 7
+              and g["history"][:commit] == b[lost[0]]["history"],
+              f"21 (b) rank {r}: losses {g['history']}")
+        check(g["history"] == b[live[0]]["history"]
+              and np.isfinite(g["history"]).all(),
+              f"21 (b) rank {r}: losses differ from rank 0's")
+        f = g["fresh"]
+        check(f["meta_step"] == ELASTIC_EVERY
+              and f["history"] == g["history"][commit:],
+              f"21 (b) rank {r}: fresh losses {f['history']}")
+        diff = sorted(key for key in f["params"]
+                      if f["params"][key] != g["params"].get(key))
+        check(not diff and f["params"].keys() == g["params"].keys(),
+              f"21 (b) rank {r}: leaves differ from the fresh launch: "
+              f"{diff[:5]}")
+        d = g["at_drop"]
+        check(d["k1"] == d["k1_want"] > 0 and d["tiers"] == ["data", "node"]
+              and g["k1"] == g["k1_want"] > 0 and g["tiers"] == ["data"],
+              f"21 (b) rank {r}: K1 before {d['k1']} / {d['k1_want']} "
+              f"{d['tiers']}, after {g['k1']} / {g['k1_want']} {g['tiers']}")
+    for r in lost:
+        d = b[r]["at_drop"]
+        check(d["k1"] == d["k1_want"] > 0, f"21 (b) rank {r}: K1 before the "
+              f"drop {d['k1']}, the plans say {d['k1_want']}")
+    k1_b = (sum(g["at_drop"]["k1"] for g in b)
+            + sum(b[r]["k1"] for r in live))
+    g = b[0]
+    print(f"phase 21 (b): whisper-medium at its published widths, depth "
+          f"cut 24 + 24 -> {ELASTIC_DEPTH} + {ELASTIC_DEPTH}, bf16, seed 0, "
+          f"seq 128, {CLUSTER_ROWS} rows a rank, AdamW lr "
+          f"{WHISPER_TRAIN_LR}, flexlink, {ELASTIC_SCHEDULE!r}, a snapshot "
+          f"every {ELASTIC_EVERY} steps, {ELASTIC_STEPS} steps on (node=2, "
+          f"data=2): the drop committed at step {commit}, ranks 2 and 3 "
+          f"left there, ranks 0 and 1 rebuilt their groups alone and "
+          f"resumed from snapshot {ELASTIC_EVERY} on (data=2) (rebuild and "
+          f"restore {max(b[r]['at_drop']['rebuild_s'] for r in live):.2f} "
+          f"s); losses {g['history']} (7: steps "
+          f"{list(range(ELASTIC_EVERY, commit))} replayed), equal on both "
+          f"survivors; every param "
+          f"leaf ({len(g['params'])}) bit-equal to a fresh (data=2) launch "
+          f"from snapshot {ELASTIC_EVERY} (its losses "
+          f"{g['fresh']['history']}); K1 over 4 ranks "
+          f"{sum(x['at_drop']['k1'] for x in b)} before the drop "
+          f"(hierarchical legs) + {sum(b[r]['k1'] for r in live)} after "
+          f"(the data axis) = the plans'; wall, the slower rank "
+          f"({WALL_NOTE}): to the drop "
+          f"{max(x['at_drop']['wall_s'] for x in b):.2f} s, the whole run "
+          f"{max(b[r]['wall_s'] for r in live):.2f} s, the fresh launch "
+          f"{max(b[r]['fresh']['wall_s'] for r in live):.2f} s; peak "
+          f"{max(x['peak_gib'] for x in b):.2f} GiB a rank; ranks ran "
+          f"{ranks_s:.1f} s; {card}")
+    calls = set().union(*(r["calls"] for r in res))
+    check(any(c[0].startswith("k1") for c in calls),
+          "21: no K1 call recorded")
+    k1_err, _, k1_tables = phase12_main_path_check(
+        calls, phase="21", required=tuple(sorted({c[0] for c in calls})))
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
     return k1_a, k1_b, k1_err.get("k1", 0.0), k1_tables
 
 
@@ -4807,38 +5256,66 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(name):
+        """Each phase's wall time, printed together at the end."""
+        marks.append((name, time.perf_counter()))
+
     card = phase1_card_and_build(baseline)
+    mark("1")
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase2_kernel_vs_plain(gen)
+    mark("2")
     phase3_reduced_parity()
+    mark("3")
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         launches, serve_rec = phase4_full_width(pathlib.Path(tmp),
                                                 baseline)
+    mark("4")
     times = phase5_times(card)
+    mark("5")
     main_row, long_row, longer_row = times[6], times[256], times[1024]
     k1_errs = phase6_k1_vs_plain()
+    mark("6")
     k1_launches, plans, k1_calls = phase7_collectives()
+    mark("7")
     k1_rows = phase8_k1_times(card, plans, baseline)
+    mark("8")
     k1_main, k1_big = k1_rows["b_substep"], k1_rows["chunk_64MiB"]
     codec_errs = phase9_codecs_vs_plain()
+    mark("9")
     bf16_launches, bf16_calls = phase10_codec_collectives()
+    mark("10")
     train_launches, train_plans, train_calls = phase11_training()
+    mark("11")
     fp8_launches = train_launches["fp8"]
     tp_k1, k7_launches, tp_calls, tp_step = phase13_tp_training()
+    mark("13")
     path_errs, path_lengths, path_tables = phase12_main_path_check(
         k1_calls | train_calls | bf16_calls | tp_calls)
     codec_rows = phase12_codec_times(card, train_plans, path_lengths,
                                      path_tables, tp_step, baseline)
+    mark("12")
     k7_err, k7_rows = phase14_k7(card, baseline)
+    mark("14")
     moe_k6 = phase15_moe_serving(card)
+    mark("15")
     moe_k1 = phase16_moe_training(card)
+    mark("16")
     ssm_k1 = phase17_ssm_hybrid(card)
+    mark("17")
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         vlm_k6, vlm_k1 = phase18_vlm_encdec(card, pathlib.Path(tmp))
+    mark("18")
     serve_k1, serve_k6, serve_k1_err, serve_tables = phase19_serve_sharded(
         card)
+    mark("19")
     cluster_k1, cluster_train_k1, cluster_k1_err, cluster_tables = \
         phase20_cluster(card)
+    mark("20")
+    fault_k1, elastic_k1, fault_k1_err, fault_tables = phase21_faults(card)
+    mark("21")
     kernels = [{
         "name": "paged_flash_decode",
         "route": "cuda",
@@ -4914,6 +5391,13 @@ def main(argv=None) -> int:
                                  "data=2)",
         "max_abs_err_cluster": cluster_k1_err,
         "segment_tables_cluster": cluster_tables.get("k1_segments", []),
+        "launches_fault_degrade": fault_k1,
+        "launches_elastic": elastic_k1,
+        "launches_fault_from": "phase 21 (a) degrade run, (b) elastic run "
+                               "(before and after the drop), 4 ranks on "
+                               "(node=2, data=2)",
+        "max_abs_err_fault": fault_k1_err,
+        "segment_tables_fault": fault_tables.get("k1_segments", []),
         "mixed_f32_bf16": {
             "launches": bf16_launches["k1_mixed"],
             "max_abs_err": path_errs["k1_mixed"],
@@ -4962,6 +5446,9 @@ def main(argv=None) -> int:
         else:
             check(row["launches"] > 0, f"{row['name']}: no launch on its "
                   f"path")
+    print("chip_smoke: wall s by phase " + json.dumps(
+        {name: round(t - marks[i][1], 1)
+         for i, (name, t) in enumerate(marks[1:])}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

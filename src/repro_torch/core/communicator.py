@@ -64,13 +64,16 @@ import torch
 from repro_torch.control import (DegradedTimingSource,
                                  MeasuredTimingSource, PROBE_PERIOD,
                                  SimTimingSource, SlotController,
-                                 TimingSource, TuningProfile)
+                                 TimingSource, TuningProfile,
+                                 attach_event_recorder)
 from repro_torch.core import collectives as mp
 from repro_torch.core import routing
 from repro_torch.core.balancer import LoadBalancer
 from repro_torch.core.codecs import (canonical_spec, codecs_for_pricing,
                                      get_codec, parse_compress)
-from repro_torch.core.links import LinkSpec, NodeProfile, PROFILES
+from repro_torch.core.links import (LinkSpec, NodeProfile, PROFILES,
+                                    degrade_profile, parse_degrade,
+                                    resolve_degrade_target)
 from repro_torch.core.pipeline import StageTimes, optimal_chunk_bytes
 from repro_torch.core.routing import PlanCache, RoutePlan
 from repro_torch.core.simulator import PathTimingModel
@@ -125,11 +128,11 @@ class CommConfig:
     #: per slot whether each codec pays; the primary path never compresses.
     compress: str = ""
     #: canonical fault-schedule spec ("" = static fabric, the
-    #: byte-identical default) — DESIGN.md §14.  The communicator never
-    #: parses it; it lives on the config purely as a memo-key
-    #: discriminator, so a faulted run can never share a memoized
-    #: communicator with a fault-free run.  (The fault tier's live
-    #: transitions come with ROADMAP queue 1 item 13.)
+    #: byte-identical default) — repro_torch.faults, DESIGN.md §14.  The
+    #: communicator never parses it: the FabricClock drives transitions
+    #: through ``apply_health_state``.  It lives on the config purely as
+    #: a memo-key discriminator, so a faulted run can never share (and
+    #: mid-run mutate) a memoized communicator with a fault-free run.
     fault: str = ""
     #: registry-isolation tag: part of the comm_init_rank memo key.  Live
     #: workloads no longer need it — per-program ReplayRecorders keep their
@@ -281,10 +284,14 @@ class FlexCommunicator:
                              f"{mesh.axis_size(axis_name)} ranks, not "
                              f"{n_ranks}")
         self.profile: NodeProfile = PROFILES[self.config.profile]
-        #: the profile name that keys slot lookups and save_tuning; the
-        #: reference moves it on live fabric transitions, which come with
-        #: the fault tier (ROADMAP queue 1 item 13)
+        #: live-fabric anchor (repro_torch.faults, DESIGN.md §14): health
+        #: transitions compose their set-points onto the CONSTRUCTION
+        #: profile, and the *effective* profile name keys slot lookups /
+        #: save_tuning — identical to ``config.profile`` until the first
+        #: committed transition, so fault-free runs are byte-identical.
+        self._base_profile: NodeProfile = self.profile
         self._effective_profile: str = self.config.profile
+        self._event_recorder = None
         self.model = PathTimingModel(self.profile,
                                      noise=self.config.measurement_noise,
                                      seed=self.config.seed,
@@ -768,6 +775,123 @@ class FlexCommunicator:
                     self._slots.items(),
                     key=lambda kv: (kv[0][0].value, kv[0][1]))}
 
+    # -- live fabric transitions (repro_torch.faults, DESIGN.md §14) -----------
+
+    def attach_recorder_events(self, recorder) -> bool:
+        """Inject a per-path :class:`~repro_torch.control.EventRecorder`
+        into the measured timing source (unwrapping any degraded overlay).
+        The recorder is remembered so ``apply_health_state`` re-attaches it
+        to the rebuilt source after a fault transition.  Returns False when
+        the timing source cannot consume events (sim mode)."""
+        self._event_recorder = recorder
+        return attach_event_recorder(self.timing, recorder)
+
+    def apply_health_state(self, degrades) -> Optional[Dict[str, object]]:
+        """Swap this communicator onto the fabric described by
+        ``degrades`` — the FabricClock's committed set-point specs
+        (canonical ``link[:member]=factor`` strings, relative to the
+        CONSTRUCTION profile).  Specs owned by another tier's profile are
+        skipped, so one committed state broadcasts to every live
+        communicator and each applies only its own faults.
+
+        Returns None when the effective profile is unchanged (the caller
+        counts re-keys by non-None returns), else a transition record:
+        the new profile name plus each rebuilt slot's warm-start origin.
+        Every slot re-seeds via :meth:`_transition_slot` — nearest
+        TuningProfile entry first, live shares carried forward otherwise
+        — so a committed transition costs at most ONE plan re-key and
+        zero Algorithm-1 iterations when a matching degraded profile
+        exists (the §14 re-convergence contract)."""
+        target = self._base_profile
+        for spec in sorted(degrades):
+            tgt, member, _factor = parse_degrade(spec)
+            if resolve_degrade_target(target, tgt, member) is None:
+                continue            # another tier's fault
+            target = degrade_profile(target, spec)
+        if target.name == self.profile.name:
+            return None
+        old_slots = dict(self._slots)
+        self.profile = target
+        self._effective_profile = target.name
+        self.model = PathTimingModel(
+            target, noise=self.config.measurement_noise,
+            seed=self.config.seed,
+            secondary_algo=self.config.secondary_algo)
+        self.timing = (MeasuredTimingSource(self.model)
+                       if self.config.timing == "measured"
+                       else SimTimingSource(self.model))
+        if self.config.timing == "measured" and not target.healthy:
+            self.timing = DegradedTimingSource(self.timing)
+        if self._event_recorder is not None:
+            if hasattr(self._event_recorder, "model"):
+                # sim-backed recorders follow the fabric they emulate
+                self._event_recorder.model = self.model
+            attach_event_recorder(self.timing, self._event_recorder)
+        self._codec_choice.clear()
+        self._slots = {}
+        slots = {f"{op.value}@{bucket}":
+                 self._transition_slot(op, bucket, sc)
+                 for (op, bucket), sc in sorted(
+                     old_slots.items(),
+                     key=lambda kv: (kv[0][0].value, kv[0][1]))}
+        return {"profile": target.name, "slots": slots}
+
+    def _transition_slot(self, op: Collective, bucket: int,
+                         old_sc: SlotController) -> Dict[str, object]:
+        """Re-seed one slot on the post-transition fabric: exact or
+        nearest TuningProfile entry when one exists (warm start, zero
+        Stage-1 iterations), else the slot's LIVE class shares carried
+        forward with member weights re-seeded health-proportionally (so
+        a newly sick instance drains, a healed one refills)."""
+        key = (op, bucket)
+        if self.config.backend == "nccl" or self.n_ranks <= 1:
+            sc = self.slot(op, bucket)       # single-path: trivial re-tune
+            sc.origin = "transition:trivial"
+            return {"origin": sc.origin, "warm": sc.warm,
+                    "stage1_iters": sc.tuned.iterations}
+        primary = self.profile.primary.name
+        probe = PROBE_PERIOD if self.timing.kind == "measured" else None
+        quantizer = lambda shares, _op=op: self._plan_units(_op, shares)  # noqa: E731
+        members = {l: m for l, m in self.profile.multi_member_links().items()
+                   if l in self.path_names}
+        algo_key = self._algo_key()
+        src = self._profile_store.nearest(
+            self._effective_profile, algo_key, op, self.n_ranks, bucket,
+            SHARE_GRID)
+        saved = (self._profile_store.lookup(
+            src, algo_key, op, self.n_ranks, bucket, SHARE_GRID)
+            if src is not None else None)
+        if saved is not None and set(saved) <= set(self.path_names):
+            saved_codecs = self._profile_store.lookup_codecs(
+                src, algo_key, op, self.n_ranks, bucket, SHARE_GRID)
+            if saved_codecs is not None:
+                self._codec_choice[key] = dict(saved_codecs)
+            sc = SlotController.warm_start(
+                op, bucket, saved, primary, probe_period=probe,
+                tier=self.profile.tier, plan_quantizer=quantizer,
+                members=members,
+                member_weights=self._profile_store.lookup_members(
+                    src, algo_key, op, self.n_ranks, bucket, SHARE_GRID),
+                codecs=self.slot_codecs(op, bucket))
+            sc.origin = ("transition:exact"
+                         if src == self._effective_profile
+                         else f"transition:{src}")
+        else:
+            # nothing saved: keep the converged class split (it is still
+            # a far better prior than a cold retune mid-run); member
+            # weights=None re-seeds per-instance splits from the NEW
+            # healths, which is what drains the faulted member
+            self._codec_choice[key] = dict(old_sc.codecs)
+            sc = SlotController.warm_start(
+                op, bucket, old_sc.shares, primary, probe_period=probe,
+                tier=self.profile.tier, plan_quantizer=quantizer,
+                members=members, member_weights=None,
+                codecs=dict(old_sc.codecs))
+            sc.origin = "transition:carry"
+        self._slots[key] = sc
+        return {"origin": sc.origin, "warm": sc.warm,
+                "stage1_iters": sc.tuned.iterations}
+
     # -- plan construction ----------------------------------------------------
 
     @property
@@ -969,6 +1093,16 @@ def comm_init_rank(axis_name: str, n_ranks: int,
         _COMMS[key] = FlexCommunicator(axis_name, n_ranks, cfg, ortho_name,
                                        mesh)
     return _COMMS[key]
+
+
+def comm_release(mesh) -> int:
+    """Forget every memoized communicator on ``mesh`` (a mesh an elastic
+    resume retired: its groups include ranks that are gone); returns how
+    many.  The rebuilt ctx's mesh is another key, so it gets fresh ones."""
+    gone = [k for k in _COMMS if k[-1] is mesh]
+    for k in gone:
+        del _COMMS[k]
+    return len(gone)
 
 
 def comm_destroy_all() -> None:

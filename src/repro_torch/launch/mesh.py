@@ -36,10 +36,9 @@ from __future__ import annotations
 import datetime
 import multiprocessing
 import queue
-import socket
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,13 +55,20 @@ CHANNELS = ("primary", "staged")
 class Mesh:
     """This rank's view of a named mesh over the default process group.
 
-    Every rank of the default group must build the same mesh, in the same
-    order of calls: each axis line gets its process groups from
-    ``dist.new_group``, which is collective over the whole world.
+    Without ``ranks`` the mesh spans the whole world, and every rank of the
+    default group must build the same mesh, in the same order of calls:
+    each axis line gets its process groups from ``dist.new_group``, which
+    is then collective over the whole world.  ``ranks`` (the global ranks
+    the mesh spans, in mesh order) builds a mesh over part of the world,
+    the survivors of an elastic node loss: only those ranks call, and each
+    builds just the groups it belongs to, with
+    ``use_local_synchronization``, so ranks that have left take no part.
+    The mesh's ``rank`` and ``coords`` are then the position in ``ranks``;
+    its lines and peers keep global ranks.
     """
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str], *,
-                 device: str = "cuda"):
+                 device: str = "cuda", ranks: Optional[Sequence[int]] = None):
         shape, axes = tuple(int(s) for s in shape), tuple(axes)
         if len(shape) != len(axes) or len(set(axes)) != len(axes):
             raise ValueError(f"mesh shape {shape} and axes {axes} differ")
@@ -77,8 +83,15 @@ class Mesh:
                                "group (run_ranks sets one up)")
         self.shape = shape
         self.axes = axes
-        self.world = dist.get_world_size()
-        self.rank = dist.get_rank()
+        local = ranks is not None
+        #: the global ranks of the mesh, in mesh order
+        self.ranks = (tuple(int(r) for r in ranks) if local
+                      else tuple(range(dist.get_world_size())))
+        self.world = len(self.ranks)
+        if dist.get_rank() not in self.ranks:
+            raise ValueError(f"rank {dist.get_rank()} is not one of the "
+                             f"mesh's ranks {self.ranks}")
+        self.rank = self.ranks.index(dist.get_rank())
         if int(np.prod(shape)) != self.world:
             raise ValueError(f"mesh {dict(zip(axes, shape))} needs "
                              f"{int(np.prod(shape))} ranks, the world has "
@@ -97,20 +110,34 @@ class Mesh:
             raise ValueError(f"device {device!r}: cuda or cpu")
         self.coords = tuple(int(c) for c in np.unravel_index(self.rank,
                                                              shape))
-        grid = np.arange(self.world).reshape(shape)
+        me = dist.get_rank()
+        grid = np.array(self.ranks).reshape(shape)
+
+        def group(members: Tuple[int, ...]):
+            """The group over ``members``: every rank calls for every
+            group of a whole-world mesh, only the members for a mesh over
+            ``ranks`` (each rank joins one group of each family, in the
+            same order, so the members agree on the group's name)."""
+            if not local:
+                return dist.new_group(list(members))
+            if me in members:
+                return dist.new_group(list(members),
+                                      use_local_synchronization=True)
+            return None
+
         # axis -> the global ranks of this rank's line, by axis index
         self._line: Dict[str, Tuple[int, ...]] = {}
         self._groups: Dict[Tuple[str, str], Any] = {}
         for i, a in enumerate(axes):
             lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
             for line in lines:
-                ranks = tuple(int(r) for r in line)
+                members = tuple(int(r) for r in line)
                 for ch in CHANNELS:
-                    g = dist.new_group(list(ranks))
-                    if self.rank in ranks:
+                    g = group(members)
+                    if me in members:
                         self._groups[(a, ch)] = g
-                if self.rank in ranks:
-                    self._line[a] = ranks
+                if me in members:
+                    self._line[a] = members
         if all(a in axes for a in PLANE):
             # every (node, data) plane, in the same order on every rank
             idx = [axes.index(a) for a in PLANE]
@@ -118,9 +145,9 @@ class Mesh:
             planes = np.transpose(grid, rest + idx).reshape(
                 -1, int(np.prod([shape[i] for i in idx])))
             for plane in planes:
-                ranks = tuple(int(r) for r in plane)
-                g = dist.new_group(list(ranks))
-                if self.rank in ranks:
+                members = tuple(int(r) for r in plane)
+                g = group(members)
+                if me in members:
                     self._groups[(PLANE, "primary")] = g
 
     # -- axis introspection (compat/axes.py) ----------------------------------
@@ -250,6 +277,15 @@ class Mesh:
         return [self._wire_out(r, x) for r, x in zip(recvs, xs)]
 
 
+def without_node(mesh: Mesh, node: int) -> Tuple[int, ...]:
+    """The global ranks of a (node, data, model) mesh without node
+    ``node``, in row-major order: the survivors of its loss, in the order
+    of the mesh they rebuild."""
+    grid = np.array(mesh.ranks).reshape(mesh.shape)
+    axis = mesh.axes.index("node")
+    return tuple(int(r) for r in np.delete(grid, node, axis=axis).ravel())
+
+
 class _PSum(torch.autograd.Function):
     """:meth:`Mesh.psum`: all-reduce forward and backward."""
 
@@ -267,21 +303,17 @@ class _PSum(torch.autograd.Function):
 # run_ranks: one function on every rank, each rank a spawned process
 # ---------------------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _rank_main(fn, rank, world, backend, device, port, timeout_s, args,
                results) -> None:
     try:
         torch.set_num_threads(1)
         if device == "cuda":
             torch.cuda.set_device(rank if backend == "nccl" else 0)
-        dist.init_process_group(
-            backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        timeout = datetime.timedelta(seconds=timeout_s)
+        store = dist.TCPStore("127.0.0.1", port, world, is_master=False,
+                              timeout=timeout)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world, timeout=timeout)
         out = fn(*args)
         if device == "cuda":
             torch.cuda.synchronize()
@@ -300,14 +332,16 @@ def run_ranks(fn: Callable[..., Any], world: int, *, backend: str = "gloo",
     by rank.
 
     Each rank is a process started with the ``spawn`` method (CUDA does not
-    survive ``fork``), joined to a default process group of ``backend``
-    over a TCP store on a free local port, with ``timeout_s`` as the group
-    timeout, so a hung collective fails within it instead of holding the
-    caller (a test run, a chip call) until its own limit.  ``fn`` and
-    ``args`` must pickle, and ``fn`` must live in a module a fresh
-    interpreter can import.  With ``device="cuda"``, nccl puts rank r on
-    card r (and raises when there are fewer cards than ranks); gloo puts
-    every rank on card 0, and its wire goes through the host.  Raises with
+    survive ``fork``), joined to a default process group of ``backend`` over a
+    TCP store that this process hosts on a free local port (so any rank, rank 0
+    too, may leave while the others build new groups: an elastic node loss),
+    with ``timeout_s`` as the group timeout, so a hung collective fails within
+    it instead of holding the caller (a test run, a chip call) until its own
+    limit.  ``fn`` and ``args`` must pickle, and ``fn`` must live in a
+    module a fresh interpreter can import.  With ``device="cuda"``, nccl
+    puts rank r on card r (and raises when there are fewer cards than
+    ranks); gloo puts every rank on card 0, and its wire goes through the
+    host.  Raises with
     the failing rank's traceback if any rank fails, and a TimeoutError if
     the ranks have not all answered after ``timeout_s``; every process is
     stopped before it returns."""
@@ -325,9 +359,11 @@ def run_ranks(fn: Callable[..., Any], world: int, *, backend: str = "gloo",
                                f"ranks, {torch.cuda.device_count()} cards")
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
+    store = dist.TCPStore("127.0.0.1", 0, world, is_master=True,
+                          timeout=datetime.timedelta(seconds=timeout_s),
+                          wait_for_workers=False)
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, world, backend, device, port,
+                         args=(fn, r, world, backend, device, store.port,
                                timeout_s, args, results), daemon=True)
              for r in range(world)]
     for p in procs:
@@ -362,4 +398,5 @@ def run_ranks(fn: Callable[..., Any], world: int, *, backend: str = "gloo",
                 p.kill()
                 p.join()
         results.close()
+        del store
     return [got[r] for r in range(world)]

@@ -22,9 +22,13 @@ reference's launcher uses ``tpu_v5e``).  As the reference's, ``--nodes N``
 registers the NIC tier's profile and records the topology (printed, and in
 the ``--out`` record); the decode never crosses the NIC tier.
 ``--degrade`` degrades the NIC tier or the node profile of the run's
-fabric (``configs/clusters.resolve_faults``).  ``--fault --pods`` need
-tiers not ported yet and exit 2 naming the ROADMAP item: 13 (faults), 14
-(pod tier).
+fabric (``configs/clusters.resolve_faults``).  ``--fault`` takes link and
+member schedules over serve ticks: a FabricClock is attached to the ctx,
+the engine advances it once a tick, and the record carries its report
+(the one-device ctx has no communicator to re-key, as the reference's);
+node events need the training loop's elastic resume and exit with the
+reference's message.  ``--pods`` needs a tier not ported yet and exits 2
+naming the ROADMAP item: 14 (pod tier).
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 
 from repro_torch.configs import ALIASES, get_config
 from repro_torch.core.communicator import CommConfig
-from repro_torch.launch.train import unported
+from repro_torch.launch.train import node_events, unported
 from repro_torch.models.tp import ParallelCtx
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import (PagedServeConfig, PagedServeEngine,
@@ -119,8 +123,11 @@ def main(argv=None) -> int:
                          "on the NIC tier (with --nodes > 1) or the node "
                          "profile")
     ap.add_argument("--fault", default="",
-                    help="fault-timeline schedule over serve ticks: not "
-                         "ported yet (item 13), exits 2")
+                    help="fault-timeline schedule over serve TICKS "
+                         "(repro_torch.faults, DESIGN.md §14), e.g. "
+                         "'rail3@step20=0.25,rail3@step60=1.0'; link and "
+                         "member events only (node loss needs the training "
+                         "loop's elastic resume)")
     ap.add_argument("--nodes", type=int, default=1,
                     help="cluster node count: registers the NIC-tier "
                          "profile (so --tuning-cache keys line up with "
@@ -153,20 +160,30 @@ def main(argv=None) -> int:
     profile = "h100"
     cluster = cluster_for(profile, args.nodes) if args.nodes > 1 else None
     try:
-        cluster, profile, _ = resolve_faults(cluster, args.nodes, profile,
-                                             degrade=args.degrade)
+        cluster, profile, timeline = resolve_faults(
+            cluster, args.nodes, profile, degrade=args.degrade,
+            fault=args.fault)
     except (KeyError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if node_events(timeline):
+        raise SystemExit("--fault node events need the training loop's "
+                         "elastic resume; serving supports link/member "
+                         "schedules only")
     ctx = ParallelCtx(comm_config=CommConfig(
         profile=profile, timing=args.timing,
         secondary_algo=args.secondary_algo,
-        tuning_cache=args.tuning_cache, compress=args.compress),
+        tuning_cache=args.tuning_cache, compress=args.compress,
+        fault=timeline.spec() if timeline else ""),
         cluster=cluster)
+    clock = None
+    if timeline is not None:
+        from repro_torch.faults import FabricClock
+        clock = FabricClock(timeline).attach(ctx)
     if not ctx.comms() and (args.timing != "sim" or args.tuning_cache
                             or args.secondary_algo != "ring"
                             or args.nodes > 1 or args.degrade
-                            or args.compress):
+                            or args.compress or args.fault):
         print("note: single-device launch has no communicators — "
               "--timing/--tuning-cache/--secondary-algo/--nodes/--degrade/"
               "--fault/--compress take effect only with parallel axes (the "
@@ -221,6 +238,11 @@ def main(argv=None) -> int:
         print(f"serving: {srv['scheduler']['preemptions']} preemptions, "
               f"kv blocks peak {kv['peak_in_use']}/{kv['total']}, "
               f"median step {srv['step_ms']['median']:.3f} ms")
+    if clock is not None:
+        fr = clock.report()
+        print(f"faults: {len(fr['transitions'])} transition(s), "
+              f"{fr['rekeys']} re-key(s), {fr['suppressed_flaps']} "
+              f"suppressed flap(s)")
     if args.tuning_cache:
         n = engine.save_tuning(args.tuning_cache)
         print(f"tuning profile: {n} slots -> {args.tuning_cache}")
@@ -234,7 +256,8 @@ def main(argv=None) -> int:
                        "tokens": total_toks, "wall_s": round(dt, 3),
                        "serving": srv, "executable_cache": ec,
                        "program": pr, "profile": profile,
-                       "cluster": cluster.describe() if cluster else None},
+                       "cluster": cluster.describe() if cluster else None,
+                       **({"faults": clock.report()} if clock else {})},
                       f, indent=2, default=str)
         print(f"serve record -> {args.out}")
     for rid in sorted(fin)[:4]:

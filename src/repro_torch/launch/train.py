@@ -30,13 +30,18 @@ The communicator's default profile is ``h100`` (the reference's launcher
 uses ``tpu_v5e``); a named cluster sets it to its node type.
 ``--degrade name[:member]=factor`` folds statically into the fabric
 (``configs/clusters.resolve_faults``): into the NIC tier or the node
-profile of a cluster run, else into the node profile.  ``--bucket-mb`` > 0
+profile of a cluster run, else into the node profile.  ``--fault`` is a
+fault timeline (repro_torch.faults, DESIGN.md §14): every rank attaches a
+FabricClock, whose committed transitions re-key the communicators warm;
+a ``node<i>@stepN=down`` event, which needs ``--ckpt-dir`` and a
+``--ckpt-every`` below it, rebuilds the process groups over the surviving
+ranks and resumes from the latest snapshot, while the lost node's ranks
+leave.  ``--bucket-mb`` > 0
 buckets the gradient sync and launches each bucket from the backward
 (train/bucketer.py); with a lossy ``--compress`` codec the AdamW state is
 paired with error-feedback residuals, this rank's shards of them on a
-model axis.  Flags of tiers not ported yet exit 2 and name the ROADMAP
-item that lifts them: ``--pods`` (queue 1 item 14) and ``--fault`` (item
-13).
+model axis.  ``--pods`` needs a tier not ported yet: it exits 2 and names
+the ROADMAP item that lifts it (queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -50,9 +55,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ALIASES, get_config
-from repro_torch.convert import spec_axes
 from repro_torch.core.communicator import CommConfig
 from repro_torch.data.pipeline import make_batches
+from repro_torch.faults.elastic import NEEDS_CKPT
 from repro_torch.launch.steps import (build_train_program, local_params,
                                       rank_specs)
 from repro_torch.models.transformer import init_params
@@ -66,23 +71,30 @@ def unported(args) -> str:
     launcher's flags too)."""
     if args.pods > 1:
         return "--pods: ROADMAP queue 1 item 14 (pod tier)"
-    if args.fault:
-        return "--fault: ROADMAP queue 1 item 13 (faults)"
     return ""
 
 
 def resolve_fabric(args, profile: str = "h100"):
-    """``(cluster or None, node count, intra profile)`` of ``--cluster``,
-    ``--nodes`` and ``--degrade`` (the reference's resolve_cluster then
-    resolve_faults; a step-0 ``--degrade`` always folds statically)."""
+    """``(cluster or None, node count, intra profile, timeline or None)``
+    of ``--cluster``, ``--nodes``, ``--degrade`` and ``--fault`` (the
+    reference's resolve_cluster then resolve_faults; a step-0 event always
+    folds statically, the later ones make the timeline)."""
     from repro_torch.configs.clusters import resolve_cluster, resolve_faults
     cluster, nodes, _ = resolve_cluster(getattr(args, "cluster", ""),
                                         args.nodes)
     if cluster is not None:
         profile = cluster.node.name
-    cluster, profile, _ = resolve_faults(cluster, nodes, profile,
-                                         degrade=args.degrade)
-    return cluster, nodes, profile
+    cluster, profile, timeline = resolve_faults(cluster, nodes, profile,
+                                                degrade=args.degrade,
+                                                fault=args.fault)
+    return cluster, nodes, profile, timeline
+
+
+def node_events(timeline) -> bool:
+    """Whether a fault timeline (or None) loses a node (the serve
+    launcher's check too)."""
+    return timeline is not None and any(e.kind == "node"
+                                        for e in timeline.events)
 
 
 def train_rank(args: argparse.Namespace, dims, world: int) -> dict:
@@ -91,12 +103,14 @@ def train_rank(args: argparse.Namespace, dims, world: int) -> dict:
     synthetic batch stream, this rank's rows of it.  ``dims`` is (data,
     model), or (node, data, model) on a cluster.  Rank 0 logs and saves
     the tuning cache; the ranks of node 0 and data row 0 checkpoint
-    (model rank 0 writes)."""
+    (model rank 0 writes), decided again after an elastic resume.  With
+    ``--fault`` the result carries the clock's report, and on the ranks
+    of a lost node ``dropped_at``."""
     from repro_torch.launch.mesh import Mesh
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    cluster, _, profile = resolve_fabric(args)
+    cluster, _, profile, timeline = resolve_fabric(args)
     axes = ("node", "data", "model")[-len(dims):]
     mesh = Mesh(dims, axes, device=args.device) if world > 1 else None
     rank = mesh.rank if mesh is not None else 0
@@ -105,7 +119,10 @@ def train_rank(args: argparse.Namespace, dims, world: int) -> dict:
                       timing=args.timing,
                       secondary_algo=args.secondary_algo,
                       tuning_cache=args.tuning_cache,
-                      compress=args.compress)
+                      compress=args.compress,
+                      # canonical schedule spec: a faulted run never shares
+                      # a memoized communicator with a fault-free one
+                      fault=timeline.spec() if timeline else "")
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                       total_steps=args.steps)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -121,25 +138,39 @@ def train_rank(args: argparse.Namespace, dims, world: int) -> dict:
         # optimizer state (train_step.py docstring)
         opt_state = (opt_state, ef_init_residuals(params))
     lead = rank == 0
-    # the ranks of node 0 and data row 0 checkpoint; every rank when the
-    # data axis shards leaves (ep_a2a experts), whose save gathers over it
-    saves = (mesh is None
-             or (ctx.node_index() == 0 and mesh.axis_index("data") == 0)
-             or (ctx.ep_size > 1 and "data" in spec_axes(specs)))
+
+    def batches_fn():
+        return make_batches(cfg, seq_len=args.seq_len,
+                            batch_per_shard=args.batch)
+
+    clock = handler = None
+    if timeline is not None:
+        from repro_torch.faults import FabricClock, make_train_resume
+        clock = FabricClock(timeline).attach(ctx)
+        if node_events(timeline):
+            handler = make_train_resume(
+                cfg, opt=opt, comm_config=comm, mesh=mesh,
+                cluster=ctx.cluster, ckpt_dir=args.ckpt_dir,
+                batches_fn=batches_fn, bucket_mb=args.bucket_mb,
+                log=print if lead else (lambda *_: None))
     loop = LoopConfig(total_steps=args.steps, log_every=5 if lead else 0,
                       ckpt_every=args.ckpt_every,
-                      ckpt_dir=(args.ckpt_dir or None) if saves
-                      else None, param_specs=specs,
+                      ckpt_dir=args.ckpt_dir or None, param_specs=specs,
                       tuning_cache=(args.tuning_cache or None) if lead
-                      else None)
-    batches = make_batches(cfg, seq_len=args.seq_len,
-                           batch_per_shard=args.batch)
+                      else None, faults=clock, on_node_loss=handler)
     try:
-        _, _, hist = run_loop(program, params, opt_state, batches, ctx, loop)
+        _, _, hist = run_loop(program, params, opt_state, batches_fn(),
+                              ctx, loop)
     finally:
         program.close()
-    return {"history": hist, "report": loop.report,
-            "cluster": ctx.comm_report().get("cluster")}
+    # after an elastic resume the clock holds the rebuilt ctx
+    final = clock.ctx if clock is not None else ctx
+    report = dict(loop.report or {})
+    dropped = report.pop("dropped_at", None)
+    return {"history": hist, "report": report,
+            "cluster": final.comm_report().get("cluster"),
+            "faults": clock.report() if clock is not None else None,
+            "dropped_at": dropped}
 
 
 def main(argv=None) -> int:
@@ -176,16 +207,26 @@ def main(argv=None) -> int:
                          "(e.g. rail3=0.25, nvlink=0.5): the NIC tier or "
                          "the node profile runs degraded from step 0")
     ap.add_argument("--fault", default="",
-                    help="fault-timeline schedule: not ported yet (ROADMAP "
-                         "queue 1 item 13), exits 2")
+                    help="fault-timeline schedule (repro_torch.faults, "
+                         "DESIGN.md §14), e.g. 'rail3@step200=0.25,rail3@"
+                         "step600=1.0,node1@step400=down': per-member "
+                         "degradation, full-link loss (=down) and elastic "
+                         "whole-node loss at step boundaries.  Transitions "
+                         "commit through the FabricClock's hysteresis and "
+                         "warm-start Stage 2 from the nearest TuningProfile "
+                         "entry; node loss rebuilds the process groups over "
+                         "the surviving ranks and resumes from the latest "
+                         "checkpoint")
     ap.add_argument("--backend", choices=["flexlink", "nccl"],
                     default="flexlink")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0,
-                    help="checkpoint period in steps (0 = final only)")
+                    help="checkpoint period in steps (0 = final only); an "
+                         "elastic node-loss schedule needs one below the "
+                         "fault horizon")
     ap.add_argument("--out", default="",
                     help="write a JSON run report (losses, program stats, "
-                         "tuning provenance)")
+                         "tuning provenance, fault transitions)")
     ap.add_argument("--tuning-cache", default="",
                     help="TuningProfile JSON: warm-start Stage-1 shares "
                          "from it and persist them back at the end")
@@ -216,9 +257,12 @@ def main(argv=None) -> int:
         print("error: --mesh-shape takes (data, model)", file=sys.stderr)
         return 2
     try:
-        _, nodes, _ = resolve_fabric(args)
+        _, nodes, _, timeline = resolve_fabric(args)
     except (KeyError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
+        return 2
+    if node_events(timeline) and not args.ckpt_dir:
+        print(f"error: {NEEDS_CKPT}", file=sys.stderr)
         return 2
     if nodes > 1:
         if get_config(args.arch).moe is not None and \
@@ -264,15 +308,20 @@ def main(argv=None) -> int:
         # copies of the replicated leaves; those drift apart as the
         # reference's do under check_vma=False, so only the ranks of one
         # model index agree
+        # ranks of a lost node stopped at dropped_at: their losses are
+        # the survivors' first dropped_at
         tp = dims[-1]
-        cols = [results[m::tp] for m in range(tp)]
+        live = [r for r in results if r["dropped_at"] is None]
+        cols = [live[m::tp] for m in range(tp)]
         if get_config(args.arch).moe is None:
-            cols = [results]
+            cols = [live]
         if any(r["history"] != col[0]["history"] for col in cols
-               for r in col):
+               for r in col) or any(
+                   r["history"] != live[0]["history"][:r["dropped_at"]]
+                   for r in results if r["dropped_at"] is not None):
             print("error: the ranks' losses differ", file=sys.stderr)
             return 1
-        res = results[0]
+        res = live[0]
     else:
         res = train_rank(args, dims, world)
     hist = res["history"]
@@ -283,6 +332,8 @@ def main(argv=None) -> int:
                **(res["report"] or {})}
         if res.get("cluster") is not None:
             rep["cluster"] = res["cluster"]
+        if res.get("faults") is not None:
+            rep["faults"] = res["faults"]
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:

@@ -93,6 +93,10 @@ class ParallelCtx:
     comm_config: CommConfig = dataclasses.field(default_factory=CommConfig)
     cluster: Optional[object] = None      # ClusterTopology
     mesh: Optional[object] = None
+    #: the FabricClock driving live health transitions (repro_torch.faults,
+    #: DESIGN.md §14) — set by ``FabricClock.attach``; None on the
+    #: fault-free (byte-identical) path.
+    fault_clock: Optional[object] = None
     _tp_comm: Optional[FlexCommunicator] = None
     _dp_comm: Optional[FlexCommunicator] = None
     _node_comm: Optional[FlexCommunicator] = None
@@ -298,11 +302,25 @@ class ParallelCtx:
 
     def comm_report(self) -> Dict[str, object]:
         """Per-axis communicator reports; a cluster ctx adds the cluster's
-        topology, cross-tier rollup and a2a block under ``"cluster"``."""
+        topology, cross-tier rollup and a2a block under ``"cluster"``, and
+        a ctx with a fault clock its report under ``"faults"``."""
         out: Dict[str, object] = {c.axis_name: c.report()
                                   for c in self.comms()}
         if self._cluster_comm is not None:
             out["cluster"] = self._cluster_comm.summary()
+        if self.fault_clock is not None:
+            out["faults"] = self.fault_clock.report()
+        return out
+
+    def apply_health_state(self, degrades) -> Dict[str, object]:
+        """Broadcast one committed fabric state to every live
+        communicator (FabricClock's commit hook); returns the per-axis
+        transition records of the ones that actually changed."""
+        out: Dict[str, object] = {}
+        for comm in self.comms():
+            info = comm.apply_health_state(degrades)
+            if info:
+                out[comm.axis_name] = info
         return out
 
     def ef_codec_name(self, payload_dtype: str = "float32") -> str:

@@ -190,6 +190,10 @@ class ServeEngine:
 
     def tick(self) -> int:
         """Admit + one fused decode step for all active slots."""
+        if self.ctx.fault_clock is not None:
+            # serving's fabric time is the tick counter: flapping rails
+            # ride the same hysteresis rule as training steps
+            self.ctx.fault_clock.advance(self._ticks)
         self._ticks += 1
         if any(s is None for s in self.active) and self.queue:
             self._admit_wave()
@@ -375,6 +379,8 @@ class PagedServeEngine:
         """Plan (admit / pack / maybe preempt), run ONE fused packed step,
         sample sequence-frontier rows, retire finished requests.  Returns
         the number of real (non-padding) rows processed."""
+        if self.ctx.fault_clock is not None:
+            self.ctx.fault_clock.advance(self._ticks)
         self._ticks += 1
         plan = self.sched.plan_tick()
         if not plan.rows:

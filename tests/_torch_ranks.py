@@ -1280,3 +1280,117 @@ def cluster(case):
                               "cluster": ctx._cluster_comm is not None}
     comm_destroy_all()
     return out
+
+
+def leaf_digests(tree, prefix=""):
+    """A nested dict of tensors -> {"a/b/c": sha256 of the leaf's bytes}:
+    equal digests are equal bits."""
+    import hashlib
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(leaf_digests(v, f"{prefix}{k}/"))
+        else:
+            b = v.detach().contiguous().view(torch.uint8).numpy().tobytes()
+            out[prefix + k] = (tuple(v.shape), str(v.dtype),
+                               hashlib.sha256(b).hexdigest())
+    return out
+
+
+def elastic(case):
+    """tests/test_torch_faults.py's elastic resume on this rank.
+
+    On 8 ranks, for each schedule of ``case["drops"]`` in order: reduced
+    glm4-9b from seed-0 weights on (node=2, data=2, model=2) of a 2-node
+    h800 cluster, ``case["steps"]`` steps under a FabricClock with the
+    schedule's node loss, snapshots every ``case["ckpt_every"]`` steps to
+    the run's directory; the lost node's ranks leave, the survivors resume
+    through ``make_train_resume``.  The ranks that left one run take part in the
+    next, so the last schedule's lost node leaves the process for good.
+    On 4 ranks: the fresh (data=2, model=2) launch that restores
+    ``case["fresh_from"]`` at ``case["resume"]`` and steps to the end.
+    Returns each run's per-rank facts and final param digests."""
+    import torch.distributed as dist
+    from repro_torch.cluster.topology import make_cluster
+    from repro_torch.configs import get_config
+    from repro_torch.core.communicator import CommConfig, comm_destroy_all
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.faults import (FabricClock, HealthTimeline,
+                                    make_train_resume, parse_fault_schedule,
+                                    restore_templates, validate_schedule)
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch.steps import (build_train_program, local_params,
+                                          rank_specs)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.loop import LoopConfig, run_loop
+    cfg = get_config("glm4-9b").reduced()
+    steps = case["steps"]
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+
+    def batches_fn():
+        return make_batches(cfg, seq_len=case["seq_len"],
+                            batch_per_shard=case["batch"])
+
+    out = {}
+    if dist.get_world_size() == 4:
+        comm_destroy_all()
+        mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+        program, ctx = build_train_program(
+            cfg, mesh, comm=CommConfig(profile="h800", tag="fresh"),
+            opt=opt, device="cpu", name="train-fresh")
+        specs = rank_specs(cfg, ctx)
+        p_tmpl, o_tmpl = restore_templates(cfg, ctx, specs)
+        params, opt_state, meta = Checkpointer(
+            case["fresh_from"], ctx=ctx, specs=specs).restore(
+                p_tmpl, o_tmpl, case["resume"])
+        batches = batches_fn()
+        hist = []
+        for _ in range(case["resume"], steps):
+            params, opt_state, metrics = program.step(params, opt_state,
+                                                      next(batches))
+            hist.append(float(metrics["loss"]))
+        program.close()
+        return {"fresh": {"rank": mesh.rank, "meta_step": meta["step"],
+                          "history": hist,
+                          "params": leaf_digests(params)}}
+    for name, schedule in case["drops"].items():
+        comm_destroy_all()
+        cluster = make_cluster("h800", 2, nics_per_node=4, nic_gbit=400.0,
+                               name=f"flt-elastic-{name}")
+        tl = HealthTimeline(validate_schedule(
+            parse_fault_schedule(schedule), profiles=[cluster.nic_tier],
+            n_nodes=2))
+        comm = CommConfig(profile=cluster.node.name, fault=tl.spec(),
+                          tag=name)
+        mesh = Mesh((2, 2, 2), ("node", "data", "model"), device="cpu")
+        program, ctx = build_train_program(cfg, mesh, comm=comm, opt=opt,
+                                           device="cpu", cluster=cluster,
+                                           name="train")
+        specs = rank_specs(cfg, ctx)
+        params = local_params(init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"), specs, ctx)
+        clock = FabricClock(tl).attach(ctx)
+        logs = []
+        handler = make_train_resume(
+            cfg, opt=opt, comm_config=comm, mesh=mesh, cluster=cluster,
+            ckpt_dir=case["ckpt"][name], batches_fn=batches_fn,
+            log=logs.append)
+        loop = LoopConfig(total_steps=steps, log_every=0,
+                          ckpt_every=case["ckpt_every"],
+                          ckpt_dir=case["ckpt"][name], param_specs=specs,
+                          faults=clock, on_node_loss=handler)
+        params, _, hist = run_loop(program, params, init_state(params),
+                                   batches_fn(), ctx, loop,
+                                   log=lambda *_: None)
+        program.close()
+        new = clock.ctx
+        out[name] = {
+            "dropped_at": loop.report.get("dropped_at"), "history": hist,
+            "logs": logs, "transitions": clock.transitions,
+            "reattached": new is not ctx and new.fault_clock is clock,
+            "mesh": (new.mesh.ranks, new.mesh.rank, new.mesh.axes,
+                     new.node_size),
+            "params": leaf_digests(params)}
+    comm_destroy_all()
+    return out

@@ -67,6 +67,15 @@ def test_the_training_slice_is_checked():
     assert (PORT / "kernels" / "csrc" / "codec.cu").exists()
 
 
+def test_the_fault_slice_is_checked():
+    """The fault tier's modules are among those checked above: the copied
+    clock, the elastic resume and the loop and mesh they drive."""
+    for m in ("repro_torch.faults", "repro_torch.faults.clock",
+              "repro_torch.faults.elastic", "repro_torch.faults.schedule",
+              "repro_torch.train.loop", "repro_torch.launch.mesh"):
+        assert m in MODULES, m
+
+
 def test_the_cluster_slice_is_checked():
     """The two-tier cluster's modules are among those checked above: the
     copied topology, simulator, cluster presets and fault schedule, and

@@ -515,25 +515,40 @@ def test_serve_launcher_flags_take_the_reference_note(tmp_path, capsys):
     (["--fault", "nvlink@step2=0.5"], "item 13")])
 def test_serve_launcher_refuses_unported_tiers(flags, item, capsys,
                                                tmp_path):
-    """``--pods`` and ``--fault`` need tiers not ported yet: exit 2 naming
-    the ROADMAP item, before any work.  ``--nodes`` and the launch-time
-    ``--degrade`` came with the two-tier cluster (item 12), as the
-    reference's: ``--nodes 2`` serves on one device and reports the
-    cluster it registered, equal to the reference's ``cluster_for``;
-    ``--degrade`` serves on the degraded profile, named as the
-    reference's ``resolve_faults`` names it."""
+    """``--pods`` needs a tier not ported yet: exit 2 naming the ROADMAP
+    item, before any work.  ``--nodes`` and the launch-time ``--degrade``
+    came with the two-tier cluster (item 12), as the reference's:
+    ``--nodes 2`` serves on one device and reports the cluster it
+    registered, equal to the reference's ``cluster_for``; ``--degrade``
+    serves on the degraded profile, named as the reference's
+    ``resolve_faults`` names it.  ``--fault`` came with the fault tier
+    (item 13): it serves, the engine ticks the clock, and the record
+    carries the clock's report, equal to the reference's clock's over the
+    same ticks (the one-device ctx has no communicator to re-key)."""
     from repro.cluster.topology import cluster_for as j_cluster_for
     from repro.configs.clusters import resolve_faults as j_resolve
+    from repro.faults import FabricClock as JClock
     rec = tmp_path / "serve.json"
     rc = t_serve.main(["--smoke", "--device", "cpu", "--requests", "2",
                        "--max-new", "3", "--out", str(rec), *flags])
     out, err = capsys.readouterr()
-    if flags[0] in ("--pods", "--fault"):
+    if flags[0] == "--pods":
         assert rc == 2
         assert "not ported yet" in err and item in err
         return
     assert rc == 0 and "served 2 requests" in out
     got = json.loads(rec.read_text())
+    if flags[0] == "--fault":
+        _, profile, timeline = j_resolve(None, 1, "h100", fault=flags[1])
+        assert got["profile"] == profile == "h100"
+        clock = JClock(timeline)
+        for tick in range(got["serving"]["ticks"]):
+            clock.advance(tick)
+        assert got["faults"] == json.loads(json.dumps(clock.report()))
+        assert got["faults"]["schedule"] == ["nvlink@step2=0.5"]
+        assert "faults: 0 transition(s), 0 re-key(s)" in out
+        return
+    assert "faults" not in got
     if flags[0] == "--nodes":
         want = j_cluster_for("h100", 2)
         assert got["cluster"] == want.describe()

@@ -338,14 +338,18 @@ def test_train_launcher_bucketed_smoke_learns():
     assert np.isfinite(final) and final < first, line
 
 
-def test_train_launcher_refuses_what_is_not_ported():
-    """--pods (item 14), --fault (item 13), ep_a2a dispatch on a node mesh
-    (item 14) and a batch that does not divide over node x data exit 2;
-    --nodes itself is ported (tests/test_torch_cluster.py)."""
+def test_train_launcher_refuses_what_is_not_ported(capsys):
+    """--pods (item 14), ep_a2a dispatch on a node mesh (item 14), a node
+    event of --fault without --ckpt-dir (the reference's refusal: resume
+    needs a snapshot) and a batch that does not divide over node x data
+    exit 2, before any rank is spawned; --nodes and --fault themselves
+    are ported (tests/test_torch_cluster.py, tests/test_torch_faults.py)."""
     from repro_torch.launch import train
     assert train.main(["--smoke", "--device", "cpu", "--dist", "gloo",
-                       "--fault", "nvlink@step2=0.5",
+                       "--fault", "node1@step2=down", "--nodes", "2",
                        "--mesh-shape", "2,1"]) == 2
+    assert ("elastic node loss needs --ckpt-dir: resume is only defined "
+            "from a Checkpointer snapshot") in capsys.readouterr().err
     assert train.main(["--smoke", "--device", "cpu", "--dist", "gloo",
                        "--arch", "kimi-k2-1t-a32b", "--nodes", "2",
                        "--mesh-shape", "2,1"]) == 2
