@@ -100,7 +100,7 @@ non-zero:
    fp8 codecs once a sub-chunk);
 11. full-width glm4-9b training (depth cut 40 -> 2, bf16, random weights
    from seed 0), ``build_train_program`` + ``run_loop`` on 2 gloo ranks
-   sharing this card, seq 128, global batch 8, 3 steps each with the
+   sharing this card, seq 128, global batch 8, 2 steps each with the
    ``nccl`` backend, ``flexlink`` and ``flexlink`` with
    ``--compress secondary=fp8``, AdamW at lr 1e-4: finite losses, equal
    on both ranks, falling; flexlink within 5e-3 of nccl per step, fp8
@@ -138,7 +138,7 @@ non-zero:
 13. tensor-parallel training of full-width glm4-9b (depth cut 40 -> 2,
    bf16, random weights from seed 0, each rank keeping its model-axis
    shards of the global init) on (data=2, model=2): 4 gloo ranks sharing
-   this card, seq 128, global batch 8, 3 steps each with the ``nccl``
+   this card, seq 128, global batch 8, 2 steps each with the ``nccl``
    backend and ``flexlink``, AdamW at lr 1e-4, the model axis's
    all-reduce slot pinned by a TuningProfile to primary/staged/ortho
    50/25/25 (the tuner would give these 4 MiB combines the primary route
@@ -179,7 +179,7 @@ non-zero:
    routings that flipped between the paths);
 16. MoE training: (a) mixtral-8x7b at its published widths (depth cut to
    1, bf16) on (data=2), 2 gloo ranks on the card, seq 128, global batch
-   8, 3 steps each with ``nccl`` and ``flexlink``: losses (router aux
+   8, 2 steps each with ``nccl`` and ``flexlink``: losses (router aux
    included) finite, falling, bit for bit equal, K1 launched, peak
    memory; (b) reduced kimi-k2 ``ep_a2a`` (4 experts over the data axis,
    their FFN hidden dim over the model axis) on (data=2, model=2), 4
@@ -192,7 +192,8 @@ non-zero:
    attention block after each group of 6 and 2 remainder layers), bf16,
    seed 0, 4 requests through the wave engine: every request served,
    tokens in the vocabulary, a forward's logits finite, tok/s; then
-   mamba2-1.3b on (data=2), 3 steps with ``nccl`` and ``flexlink``:
+   mamba2-1.3b at its widths, depth cut 48 -> 12, on (data=2), 2 steps
+   with ``nccl`` and ``flexlink``:
    losses falling and bit for bit equal, K1 launched, peak memory;
 18. the vlm and encdec families: (a) reduced float32 internvl2-76b
    (paged engine through K6 == dense gather == wave engine, K6 launched
@@ -200,9 +201,9 @@ non-zero:
    whisper-medium (the wave engine's greedy streams on the card equal
    its streams on the CPU, the cross-attention cache zero on both, as the
    reference's served Whisper); (b) InternVL2-76B's backbone at its
-   published widths (depth cut 80 -> 8, bf16, seed 0) through the paged
+   published widths (depth cut 80 -> 4, bf16, seed 0) through the paged
    engine with K6, phase 4's 8 mixed requests: every request served, K6
-   launched 8 x packed steps, tok/s and the median step, one packed
+   launched 4 x packed steps, tok/s and the median step, one packed
    step's logits kernel vs dense gather within phase 4's bound; (c) the
    prefill program on that model, batch 2 of 256 stub patch rows and 32
    tokens, on one rank and on (model=2) (2 gloo ranks on the card, the
@@ -210,8 +211,9 @@ non-zero:
    bound, K1 launches equal to what the executed plans imply, peak
    memory; (d) whisper-medium at its published widths and depth through
    the serving launcher on the wave engine, 4 requests: every request
-   served, tokens in the vocabulary, tok/s; (e) whisper-medium whole and
-   reduced internvl2-76b on (data=2), 3 steps each with ``nccl`` and
+   served, tokens in the vocabulary, tok/s; (e) whisper-medium at its
+   widths, depth cut 24 + 24 -> 6 + 6, and reduced internvl2-76b on
+   (data=2), 2 steps each with ``nccl`` and
    ``flexlink`` (the frontend stubs in the batch): losses falling and bit
    for bit equal, K1 launched, peak memory, wall time;
 19. serving across devices through ``launch/steps.build_serve_program``,
@@ -226,7 +228,7 @@ non-zero:
    they are read; (b) glm4-9b at its published widths and depth, bf16,
    seed 0, on (model=2), batch 8, a 4096 cache (2048 a rank) filled with
    seeded random K/V at the model's own scale (the same global cache on
-   every mesh and on one rank), 8 greedy steps from 3072 (the argmax of
+   every mesh and on one rank), 6 greedy steps from 3072 (the argmax of
    the logits gathered over the model axis), each issued and awaited,
    the model axis's all-reduce pinned to 50/25/25: K1 launches equal to
    what the executed plans imply, 81 combines and 40 Q gathers (issued =
@@ -234,7 +236,7 @@ non-zero:
    upcast to float32: the last step's logits within 2e-3 of one rank's
    float32 decode of the same tokens; (c) the same model, batch 1, the
    cache over (data=2, model=2) (4 ranks, 32768, 8192 a rank), filled,
-   6 steps from 24572 (the owning shard moves from 2 to 3; shards 0-2
+   4 steps from 24574 (the owning shard moves from 2 to 3; shards 0-2
    hold real keys): K1 = the plans', every rank's bf16 logits' and one
    rank's distances from one rank's float32 run printed; the same steps
    on the shards' first 8 layers upcast to float32 (four ranks' whole
@@ -253,7 +255,7 @@ non-zero:
    ``cluster_for("h100", 2)``, the data axis pinned to 50/25/25 and the
    node axis (the NIC tier) to rail 50 / xrail 25 / host_tcp 25 at every
    bucket: (a) the ctx's ClusterCommunicator's hierarchical all-reduce,
-   all-gather and reduce-scatter at 256 MiB a rank of bfloat16 and of
+   all-gather and reduce-scatter at 64 MiB a rank of bfloat16 and of
    float32 (``_pattern`` payloads, [rows, 4096]): bit for bit the exact
    results (the
    flat sum, the node-major gather, segment ``i * 2 + node``), the NIC
@@ -278,7 +280,7 @@ non-zero:
    than each healthy rail in the degraded plans; K1 = the plans' every
    tick; then rail2 flapping every tick over 10 ticks: no re-key,
    suppressed flaps, one signature; (b) Whisper-medium at its published
-   widths, depth cut 24 + 24 -> 4 + 4, bf16, seed 0, seq 128, 8 rows a
+   widths, depth cut 24 + 24 -> 2 + 2, bf16, seed 0, seq 128, 8 rows a
    rank, ``node1@step1=down``, a snapshot every 3 steps, 6 steps: the
    drop commits at step 4, ranks 2 and 3 leave, ranks 0 and 1 build
    their process groups alone, resume from snapshot 3 on (data=2) and
@@ -286,7 +288,30 @@ non-zero:
    (data=2) launch restoring snapshot 3; K1 = the plans' before the drop
    (the hierarchical legs) and after it (the data axis); peak memory and
    the wall of each part; then every K1 segment table of (a) and (b)
-   against the plain version, bit for bit.
+   against the plain version, bit for bit;
+22. the pod tier, ``cluster_for("h100", 2, pods=2)``, every tier pinned
+   at every size bucket (data 50/25/25, node rail/xrail/host_tcp
+   50/25/25, pod spine/xspine/pod_tcp 50/25/25): on 8 gloo ranks sharing
+   the card as (pod=2, node=2, data=2), (a) the three-tier all-reduce,
+   all-gather and reduce-scatter at 64 MiB a rank of bfloat16 and
+   float32 (``_pattern8``, sums exact in bf16), bit for bit the mesh's
+   plain all-reduce and all-gather over the (pod, node, data) plane group
+   (the reduce-scatter at segment ``(i * 2 + node) * 2 + pod``), the pod
+   tier's plans on all three routes, K1 = the plans', wall time a call;
+   (b) the rail-local ep_all_to_all of Kimi-K2's [384 x 14, 7168] bf16
+   dispatch buffer, bit for bit the flat all_to_all over the plane group,
+   and its a2a report (intra, rail-local and spine bytes); (c) Kimi-K2's
+   MoE block at its published widths, 48 experts a rank, each rank
+   drawing only its own experts (seeded per expert; 4.2 GB a rank),
+   forward and the backward to its input, output and input gradient bit
+   for bit between the rail-local and the flat dispatch, all_to_alls a
+   pass and peak memory; then on 4 gloo ranks (d) Whisper-medium whole
+   through the train launcher's rank path with ``--pods 2 --nodes 2
+   --mesh-shape 1,1`` (the NIC and spine tiers, no intra tier), phase 20
+   (b)'s model, batch, seed and steps: losses within 5e-3 of phase 20
+   (b)'s (data=4) ones, every rank's report with the pod tier, K1 = the
+   plans'; then every K1 segment table of (a) and (d) against the plain
+   version, bit for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  The launches in that line are the
@@ -297,8 +322,9 @@ calls it); K6's row adds phase 15's launches (b, c), phase 18 (b)'s and
 phase 19 (d)'s (both ranks), and K1's the flexlink runs of phases 16
 (a), 17 (a) and 18 (e), the (model=2) prefill of phase 18 (c), the
 serve program's bf16 runs of phase 19 (b) and (c), phase 20's
-hierarchical collectives (a) and cluster training run (b), and phase
-21's degrade run (a) and elastic run (b); each rank process sets
+hierarchical collectives (a) and cluster training run (b), phase 21's
+degrade run (a) and elastic run (b), and phase 22's three-tier
+collectives (a) and pod training run (d); each rank process sets
 its counts to 0 just before that path and reports them just after it.
 A K1 or K5 segment-table launch counts once, whatever its segments.
 Without a CUDA card, or without the rest of the checkout beside this
@@ -1793,7 +1819,10 @@ def phase10_codec_collectives():
 # launcher's 1e-3 (sized for the reduced config) sends this model's loss
 # up, from 12.7 to 18.1 in one step, on this card
 TRAIN_LAYERS = 2
-TRAIN_STEPS = 3
+#: steps of every training run of phases 11, 13 and 16-18 (3 until the pod
+#: tier's phase 22 needed the time; one update already drops glm4-9b's
+#: loss from 12.7 to 9.4)
+TRAIN_STEPS = 2
 TRAIN_LR = 1e-4
 #: (name, comm config, bucket_mb): the monolithic runs, then the same
 #: model's gradient sync in 64 MiB buckets launched from the backward,
@@ -2928,6 +2957,9 @@ MOE_TRAIN_LAYERS = 1
 #: three steps stay within noise of the initial loss (11.264, 11.237,
 #: 11.290 in PR 20's run 2), so they use the CPU tests' 1e-3
 SSM_TRAIN_LR = 1e-3
+#: phase 17 (a) trains Mamba2 at its widths, depth 48 -> SSM_TRAIN_LAYERS
+#: (its full depth until phase 22 needed the time)
+SSM_TRAIN_LAYERS = 12
 EP_MESH = (2, 2)
 #: the shares phase 16 (b) pins the data axis's all_to_all slot to (the
 #: ortho share folds into the staged route: primary + staged)
@@ -3134,10 +3166,12 @@ def phase15_moe_serving(card):
 
 def dp_family_rank(arch, layers, lr, reduced=False, tuning_cache=""):
     """One rank of phases 16 (a), 17 (a) and 18 (e): ``arch`` at its
-    published widths (``layers`` deep, or its full depth with None), or
+    published widths (``layers`` deep, an encoder-decoder's encoder too,
+    or its full depth with None), or
     its ``reduced()`` config in bf16 (``reduced``), on the (data=2) mesh,
-    3 steps at AdamW ``lr`` with the ``nccl`` backend and ``flexlink``
-    (its slots warm-started from ``tuning_cache`` when one is named), each
+    TRAIN_STEPS steps at AdamW ``lr`` with the ``nccl`` backend and
+    ``flexlink`` (its slots warm-started from ``tuning_cache`` when one is
+    named), each
     from the seed-0 init; the kernel counts set to 0 just before each run
     and read just after it."""
     sys.path.insert(0, str(SRC))
@@ -3155,6 +3189,9 @@ def dp_family_rank(arch, layers, lr, reduced=False, tuning_cache=""):
         cfg = dataclasses.replace(cfg.reduced(), param_dtype="bfloat16")
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
+        if cfg.encdec is not None:
+            cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+                cfg.encdec, n_enc_layers=layers))
     mesh = Mesh((2, 1), ("data", "model"))
     out = {}
     flex = {"tuning_cache": tuning_cache} if tuning_cache else {}
@@ -3219,8 +3256,9 @@ def _dp_checks(phase, what, res, lr, card):
 def ep_rank(pinned: str):
     """One rank of phase 16 (b): reduced kimi-k2 (ep_a2a, 4 experts over
     the data axis, their FFN hidden dim over the model axis) on the
-    (data=2, model=2) mesh, 3 steps with the ``nccl`` backend and with
-    ``flexlink`` (the data axis's all_to_all slot pinned by ``pinned``),
+    (data=2, model=2) mesh, TRAIN_STEPS steps with the ``nccl`` backend
+    and with ``flexlink`` (the data axis's all_to_all slot pinned by
+    ``pinned``),
     from the seed-0 global init cut to this rank's shards; every executed
     collective recorded with its step phase."""
     sys.path.insert(0, str(SRC))
@@ -3414,11 +3452,12 @@ def phase17_ssm_hybrid(card):
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res = run_ranks(dp_family_rank, 2, backend="gloo", device="cuda",
-                    timeout_s=900, args=("mamba2-1.3b", None, SSM_TRAIN_LR))
+                    timeout_s=900, args=("mamba2-1.3b", SSM_TRAIN_LAYERS,
+                                         SSM_TRAIN_LR))
     print(f"phase 17 (a): ranks ran {time.perf_counter() - t0:.1f} s")
-    return _dp_checks("17 (a)", "mamba2-1.3b at its published widths and "
-                      "depth, bf16, seed 0, mesh (data=2)", res, SSM_TRAIN_LR,
-                      card)
+    return _dp_checks("17 (a)", f"mamba2-1.3b at its published widths "
+                      f"(depth cut 48 -> {SSM_TRAIN_LAYERS}), bf16, seed 0, "
+                      f"mesh (data=2)", res, SSM_TRAIN_LR, card)
 
 
 # ---------------------------------------------------------------------------
@@ -3426,8 +3465,9 @@ def phase17_ssm_hybrid(card):
 # ---------------------------------------------------------------------------
 
 #: (arch, depth kept) of phase 18 (b, c): InternVL2-76B's backbone at its
-#: widths, 80 -> 8 layers (8.95B params, 17.9 GB in bf16)
-VLM_DEPTH = 8
+#: widths, 80 -> 4 layers (5.53B params, 11.1 GB in bf16; 8 until the
+#: pod tier's phase 22 needed the time)
+VLM_DEPTH = 4
 #: phase 18 (c): the prefill program's batch (rows, text tokens; the
 #: config's 256 stub patch rows go before the tokens)
 PREFILL_BATCH, PREFILL_TOKENS = 2, 32
@@ -3441,6 +3481,9 @@ PREFILL_TP_VS_ONE = 0.06
 #: phase 18 (e): AdamW lr of Whisper-medium's DP training (1024 wide, as
 #: phase 17's Mamba2 at 2048 takes 1e-3)
 WHISPER_TRAIN_LR = 1e-3
+#: phase 18 (e)'s Whisper depth, encoder and decoder (24 + 24, whole,
+#: until phase 22 needed the time; phases 20 (b) and 22 (d) train it whole)
+WHISPER_DP_DEPTH = 6
 
 
 def _serve_zero_cross(eng, work, what):
@@ -3772,18 +3815,19 @@ def phase18_vlm_encdec(card, out_dir: pathlib.Path):
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         pinned = f"{tmp}/pinned.json"
         buckets = _pin_data_axis_reduced(pinned)
-        for arch, reduced, lr, what, cache in (
-                ("whisper-medium", False, WHISPER_TRAIN_LR,
-                 "whisper-medium at its published widths and depth, bf16, "
-                 "seed 0, mesh (data=2), stub frames in the batch", ""),
-                ("internvl2-76b", True, 1e-3,
+        for arch, layers, reduced, lr, what, cache in (
+                ("whisper-medium", WHISPER_DP_DEPTH, False, WHISPER_TRAIN_LR,
+                 f"whisper-medium at its published widths (depth cut 24 + "
+                 f"24 -> {WHISPER_DP_DEPTH} + {WHISPER_DP_DEPTH}), bf16, "
+                 f"seed 0, mesh (data=2), stub frames in the batch", ""),
+                ("internvl2-76b", None, True, 1e-3,
                  f"reduced internvl2-76b in bf16, seed 0, mesh (data=2), "
                  f"stub patch rows in the batch, the data axis's "
                  f"all-reduce slots at buckets {buckets} pinned to "
                  f"{TP_SHARES}", pinned)):
             t0 = time.perf_counter()
             res = run_ranks(dp_family_rank, 2, backend="gloo", device="cuda",
-                            timeout_s=900, args=(arch, None, lr, reduced,
+                            timeout_s=900, args=(arch, layers, lr, reduced,
                                                  cache))
             print(f"phase 18 (e): {arch} ranks ran "
                   f"{time.perf_counter() - t0:.1f} s")
@@ -3805,12 +3849,13 @@ SERVE_LOCAL_ATOL = 2e-3
 #: (b): glm4-9b at full width and depth on (model=2): batch 8, a 4096
 #: cache (2048 a rank), greedy steps from position 3072 over a filled
 #: cache, so both shards' partials carry real keys
-SERVE_BATCH, SERVE_SEQ, SERVE_POS, SERVE_STEPS = 8, 4096, 3072, 8
+SERVE_BATCH, SERVE_SEQ, SERVE_POS, SERVE_STEPS = 8, 4096, 3072, 6
 #: (c): batch 1 on (data=2, model=2): a 32768 cache (8192 a rank), steps
 #: over a filled cache from a position just below the third shard's end:
 #: the owner moves from shard 2 to 3 (data index 1), shards 0-2 hold real
-#: keys, so both axes' merges combine partials with mass
-LONG_SEQ, LONG_POS, LONG_STEPS = 32768, 3 * 8192 - 4, 6
+#: keys, so both axes' merges combine partials with mass (6 steps from
+#: 3 * 8192 - 4 until phase 22 needed the time)
+LONG_SEQ, LONG_POS, LONG_STEPS = 32768, 3 * 8192 - 2, 4
 #: (c)'s float32 pass: the same steps on the shards' first 8 layers
 #: upcast (four ranks' whole shards in float32 would not fit the card)
 LONG_F32_DEPTH = 8
@@ -4532,7 +4577,8 @@ CLUSTER_MESH = (2, 2)
 #: the NIC tier's pin (rail = primary, xrail = staged, host_tcp = the ortho
 #: detour over the data axis); the data axis takes TP_SHARES
 NIC_SHARES = {"rail": 50, "xrail": 25, "host_tcp": 25}
-CLUSTER_BYTES = 256 * MiB
+#: (a): bytes a rank (256 MiB until phase 22 needed the time)
+CLUSTER_BYTES = 64 * MiB
 CLUSTER_COLS = 4096
 CLUSTER_OPS = ("all_reduce", "all_gather", "reduce_scatter")
 #: (b): Whisper-medium rows a rank (global batch 32 on both meshes)
@@ -4693,15 +4739,16 @@ def cluster_rank(pinned: str):
 def phase20_cluster(card):
     """The two-tier cluster on 4 gloo ranks sharing the card, mesh (node=2,
     data=2), profile h100, each tier pinned (``_pin_cluster``): (a) the
-    hierarchical all-reduce, all-gather and reduce-scatter at 256 MiB of
-    bfloat16 and of float32, bit for bit the exact results (the flat sum,
+    hierarchical all-reduce, all-gather and reduce-scatter at CLUSTER_BYTES
+    of bfloat16 and of float32, bit for bit the exact results (the flat sum,
     the node-major gather, segment ``i * 2 + node``), K1 = the plans', and
     the N=1 parity; (b) Whisper-medium trained on (node=2, data=2) and on
     (data=4): losses equal on every rank, the cluster run within
     CLUSTER_VS_FLAT of the flat one, K1 = the plans'.  Every K1 segment
     table is then held against the plain version.  Returns (K1 launches of
     (a) and of (b)'s cluster run over the ranks, the K1 bit check's max
-    abs err and tables)."""
+    abs err and tables, and the (data=4) run's losses, which phase 22 (d)
+    faces)."""
     from repro_torch.launch.mesh import run_ranks
     gc.collect()
     torch.cuda.empty_cache()
@@ -4802,7 +4849,7 @@ def phase20_cluster(card):
     k1_err, _, k1_tables = phase12_main_path_check(
         calls, phase="20", required=tuple(sorted({c[0] for c in calls})))
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
-    return k1_a, k1_b, k1_err.get("k1", 0.0), k1_tables
+    return k1_a, k1_b, k1_err.get("k1", 0.0), k1_tables, fl["losses"]
 
 
 # ---------------------------------------------------------------------------
@@ -4821,7 +4868,7 @@ FLAP_SCHEDULE = ",".join(f"rail2@step{t}={0.25 if t % 2 else 1.0}"
 #: ELASTIC_DEPTH; node 1 lost at step 1 commits at 4, the survivors resume
 #: from snapshot 3
 ELASTIC_SCHEDULE, ELASTIC_STEPS, ELASTIC_EVERY = "node1@step1=down", 6, 3
-ELASTIC_DEPTH = 4
+ELASTIC_DEPTH = 2          # 4 until the pod tier's phase 22 needed the time
 
 
 def _pin_faults(path: str) -> str:
@@ -5230,6 +5277,444 @@ def phase21_faults(card):
     return k1_a, k1_b, k1_err.get("k1", 0.0), k1_tables
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the pod tier
+# ---------------------------------------------------------------------------
+
+#: phase 22 (a)-(c): (pod, node, data) of the three-tier mesh, 8 gloo ranks
+POD_MESH = (2, 2, 2)
+#: the pod tier's pin (spine = primary, xspine = staged, pod_tcp = the
+#: ortho detour over the node axis); the data tier takes TP_SHARES and the
+#: node tier NIC_SHARES, as in phase 20
+SPINE_SHARES = {"spine": 50, "xspine": 25, "pod_tcp": 25}
+POD_BYTES = 64 * MiB
+#: (b), (c): the tokens a rank dispatches: Kimi-K2's capacity at 512
+#: tokens, top-8 of 384 experts, factor 1.25, is 14 slots an expert
+KIMI_TOKENS = 512
+#: (c): the seed of expert e's weights is KIMI_SEED + e
+KIMI_SEED = 7000
+#: (d): the train launcher's rank path on (pod=2, node=2): the inter and
+#: pod tiers, no intra tier; its ranks reuse phase 20 (b)'s model, batch,
+#: seed and steps, so its losses face phase 20 (b)'s (data=4) ones
+POD_TRAIN_DIMS = (2, 2, 1, 1)
+
+
+def _pin_pod(path: str):
+    """Pin every tier of ``cluster_for("h100", 2, pods=2)`` at every size
+    bucket of the hierarchical compositions and the all_to_all: the data
+    axis (intra, 2 ranks) to TP_SHARES, the node axis (NIC tier) to
+    NIC_SHARES, the pod axis (spine tier) to SPINE_SHARES; returns the
+    cluster."""
+    from repro_torch.cluster.topology import cluster_for
+    from repro_torch.control.profile import TuningProfile
+    from repro_torch.core.communicator import SIZE_BUCKETS
+    from repro_torch.core.topology import Collective
+    from repro_torch.core.tuner import SHARE_GRID
+    cluster = cluster_for("h100", POD_MESH[1], pods=POD_MESH[0])
+    prof = TuningProfile(path)
+    for profile, shares in (("h100", TP_SHARES),
+                            (cluster.nic_tier.name, NIC_SHARES),
+                            (cluster.pod_tier.name, SPINE_SHARES)):
+        for op in CLUSTER_OPS + ("all_to_all",):
+            for bucket in SIZE_BUCKETS:
+                prof.record(profile, "ring", Collective(op), 2, bucket,
+                            SHARE_GRID, shares)
+    prof.save(path)
+    return cluster
+
+
+def _pattern8(numel: int, rank: int, device) -> torch.Tensor:
+    """``_pattern`` cut to 0..31: sums over 8 ranks (at most 248) stay
+    exact in bfloat16."""
+    return _pattern(numel, rank, device) % 32
+
+
+class _FlatA2A(torch.autograd.Function):
+    """The flat all_to_all over the mesh's (pod, node, data) plane group,
+    under autograd (an all_to_all of equal blocks is its own transpose);
+    ``box[0]`` counts the calls, forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, box):
+        ctx.mesh, ctx.box = mesh, box
+        box[0] += 1
+        return mesh.all_to_all(x, mesh.plane)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.box[0] += 1
+        return ctx.mesh.all_to_all(g.contiguous(), ctx.mesh.plane), None, None
+
+
+def _kimi_block(ctx, dev):
+    """Kimi-K2's MoE block at its published widths on this rank of the ep
+    span: its own 384 / ep experts, each drawn from seed KIMI_SEED + e
+    (never the whole expert tensor), the router from seed 0, the input
+    [1, KIMI_TOKENS, 7168] from the rank's seed, all bf16; frozen."""
+    from repro_torch.configs import get_config
+    cfg = get_config("kimi-k2-1t-a32b")
+    d, f, e_all = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    n_local = e_all // ctx.ep_size
+    shapes = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    experts = {k: torch.empty((n_local,) + s, dtype=torch.bfloat16,
+                              device=dev) for k, s in shapes.items()}
+    g = ctx.ep_index()
+    for j in range(n_local):
+        gen = torch.Generator(device="cuda").manual_seed(
+            KIMI_SEED + g * n_local + j)
+        for k, s in shapes.items():
+            experts[k][j] = (torch.randn(s, generator=gen, device=dev)
+                             * 0.02).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    router = (torch.randn((d, e_all), generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(100 + ctx.mesh.rank)
+    x = torch.randn((1, KIMI_TOKENS, d), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    cot = torch.randn((1, KIMI_TOKENS, d), generator=gen, device=dev)
+    return cfg, {"w_router": router, "experts": experts}, x, cot
+
+
+def pod_rank(pinned: str):
+    """One rank of phase 22 (a)-(c) on (pod=2, node=2, data=2): (a) the
+    ctx's ClusterCommunicator's three-tier all-reduce, all-gather and
+    reduce-scatter at POD_BYTES of bfloat16 and float32 (``_pattern8``,
+    [rows, CLUSTER_COLS]) beside the mesh's plain all-reduce / all-gather
+    over the plane group, every executed plan and K1 call recorded, the
+    kernel counts set to 0 just before each call and read just after; (b)
+    the rail-local ep_all_to_all of a [384 x cap, 7168] bf16 buffer beside
+    the flat all_to_all over the plane group; (c) Kimi-K2's MoE block,
+    forward and the backward to its input, with the rail-local dispatch
+    and then the flat one."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.core.communicator import CommConfig, comm_destroy_all
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models.tp import ParallelCtx
+    p, n, m = POD_MESH
+    mesh = Mesh(POD_MESH, ("pod", "node", "data"))
+    rank, dev = mesh.rank, mesh.device
+    pod, node, i = mesh.coords
+    ctx = ParallelCtx(dp_axis="data", node_axis="node", pod_axis="pod",
+                      dp_size=m, node_size=n, pod_size=p,
+                      comm_config=CommConfig(profile="h100",
+                                             tuning_cache=pinned),
+                      mesh=mesh)
+    cc = ctx._cluster_comm
+    out = {"a": {}, "calls": set(), "plane": mesh.plane,
+           "axes": [c.axis_name for c in ctx.comms()],
+           "ep": (ctx.ep_axes, ctx.ep_size, ctx.ep_index()),
+           "pod_tier": ctx.cluster.pod_tier.name}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _pattern8(POD_BYTES // dtype.itemsize, rank, dev).to(
+            dtype).reshape(-1, CLUSTER_COLS)
+        s = mesh.all_reduce(x, mesh.plane)
+        plain = {"all_reduce": _digest(s),
+                 "all_gather": _digest(mesh.all_gather(x, mesh.plane)),
+                 "reduce_scatter": _digest(
+                     s.chunk(p * n * m)[(i * n + node) * p + pod])}
+        del s
+        for op in CLUSTER_OPS:
+            calls = []
+            torch.cuda.synchronize()
+            _kernel_counts(reset=True)
+            t0 = time.perf_counter()
+            with _executed(calls), recorded_calls(out["calls"]):
+                y = _cluster_op(cc, op, x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _kernel_counts()
+            want = collections.Counter()
+            for plan, k, dt in calls:
+                want += codec_launches(plan, k, dt)
+            out["a"][op, str(dtype)[6:]] = {
+                "digest": _digest(y), "plain": plain[op], "wall_s": wall,
+                "k1": launches["k1"], "k1_want": want["k1"],
+                "plans": sorted({(plan.axis_name, plan.collective.value,
+                                  plan.chunk_units, plan.staged_substeps)
+                                 for plan, _, _ in calls})}
+            del y
+        del x
+    out["signature"] = repr(ctx.plan_signature())
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b): Kimi-K2's dispatch buffer, arbitrary values
+    cfg_k = get_config("kimi-k2-1t-a32b")
+    cap = M.capacity_of(KIMI_TOKENS, cfg_k.moe)
+    gen = torch.Generator(device="cuda").manual_seed(200 + rank)
+    buf = torch.randn((cfg_k.moe.n_experts * cap, cfg_k.d_model),
+                      generator=gen, device=dev).to(torch.bfloat16)
+    calls = []
+    torch.cuda.synchronize()
+    _kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    with _executed(calls):
+        rail = cc.ep_all_to_all(buf, 0, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    flat = mesh.all_to_all(buf, mesh.plane)
+    torch.cuda.synchronize()
+    out["b"] = {"cap": cap, "shape": tuple(buf.shape),
+                "digests": [_digest(rail), _digest(flat)],
+                "wall_s": [t1 - t0, time.perf_counter() - t1],
+                "k1": _kernel_counts()["k1"],
+                "legs": sorted((plan.axis_name, plan.chunk_units)
+                               for plan, _, _ in calls),
+                "report": cc.a2a_report()}
+    del buf, rail, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c): Kimi-K2's MoE block, rail-local then flat dispatch
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, x0, cot = _kimi_block(ctx, dev)
+    out["c"] = {"n_local": params["experts"]["w_gate"].shape[0],
+                "expert_shape": tuple(params["experts"]["w_gate"].shape)}
+    rail_a2a = ctx.ep_all_to_all
+    box = [0]
+    for name in ("rail", "flat"):
+        if name == "flat":
+            ctx.ep_all_to_all = (
+                lambda v, split_axis=0, concat_axis=0:
+                _FlatA2A.apply(v, mesh, box))
+        calls = []
+        x = x0.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _executed(calls):
+            y, aux = M.moe_block(params, x, cfg, ctx)
+            fwd = (len(calls), box[0])
+            loss = (y.float() * cot).sum() + aux
+            (gx,) = torch.autograd.grad(loss, x)
+        torch.cuda.synchronize()
+        a2a = [plan.axis_name for plan, _, _ in calls
+               if plan.collective.value == "all_to_all"]
+        out["c"][name] = {
+            "y": _digest(y), "grad": _digest(gx), "aux": float(aux.detach()),
+            "finite": bool(torch.isfinite(y).all()
+                           and torch.isfinite(gx).all()),
+            "wall_s": time.perf_counter() - t0,
+            "a2a_fwd": fwd[0] if name == "rail" else fwd[1],
+            "a2a_all": len(a2a) if name == "rail" else box[0],
+            "legs": dict(collections.Counter(a2a))}
+        del x, y, aux, loss, gx
+    ctx.ep_all_to_all = rail_a2a
+    out["c"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, x0, cot
+    comm_destroy_all()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pod_train_rank(pinned: str):
+    """One rank of phase 22 (d): the train launcher's rank path
+    (``launch.train.train_rank``) with ``--arch whisper-medium --pods 2
+    --nodes 2 --mesh-shape 1,1``: phase 20 (b)'s model, batch, seed, lr
+    and steps, flexlink, the node and pod tiers pinned by ``pinned``;
+    every executed plan and K1 call recorded, the counts set to 0 just
+    before and read just after."""
+    sys.path.insert(0, str(SRC))
+    import types
+    from repro_torch.launch import train as T
+    args = types.SimpleNamespace(
+        arch="whisper-medium", smoke=False, cluster="", nodes=2, pods=2,
+        degrade="", fault="", device="cuda", backend="flexlink",
+        timing="sim", secondary_algo="ring", tuning_cache=pinned,
+        compress="", lr=WHISPER_TRAIN_LR, steps=CLUSTER_STEPS,
+        bucket_mb=0.0, seq_len=128, batch=4 * CLUSTER_ROWS, ckpt_dir="",
+        ckpt_every=0)
+    calls, seen = [], set()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    with _executed(calls), recorded_calls(seen):
+        res = T.train_rank(args, POD_TRAIN_DIMS, 4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = collections.Counter()
+    for plan, k, dt in calls:
+        want += codec_launches(plan, k, dt)
+    return {"losses": res["history"], "tiers": res["tiers"],
+            "rollup": sorted(res["cluster"]["rollup"]),
+            "topology": res["cluster"]["topology"], "wall_s": wall,
+            "k1": _kernel_counts()["k1"], "k1_want": want["k1"],
+            "legs": sorted({plan.axis_name for plan, _, _ in calls}),
+            "calls": seen,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase22_pod(card, flat_losses):
+    """The three-tier cluster of ``cluster_for("h100", 2, pods=2)``, every
+    tier pinned (``_pin_pod``): on 8 gloo ranks sharing the card as (pod=2,
+    node=2, data=2), (a) the three-tier all-reduce, all-gather and
+    reduce-scatter at POD_BYTES of bfloat16 and float32, bit for bit the
+    mesh's plain all-reduce / all-gather over the plane (the
+    reduce-scatter at segment ``(i * 2 + node) * 2 + pod``), K1 = the
+    plans'; (b) the rail-local ep_all_to_all at Kimi-K2's dispatch width,
+    bit for bit the flat all_to_all, with its a2a report; (c) Kimi-K2's
+    MoE block at its published widths, 48 experts a rank, forward and
+    input gradient bit for bit between the rail-local and the flat
+    dispatch; then on 4 gloo ranks (d) Whisper-medium through the train
+    launcher's rank path on (pod=2, node=2), within CLUSTER_VS_FLAT of
+    phase 20 (b)'s (data=4) losses ``flat_losses``, every rank's report
+    with a pod tier, K1 = the plans'.  Every K1 segment table is then held
+    against the plain version.  Returns (K1 launches of (a) and of (d)
+    over the ranks, the K1 bit check's max abs err and tables)."""
+    from repro_torch.launch.mesh import run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    p, n, m = POD_MESH
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        pinned = f"{tmp}/pinned.json"
+        cluster = _pin_pod(pinned)
+        t0 = time.perf_counter()
+        res = run_ranks(pod_rank, p * n * m, backend="gloo", device="cuda",
+                        timeout_s=900, args=(pinned,))
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train = run_ranks(pod_train_rank, 4, backend="gloo", device="cuda",
+                          timeout_s=900, args=(pinned,))
+        train_s = time.perf_counter() - t0
+    check(all(r["axes"] == ["data", "node", "pod"]
+              and r["plane"] == ("pod", "node", "data")
+              and r["pod_tier"] == cluster.pod_tier.name for r in res),
+          f"22: tiers {[r['axes'] for r in res]}")
+    check(all(tuple(r["ep"][0]) == ("pod", "node", "data")
+              and r["ep"][1] == 8 and r["ep"][2] == q
+              for q, r in enumerate(res)), "22: the ep span or index")
+    check(all(r["signature"] == res[0]["signature"] for r in res),
+          "22 (a): plan_signature differs between ranks")
+    k1_a = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for op in CLUSTER_OPS:
+            for r, got in enumerate(res):
+                a = got["a"][op, dt]
+                check(a["digest"] == a["plain"], f"22 (a) rank {r} {op} "
+                      f"{dt}: differs from the mesh's plain {op} over the "
+                      f"plane")
+                check(a["k1"] == a["k1_want"], f"22 (a) rank {r} {op} {dt}: "
+                      f"K1 launched {a['k1']}, the plans say {a['k1_want']}")
+                check(a["plans"] == res[0]["a"][op, dt]["plans"],
+                      f"22 (a) rank {r} {op} {dt}: other plans")
+                k1_a += a["k1"]
+            a = res[0]["a"][op, dt]
+            routes = {(axis, c): dict(u) for axis, c, u, _ in a["plans"]}
+            print(f"phase 22 (a): three-tier {op}, {POD_BYTES // MiB} MiB of "
+                  f"{dt} a rank on (pod=2, node=2, data=2): bit for bit the "
+                  f"plain one over the plane on every rank; plans "
+                  f"{routes}; K1 over 8 ranks "
+                  f"{sum(r['a'][op, dt]['k1'] for r in res)} = the plans'; "
+                  f"wall {max(r['a'][op, dt]['wall_s'] for r in res):.3f} s "
+                  f"a call, the slower rank ({WALL_NOTE})")
+    pod_routes = {frozenset(dict(u)) for r in res
+                  for (op, dt), a in r["a"].items()
+                  for axis, c, u, _ in a["plans"] if axis == "pod"}
+    check(all(rt == {"primary", "staged", "ortho"} for rt in pod_routes),
+          f"22 (a): the pod tier's plans ran routes {pod_routes}")
+    # (b)
+    for r, got in enumerate(res):
+        b = got["b"]
+        check(b["digests"][0] == b["digests"][1], f"22 (b) rank {r}: the "
+              f"rail-local all_to_all differs from the flat one")
+        check(b["k1"] == 0, f"22 (b) rank {r}: {b['k1']} K1 launches in an "
+              f"all_to_all")
+        check({axis for axis, _ in b["legs"]} == {"data", "node", "pod"},
+              f"22 (b) rank {r}: legs {b['legs']}")
+    b = res[0]["b"]
+    rep = b["report"]
+    check(rep["intra_bytes"] > 0 and rep["rail_local_bytes"]
+          + rep["spine_bytes"] > 0, f"22 (b): a2a report {rep}")
+    print(f"phase 22 (b): rail-local ep_all_to_all of a {list(b['shape'])} "
+          f"bf16 buffer ({b['shape'][0] * b['shape'][1] * 2 / 1e6:.1f} MB "
+          f"a rank, cap {b['cap']} at {KIMI_TOKENS} tokens, top-8 of 384) on "
+          f"(pod=2, node=2, data=2): bit for bit the flat all_to_all over "
+          f"the plane group on every rank; legs "
+          f"{sorted(set(b['legs']), key=str)}; a2a "
+          f"report (rank 0): intra {rep['intra_bytes']} B, rail-local "
+          f"{rep['rail_local_bytes']} B, spine {rep['spine_bytes']} B "
+          f"({rep['source']}); wall rail-local "
+          f"{max(r['b']['wall_s'][0] for r in res):.3f} s, flat "
+          f"{max(r['b']['wall_s'][1] for r in res):.3f} s, the slower rank "
+          f"({WALL_NOTE})")
+    # (c)
+    from repro_torch.configs import get_config
+    n_local = get_config("kimi-k2-1t-a32b").moe.n_experts // (p * n * m)
+    for r, got in enumerate(res):
+        c = got["c"]
+        check(c["rail"]["finite"] and c["flat"]["finite"],
+              f"22 (c) rank {r}: not finite")
+        check(c["rail"]["y"] == c["flat"]["y"], f"22 (c) rank {r}: the MoE "
+              f"output differs between the rail-local and flat dispatch")
+        check(c["rail"]["grad"] == c["flat"]["grad"], f"22 (c) rank {r}: the "
+              f"input gradient differs between the dispatches")
+        check(c["rail"]["aux"] == c["flat"]["aux"], f"22 (c) rank {r}: aux")
+        check(c["n_local"] == n_local and c["rail"]["a2a_fwd"] == 6
+              and c["rail"]["a2a_all"] == 12 and c["flat"]["a2a_fwd"] == 2
+              and c["flat"]["a2a_all"] == 4,
+              f"22 (c) rank {r}: {c['n_local']} experts, all_to_alls "
+              f"{c['rail']} / {c['flat']}")
+    c = res[0]["c"]
+    print(f"phase 22 (c): Kimi-K2's MoE block at its published widths "
+          f"(d_model 7168, 384 experts, d_ff 2048, top-8, bf16), experts "
+          f"{list(c['expert_shape'])} a rank over (pod=2, node=2, data=2) "
+          f"(ep 8, each drawn from its own seed), {KIMI_TOKENS} tokens a "
+          f"rank, forward and input gradient (weights frozen): output and "
+          f"gradient bit for bit between the rail-local and the flat "
+          f"dispatch on every rank; all_to_alls a pass: rail-local "
+          f"{c['rail']['a2a_fwd']} legs forward, "
+          f"{c['rail']['a2a_all'] - c['rail']['a2a_fwd']} backward "
+          f"({c['rail']['legs']}), flat {c['flat']['a2a_fwd']} forward, "
+          f"{c['flat']['a2a_all'] - c['flat']['a2a_fwd']} backward; wall "
+          f"{max(r['c']['rail']['wall_s'] for r in res):.2f} s / "
+          f"{max(r['c']['flat']['wall_s'] for r in res):.2f} s, the slower "
+          f"rank; peak {max(r['c']['peak_gib'] for r in res):.2f} GiB a "
+          f"rank")
+    # (d)
+    hist = [r["losses"] for r in train]
+    check(all(np.isfinite(h).all() for h in hist), f"22 (d): loss not "
+          f"finite: {hist}")
+    check(all(h == hist[0] for h in hist), f"22 (d): the ranks' losses "
+          f"differ: {hist}")
+    for r, got in enumerate(train):
+        check(got["tiers"] == {"node": "inter", "pod": "pod"}
+              and got["rollup"] == ["inter", "pod"]
+              and got["topology"] == cluster.describe(),
+              f"22 (d) rank {r}: tiers {got['tiers']}, rollup "
+              f"{got['rollup']}")
+        check(got["k1"] == got["k1_want"], f"22 (d) rank {r}: K1 "
+              f"{got['k1']}, the plans say {got['k1_want']}")
+        check(got["legs"] == ["node", "pod"], f"22 (d) rank {r}: legs "
+              f"{got['legs']}")
+    gap = float(np.max(np.abs(np.array(hist[0]) - np.array(flat_losses))))
+    check(gap <= CLUSTER_VS_FLAT, f"22 (d): pod losses {hist[0]} vs (data=4) "
+          f"{flat_losses}: {gap:.3g} > {CLUSTER_VS_FLAT}")
+    k1_d = sum(r["k1"] for r in train)
+    check(k1_d > 0, "22 (d): no K1 launch")
+    print(f"phase 22 (d): whisper-medium at its published widths and depth "
+          f"through the train launcher's rank path (--pods 2 --nodes 2 "
+          f"--mesh-shape 1,1: the NIC and spine tiers, no intra tier), bf16, "
+          f"seed 0, seq 128, {CLUSTER_ROWS} rows a rank, {CLUSTER_STEPS} "
+          f"steps: losses {hist[0]} (equal on every rank), phase 20 (b)'s "
+          f"(data=4) {list(flat_losses)}, max gap {gap:.3g} (bound "
+          f"{CLUSTER_VS_FLAT}); each rank's report has the pod tier; K1 over "
+          f"4 ranks {k1_d} = the plans'; wall "
+          f"{max(r['wall_s'] for r in train):.2f} s, the slower rank "
+          f"({WALL_NOTE}); peak {max(r['peak_gib'] for r in train):.2f} GiB "
+          f"a rank; ranks ran {ranks_s:.1f} s (a-c) and {train_s:.1f} s (d); "
+          f"{card}")
+    calls = set().union(*(r["calls"] for r in res + train))
+    check(any(c[0].startswith("k1") for c in calls),
+          "22: no K1 call recorded")
+    k1_err, _, k1_tables = phase12_main_path_check(
+        calls, phase="22", required=tuple(sorted({c[0] for c in calls})))
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return k1_a, k1_d, k1_err.get("k1", 0.0), k1_tables
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -5311,11 +5796,14 @@ def main(argv=None) -> int:
     serve_k1, serve_k6, serve_k1_err, serve_tables = phase19_serve_sharded(
         card)
     mark("19")
-    cluster_k1, cluster_train_k1, cluster_k1_err, cluster_tables = \
-        phase20_cluster(card)
+    (cluster_k1, cluster_train_k1, cluster_k1_err, cluster_tables,
+     flat_losses) = phase20_cluster(card)
     mark("20")
     fault_k1, elastic_k1, fault_k1_err, fault_tables = phase21_faults(card)
     mark("21")
+    pod_k1, pod_train_k1, pod_k1_err, pod_tables = phase22_pod(card,
+                                                               flat_losses)
+    mark("22")
     kernels = [{
         "name": "paged_flash_decode",
         "route": "cuda",
@@ -5398,6 +5886,12 @@ def main(argv=None) -> int:
                                "(node=2, data=2)",
         "max_abs_err_fault": fault_k1_err,
         "segment_tables_fault": fault_tables.get("k1_segments", []),
+        "launches_pod_collectives": pod_k1,
+        "launches_train_whisper_pod_flexlink": pod_train_k1,
+        "launches_pod_from": "phase 22 (a) 8 ranks on (pod=2, node=2, "
+                             "data=2), (d) 4 ranks on (pod=2, node=2)",
+        "max_abs_err_pod": pod_k1_err,
+        "segment_tables_pod": pod_tables.get("k1_segments", []),
         "mixed_f32_bf16": {
             "launches": bf16_launches["k1_mixed"],
             "max_abs_err": path_errs["k1_mixed"],

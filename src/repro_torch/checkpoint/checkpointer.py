@@ -17,11 +17,13 @@ rank holds local shards, and the file still holds the reference's GLOBAL
 layout: ``save`` is collective over the rank's model line, which
 all-gathers each sharded leaf of the params, the AdamW moments and the
 error-feedback residuals (param-shaped, sharded like the params), and
-model rank 0 writes.  ep_a2a experts are sharded over the data axis too:
-then ``save`` is collective over every rank, gathers those leaves over
-the data axis after the model axis, and only rank (0, 0) writes.
-Replicated leaves are model rank 0's own copy (data row 0's when the
-data axis shards leaves), which is what the reference's ``np.asarray``
+model rank 0 writes.  ep_a2a experts are sharded over the ep span too
+(the data axis, or (pod, node, data) on a cluster mesh): then ``save`` is
+collective over every rank, gathers those leaves over the span (its
+plane group, in combined-index order) after the model axis, and only the
+rank at index 0 of every axis writes.  Replicated leaves are model rank
+0's own copy (ep index 0's when the span shards leaves), which is what
+the reference's ``np.asarray``
 of a leaf whose per-device copies differ saves.  ``restore`` reads the global file on every rank and cuts
 the rank's shard (convert.py), so every rank gets the same replicated
 copy, as the reference's ``device_put`` gives.
@@ -39,7 +41,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.convert import (gather_params, shard_params, spec_axes,
+from repro_torch.convert import (ep_sharded, gather_params, shard_params,
                                  spec_dim)
 
 _SEP = "/"
@@ -102,28 +104,28 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray], prefix=""):
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3, *, ctx=None,
                  specs=None):
-        """``ctx`` with a model axis wider than 1, or a data axis wider
+        """``ctx`` with a model axis wider than 1, or an ep span wider
         than 1 that ``specs`` (the ``transformer.param_specs`` tree)
         shards ep_a2a experts over, makes the params and moments
         rank-local shards; every rank of the model line (of the mesh,
-        when the data axis shards leaves) must then call ``save``, and
-        model rank 0 (of data row 0) writes.  On a cluster mesh only the
-        ranks of node 0 write, as data row 0's one tier up."""
+        when the ep span shards leaves) must then call ``save``.  Only the
+        rank of pod 0, node 0, data row 0 and model rank 0 writes."""
         self.dir = directory
         self.keep = keep
-        #: whether the data axis shards leaves (ep_a2a experts)
-        self.data = (ctx is not None and ctx.dp_size > 1
-                     and specs is not None and "data" in spec_axes(specs))
+        #: the ep span's spec entry when it shards leaves (ep_a2a
+        #: experts), else None
+        self.ep = (ctx.ep_spec_axis() if ctx is not None
+                   and specs is not None and ep_sharded(specs, ctx)
+                   else None)
         self.ctx = ctx if ctx is not None and (ctx.tp_size > 1
-                                               or self.data) else None
+                                               or self.ep) else None
         if self.ctx is not None and specs is None:
             raise ValueError("Checkpointer: a model axis needs the param "
                              "specs")
         self.specs = specs
-        self.writer = (ctx is None or ctx.node_index() == 0) and (
-            self.ctx is None or (
-                self.ctx.tp_index() == 0
-                and (not self.data or self.ctx.dp_index() == 0)))
+        self.writer = ctx is None or (
+            ctx.pod_index() == 0 and ctx.node_index() == 0
+            and ctx.dp_index() == 0 and ctx.tp_index() == 0)
         os.makedirs(directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -156,11 +158,11 @@ class Checkpointer:
 
     def _gather(self, tree, specs):
         """The global tree (collective over the model line, and over the
-        data line when it shards leaves)."""
+        ep span when it shards leaves)."""
         if isinstance(specs, dict):
             return {k: self._gather(tree[k], specs[k]) for k in tree}
         axes = [("model", self.ctx.tp_axis)] if self.ctx.tp_size > 1 else []
-        axes += [("data", self.ctx.dp_axis)] if self.data else []
+        axes += [(self.ep, self.ep)] if self.ep else []
         for name, axis in axes:
             if spec_dim(specs, name) >= 0:
                 g = self.ctx.mesh.all_gather(tree.contiguous(), axis)
@@ -201,8 +203,8 @@ class Checkpointer:
                 spec = spec[part]
             out[key] = shard_params(
                 arr, spec, self.ctx.tp_index(), self.ctx.tp_size,
-                dp_index=self.ctx.dp_index() if self.data else 0,
-                dp=self.ctx.dp_size if self.data else 1)
+                ep_index=self.ctx.ep_index() if self.ep else 0,
+                ep=self.ctx.ep_size if self.ep else 1)
         return out
 
     def _gc(self) -> None:

@@ -1,34 +1,45 @@
-"""ClusterCommunicator — hierarchical collectives over the fabric's tiers
-(DESIGN.md §9).
+"""ClusterCommunicator — hierarchical collectives over up to three tiers
+(DESIGN.md §9, §15).
 
 Port of ``src/repro/cluster/communicator.py``.  One
 :class:`~repro_torch.core.communicator.FlexCommunicator` per fabric tier:
-the *intra* tier on the in-node mesh axis (the paper's FlexLink pool) and
-the *inter* tier on the node axis (the NIC pool of ``cluster/topology.py``).
-A cluster collective is a composition of ordinary flex collectives, one
-RoutePlan per tier, each run by that tier's ``routing.execute`` on this
-rank's process groups of its axis, so the PlanCache, ``plan_signature()``
-and the per-tier SlotControllers apply unchanged, and each tier's staged
-ring runs the accumulate kernel (K1) on sub-32-bit float payloads.
+the *intra* tier on the in-node mesh axis (the paper's FlexLink pool),
+the *inter* tier on the node axis (the NIC pool of ``cluster/topology.py``)
+and, on a three-tier cluster, the *pod* tier on the pod axis (the
+oversubscribed spine pool).  A cluster collective is a composition of
+ordinary flex collectives, one RoutePlan per tier, each run by that
+tier's ``routing.execute`` on this rank's process groups of its axis, so
+the PlanCache, ``plan_signature()`` and the per-tier SlotControllers
+apply unchanged, and each tier's staged ring runs the accumulate kernel
+(K1) on sub-32-bit float payloads.
 
-Compositions (m ranks a node, n nodes), on this rank's plain tensors:
+Compositions (m ranks a node, n nodes a pod, p pods; a tier of one rank
+is absent), on this rank's plain tensors:
 
-  all_reduce     : pad the flat payload to a multiple of m, reduce_scatter
-                   it as [m, L / m] on the intra tier (the reference's
+  all_reduce     : pad the flat payload to a multiple of k = m * n (the
+                   lower tiers' product), reduce_scatter it as [k, L / k]
+                   down the chain (intra, then inter: the reference's
                    blocks; its 1-D form would give the routes one padded
-                   column), all_reduce the 1/m shard on the inter tier,
-                   all_gather back on the intra tier, unpad.
+                   column), all_reduce the 1/k shard on the top tier,
+                   all_gather back up, unpad.
   all_gather     : each tier's all_gather with ``tiled=False`` inward-out,
                    then reshaped outermost-major: the flat gather over
-                   (node, intra).
-  reduce_scatter : chained per-tier reduce_scatter; rank (node, i) ends
-                   with global segment ``i * n + node``.
+                   (pod, node, intra).
+  reduce_scatter : chained per-tier reduce_scatter; rank (pod, node, i)
+                   ends with global segment ``(i * n + node) * p + pod``
+                   (``i * n + node`` without a pod tier).
+  ep_all_to_all  : the rail-local MoE dispatch: the payload reshaped to
+                   (p, n, m, c, ...), one flex all_to_all a tier (the
+                   intra shuffle on the innermost block axis, the node
+                   leg rank i's own rail, the pod leg the spine), reshaped
+                   back: bit for bit the flat all_to_all over (pod, node,
+                   data), whose combined rank is ``(pod * n + node) * m +
+                   i``.  Each leg is differentiable and recorded like any
+                   flex all_to_all.
 
 With a single live tier every call IS that communicator's call: same
-plans, same signatures.  The constructor takes the pod tier's
-communicator and validates it as the reference does, but nothing builds
-one until the pod tier (ROADMAP queue 1 item 14), which also brings the
-rail-local ``ep_all_to_all`` decomposition.
+plans, same signatures; a pods=1 cluster builds no pod communicator, so
+its compositions are the two-tier ones.
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ from repro_torch.core.topology import Collective
 
 
 class ClusterCommunicator:
-    """Hierarchical collectives over (intra_axis × node_axis).
+    """Hierarchical collectives over (intra_axis × node_axis [× pod_axis]).
 
     Not itself a FlexCommunicator: it owns one per tier and composes
     them.  ``comms()`` exposes the live tier communicators innermost
@@ -136,8 +147,9 @@ class ClusterCommunicator:
 
     def reduce_scatter(self, x: torch.Tensor,
                        accumulate=None) -> torch.Tensor:
-        """Leading dim must divide the cluster rank count.  Rank (node, i)
-        receives global segment ``i * n + node`` of the flat reduction."""
+        """Leading dim must divide the cluster rank count.  Rank
+        (pod, node, i) receives global segment ``(i * n + node) * p + pod``
+        of the flat reduction; with no pod tier that is ``i * n + node``."""
         tiers = self.comms()
         if len(tiers) == 1:
             return tiers[0].reduce_scatter(x, accumulate)
@@ -152,15 +164,34 @@ class ClusterCommunicator:
 
     def ep_all_to_all(self, x: torch.Tensor, split_axis: int = 0,
                       concat_axis: int = 0) -> torch.Tensor:
-        """Expert all_to_all over the tiers.  With one live tier it is
-        that tier's flex all_to_all; the rail-local decomposition across
-        tiers comes with the pod tier."""
+        """Rail-local expert all_to_all (DESIGN.md §15): the flat
+        all_to_all over the combined (pod, node, intra) ranks as one flex
+        all_to_all a tier.  With combined rank ``g = (pod * n + node) * m
+        + i`` (outermost-major, the mesh's axis order) the per-tier
+        transposes of a (p, n, m, c, ...) view commute and compose to the
+        flat one's permutation, bit for bit."""
         tiers = self.comms()
+        if split_axis != concat_axis:
+            raise NotImplementedError(
+                "ep_all_to_all requires split_axis == concat_axis "
+                f"(got {split_axis} != {concat_axis})")
         if len(tiers) == 1:
             return tiers[0].all_to_all(x, split_axis, concat_axis)
-        raise NotImplementedError(
-            "the rail-local ep_all_to_all across cluster tiers is not "
-            "ported yet (ROADMAP queue 1 item 14)")
+        n_ranks = self.n_ranks
+        moved = torch.movedim(x, split_axis, 0)
+        if moved.shape[0] % n_ranks:
+            raise ValueError(
+                f"split axis length {moved.shape[0]} must divide the "
+                f"cluster rank count {n_ranks}")
+        c = moved.shape[0] // n_ranks
+        sizes = tuple(t.n_ranks for t in reversed(tiers))     # (p, n, m)
+        shaped = moved.reshape(sizes + (c,) + tuple(moved.shape[1:]))
+        k = len(tiers)
+        for i, t in enumerate(tiers):
+            ax = k - 1 - i       # intra transposes the innermost block axis
+            shaped = t.all_to_all(shaped, split_axis=ax, concat_axis=ax)
+        out = shaped.reshape(moved.shape)
+        return torch.movedim(out, 0, split_axis)
 
     # -- control-plane plumbing ------------------------------------------------
 

@@ -17,8 +17,10 @@ block out of the global tree and ``gather_params`` puts the global tree
 back together over one axis from every rank's along it, taking leaves
 that axis does not shard from its rank 0, as ``np.asarray`` of the
 reference's arrays does.  A leaf may be sharded on two dims: ep_a2a
-experts over the data axis (the expert dim) and the model axis (the
-FFN hidden dim).
+experts over the expert-parallel span (the expert dim: the data axis, or
+the outermost-major tuple ``("node", "data")`` / ``("pod", "node",
+"data")`` on a cluster mesh, sliced at the rank's combined index over
+the span) and the model axis (the FFN hidden dim).
 """
 
 from __future__ import annotations
@@ -60,28 +62,46 @@ def spec_dim(spec, axis: str) -> int:
 
 
 def spec_axes(specs) -> set:
-    """Every mesh axis a spec tree shards some leaf over."""
+    """Every spec entry a spec tree shards some leaf over: mesh axis
+    names, and the ep span's axis tuple where one shards the expert
+    dim."""
     if isinstance(specs, dict):
         return set().union(*(spec_axes(v) for v in specs.values()))
     return {a for a in specs if a is not None}
 
 
-def shard_params(tree, specs, tp_index: int, tp: int, *, dp_index: int = 0,
-                 dp: int = 1):
+def ep_sharded(specs, ctx) -> bool:
+    """Whether the ep span of ``ctx`` (a ParallelCtx) shards a leaf of
+    ``specs``: ep_a2a experts on a mesh whose ep span is wider than 1."""
+    return ctx.ep_size > 1 and ctx.ep_spec_axis() in spec_axes(specs)
+
+
+def respec_ep(specs, ep_axis):
+    """``specs`` with every expert-dim entry (any entry but "model")
+    replaced by ``ep_axis``: the specs of the same params on a mesh whose
+    ep span is ``ep_axis`` (a rebuilt mesh after a node loss)."""
+    if isinstance(specs, dict):
+        return {k: respec_ep(v, ep_axis) for k, v in specs.items()}
+    return tuple(a if a is None or a == "model" else ep_axis for a in specs)
+
+
+def shard_params(tree, specs, tp_index: int, tp: int, *, ep_index: int = 0,
+                 ep: int = 1):
     """One rank's local shards of a global tree (numpy arrays or
     tensors; a params tree, or an AdamW moment tree of the same layout),
     by the spec tree of ``transformer.param_specs``: dims sharded over
-    "model" cut at ``(tp_index, tp)``, over "data" (ep_a2a experts) at
-    ``(dp_index, dp)``.  Every leaf is a new contiguous array or tensor."""
+    "model" cut at ``(tp_index, tp)``, over the ep span (ep_a2a experts:
+    "data" or an axis tuple) at ``(ep_index, ep)``, the rank's combined
+    index over the span and its width.  Every leaf is a new contiguous
+    array or tensor."""
     if isinstance(tree, dict):
-        return {k: shard_params(v, specs[k], tp_index, tp, dp_index=dp_index,
-                                dp=dp)
+        return {k: shard_params(v, specs[k], tp_index, tp, ep_index=ep_index,
+                                ep=ep)
                 for k, v in tree.items()}
-    coords = {"model": (tp_index, tp), "data": (dp_index, dp)}
     for d, axis in enumerate(specs):
         if axis is None:
             continue
-        i, ways = coords[axis]
+        i, ways = (tp_index, tp) if axis == "model" else (ep_index, ep)
         if tree.shape[d] % ways:
             raise ValueError(f"dim {d} of {tuple(tree.shape)} does not "
                              f"divide over {ways} {axis} ranks")
@@ -92,10 +112,12 @@ def shard_params(tree, specs, tp_index: int, tp: int, *, dp_index: int = 0,
     return tree.clone(memory_format=torch.contiguous_format)
 
 
-def gather_params(shards, specs, axis: str = "model"):
-    """The inverse of ``shard_params`` over ``axis``: ``shards`` are the
-    local trees of ranks 0, 1, ... along it; leaves it shards are
-    concatenated along their dim, the others taken from its rank 0."""
+def gather_params(shards, specs, axis="model"):
+    """The inverse of ``shard_params`` over ``axis`` (a spec entry: an
+    axis name, or the ep span's tuple): ``shards`` are the local trees of
+    ranks 0, 1, ... along it (of combined ep indices 0, 1, ... for the
+    span); leaves it shards are concatenated along their dim, the others
+    taken from its rank 0."""
     if isinstance(specs, dict):
         return {k: gather_params([s[k] for s in shards], v, axis)
                 for k, v in specs.items()}

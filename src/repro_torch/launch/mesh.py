@@ -12,12 +12,17 @@ row-major over the axis tuple, so rank r sits at
 Each axis has two channels, each its own process group over the same
 ranks: ``"primary"`` carries the native collective and ``"staged"`` the
 explicit point-to-point ring, the separate channel the reference models
-with ``ppermute`` (ROADMAP, route classes).  A mesh with a ``"node"`` axis
-(the two-tier cluster, ``(node, data, model)`` as the reference's
-``make_cluster_mesh`` orders it) also gets one primary group over this
-rank's (node, data) plane, :data:`PLANE`, for reductions over both axes
-at once (``all_reduce(x, PLANE)``, the reference's ``lax.psum`` over an
-axis tuple).
+with ``ppermute`` (ROADMAP, route classes).  The axes a mesh has among
+:data:`PLANE` (pod, node, data), outermost first, are its gradient plane
+(:attr:`Mesh.plane`): the two-tier cluster ``(node, data, model)``, the
+three-tier ``(pod, node, data, model)`` (the reference's
+``make_cluster_mesh`` with ``pods > 1``) and the legacy multi-pod
+``(pod, data, model)``.  When the plane has two axes or more the mesh also
+gets one primary group over this rank's plane, for reductions, gathers
+and all_to_alls over several axes at once (``all_reduce(x, ("node",
+"data"))``, the reference's ``lax.psum`` over an axis tuple); its ranks
+are in row-major plane order, so rank (pod, node, i) of a (p, n, m) plane
+is its ``(pod * n + node) * m + i``-th member.
 
 The wire follows the backend, chosen by the caller and never by catching
 an error:
@@ -46,9 +51,9 @@ import torch.distributed as dist
 
 #: axis names the reference's meshes use, outermost first
 AXES = ("pod", "node", "data", "model")
-_LATER = {"pod": "ROADMAP queue 1 item 14 (pod tier)"}
-#: the gradient plane of a cluster mesh: the axes a step's metrics sum over
-PLANE = ("node", "data")
+#: the axes a gradient plane may have, outermost first: what a step's
+#: gradients and metrics sum over
+PLANE = ("pod", "node", "data")
 CHANNELS = ("primary", "staged")
 
 
@@ -73,9 +78,6 @@ class Mesh:
         if len(shape) != len(axes) or len(set(axes)) != len(axes):
             raise ValueError(f"mesh shape {shape} and axes {axes} differ")
         for a in axes:
-            if a in _LATER:
-                raise NotImplementedError(f"mesh axis {a!r} is not ported: "
-                                          f"{_LATER[a]}")
             if a not in AXES:
                 raise ValueError(f"unknown mesh axis {a!r}; one of {AXES}")
         if not dist.is_initialized():
@@ -138,9 +140,11 @@ class Mesh:
                         self._groups[(a, ch)] = g
                 if me in members:
                     self._line[a] = members
-        if all(a in axes for a in PLANE):
-            # every (node, data) plane, in the same order on every rank
-            idx = [axes.index(a) for a in PLANE]
+        #: the mesh's gradient plane: its axes among PLANE, outermost first
+        self.plane = tuple(a for a in PLANE if a in axes)
+        if len(self.plane) > 1:
+            # every plane, in the same order on every rank
+            idx = [axes.index(a) for a in self.plane]
             rest = [i for i in range(len(axes)) if i not in idx]
             planes = np.transpose(grid, rest + idx).reshape(
                 -1, int(np.prod([shape[i] for i in idx])))
@@ -148,7 +152,7 @@ class Mesh:
                 members = tuple(int(r) for r in plane)
                 g = group(members)
                 if me in members:
-                    self._groups[(PLANE, "primary")] = g
+                    self._groups[(self.plane, "primary")] = g
 
     # -- axis introspection (compat/axes.py) ----------------------------------
 
@@ -167,7 +171,17 @@ class Mesh:
         line = self._line[axis]
         return line[index % len(line)]
 
-    def group(self, axis: str, channel: str = "primary"):
+    def group(self, axis, channel: str = "primary"):
+        """The process group of ``axis`` on ``channel``; a tuple of axes
+        takes the plane's primary group, so its axes wider than 1 must be
+        the plane's, in the plane's order."""
+        if isinstance(axis, tuple):
+            wide = tuple(a for a in axis if self.axis_size(a) > 1)
+            if wide != tuple(a for a in self.plane
+                             if self.axis_size(a) > 1):
+                raise ValueError(f"axes {axis}: a tuple spans the mesh's "
+                                 f"plane {self.plane}")
+            axis = self.plane
         return self._groups[(axis, channel)]
 
     # -- the wire -------------------------------------------------------------
@@ -184,7 +198,7 @@ class Mesh:
 
     def all_reduce(self, x: torch.Tensor, axis,
                    op: str = "sum") -> torch.Tensor:
-        """Sum (or max) over ``axis``, or over the :data:`PLANE` tuple:
+        """Sum (or max) over ``axis``, or over a tuple of plane axes:
         ``lax.psum`` / ``lax.pmax``."""
         if self.axis_size(axis) == 1:
             return x.clone()
@@ -199,8 +213,9 @@ class Mesh:
         under ``shard_map(check_vma=False)``)."""
         return _PSum.apply(x, self, axis)
 
-    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """[n, *x.shape], entry j from axis index j: ``lax.all_gather``."""
+    def all_gather(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """[n, *x.shape], entry j from axis index j (from the j-th rank of
+        the plane, for a tuple of plane axes): ``lax.all_gather``."""
         n = self.axis_size(axis)
         if n == 1:
             return x.clone()[None]
@@ -231,10 +246,10 @@ class Mesh:
             dist.reduce_scatter_tensor(out, h, group=self.group(axis))
         return self._wire_out(out, x)
 
-    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """Block j of the leading dim goes to axis index j; the result's
-        block j comes from index j: ``lax.all_to_all(..., 0, 0,
-        tiled=True)``."""
+    def all_to_all(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """Block j of the leading dim goes to axis index j (the j-th rank
+        of the plane, for a tuple of plane axes); the result's block j
+        comes from index j: ``lax.all_to_all(..., 0, 0, tiled=True)``."""
         n = self.axis_size(axis)
         if x.shape[0] % n:
             raise ValueError(f"all_to_all: leading dim {x.shape[0]} does "

@@ -18,17 +18,17 @@ which has no communicator, so they change nothing and print the
 reference's note; ``--tuning-cache`` also saves the (empty) profile when
 draining ends.  The communicator's default profile is ``h100`` (the
 reference's launcher uses ``tpu_v5e``).  As the reference's, ``--nodes N``
-> 1 builds ``cluster_for(profile, N)`` into the one-device ctx, which
-registers the NIC tier's profile and records the topology (printed, and in
-the ``--out`` record); the decode never crosses the NIC tier.
+> 1 builds ``cluster_for(profile, N, pods=P)`` (``--pods P``) into the
+one-device ctx, which registers the NIC tier's profile, and the pod tier's
+when P > 1, and records the topology (printed, and in the ``--out``
+record); the decode never crosses the NIC tier.
 ``--degrade`` degrades the NIC tier or the node profile of the run's
 fabric (``configs/clusters.resolve_faults``).  ``--fault`` takes link and
 member schedules over serve ticks: a FabricClock is attached to the ctx,
 the engine advances it once a tick, and the record carries its report
 (the one-device ctx has no communicator to re-key, as the reference's);
 node events need the training loop's elastic resume and exit with the
-reference's message.  ``--pods`` needs a tier not ported yet and exits 2
-naming the ROADMAP item: 14 (pod tier).
+reference's message.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ import torch
 
 from repro_torch.configs import ALIASES, get_config
 from repro_torch.core.communicator import CommConfig
-from repro_torch.launch.train import node_events, unported
+from repro_torch.launch.train import node_events
 from repro_torch.models.tp import ParallelCtx
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import (PagedServeConfig, PagedServeEngine,
@@ -136,14 +136,12 @@ def main(argv=None) -> int:
                          "single-device: the decode never crosses the NIC "
                          "tier")
     ap.add_argument("--pods", type=int, default=1,
-                    help="pod count: > 1 is not ported yet (item 14), "
-                         "exits 2")
+                    help="pod count for the registered topology: with "
+                         "--nodes > 1 the synthesized cluster grows the "
+                         "pod tier (DESIGN.md §15), so tuning-cache keys "
+                         "line up with three-tier launches")
     args = ap.parse_args(argv)
 
-    missing = unported(args)
-    if missing:
-        print(f"error: not ported yet: {missing}", file=sys.stderr)
-        return 2
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print(f"error: --device {args.device} but no CUDA card is present; "
@@ -158,11 +156,13 @@ def main(argv=None) -> int:
     from repro_torch.cluster.topology import cluster_for
     from repro_torch.configs.clusters import resolve_faults
     profile = "h100"
-    cluster = cluster_for(profile, args.nodes) if args.nodes > 1 else None
+    pods = max(args.pods, 1)
+    cluster = (cluster_for(profile, args.nodes, pods=pods)
+               if args.nodes > 1 else None)
     try:
         cluster, profile, timeline = resolve_faults(
             cluster, args.nodes, profile, degrade=args.degrade,
-            fault=args.fault)
+            fault=args.fault, pods=pods)
     except (KeyError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -190,8 +190,10 @@ def main(argv=None) -> int:
               "decode wave itself never crosses the NIC tier; see "
               "launch/shapes.py)")
     if cluster is not None:
+        pod = (f", {cluster.n_pods} pods, pod tier "
+               f"{cluster.pod_tier.name}" if cluster.pod_tier else "")
         print(f"cluster: {cluster.name}, {cluster.n_nodes} nodes of "
-              f"{cluster.node.name}, NIC tier {cluster.nic_tier.name} "
+              f"{cluster.node.name}, NIC tier {cluster.nic_tier.name}{pod} "
               f"(registered; the decode runs on one device)")
     gen = torch.Generator(device=device)
     gen.manual_seed(0)

@@ -2,21 +2,24 @@
 ParallelCtx (and therefore to the FlexLink RoutePlan engine).
 
 Port of ``src/repro/launch/steps.py`` for the train and prefill steps
-on a (data, model) mesh and a (node, data, model) cluster mesh.  The
+on a (data, model) mesh, the (node, data, model) and (pod, node, data,
+model) cluster meshes and the legacy (pod, data, model) mesh.  The
 reference wraps each step in ``shard_map`` and ``jax.jit``; here each
 rank runs the step eagerly on its own shard: the builder's callable takes
 the GLOBAL batch (numpy, as ``data.pipeline.make_batches`` yields it) and
 moves this rank's rows of it to the rank's device, split over data (over
-``node * dp + data`` on a cluster mesh) and the same on every rank of a
-model line, the ``in_specs=P("data", None)`` (``P(("node", "data"),
-None)``) of the reference.  A mesh with a node axis gets the cluster
-wiring: the train and prefill builders pass ``cluster=`` to the ctx.  The
-params and the optimizer state it takes are RANK-LOCAL: whole on a mesh
-without a model axis, this rank's ``param_specs`` shards on one with it
-(``convert.shard_params``; ``rank_specs`` / ``local_params``), the
-reference's in_specs: the expert dim of ep_a2a MoE experts shards over
-the ctx's ep span, the data axis (``ctx.ep_spec_axis()``), as the
-reference's ``param_specs(cfg, data_axis=...)``.  ``bucket_mb > 0``
+``(pod * nodes + node) * dp + data`` on a cluster mesh) and the same on
+every rank of a model line, the ``in_specs=P("data", None)``
+(``P(("pod", "node", "data"), None)``) of the reference.  A mesh with a
+node axis gets the cluster wiring: the train and prefill builders pass
+``cluster=`` to the ctx.  The params and the optimizer state it takes
+are RANK-LOCAL: whole on a mesh without a model axis, this rank's
+``param_specs`` shards on one with it (``convert.shard_params``;
+``rank_specs`` / ``local_params``), the reference's in_specs: the expert
+dim of ep_a2a MoE experts shards over the ctx's ep span
+(``ctx.ep_spec_axis()``: the data axis, or (pod, node, data) on a
+cluster mesh, cut at the rank's combined index), as the reference's
+``param_specs(cfg, data_axis=...)``.  ``bucket_mb > 0``
 builds the bucketed step (train/train_step.py): its buckets go out from
 the backward, and under a lossy wire codec its optimizer state is
 ``(AdamWState, residuals)``, the residuals param-shaped and sharded like
@@ -58,7 +61,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.convert import shard_params, spec_axes
+from repro_torch.convert import ep_sharded, shard_params
 from repro_torch.core.communicator import CommConfig
 from repro_torch.launch import shapes as SH
 from repro_torch.models.config import ArchConfig
@@ -73,22 +76,27 @@ from repro_torch.train.train_step import make_train_step
 def make_ctx(mesh, comm: Optional[CommConfig] = None,
              cluster=None) -> ParallelCtx:
     """The ctx of one rank's mesh (a ``launch.mesh.Mesh`` over the axes
-    ``("data", "model")`` or ``("node", "data", "model")``), or of one
+    ``("data", "model")``, ``("node", "data", "model")``, ``("pod",
+    "node", "data", "model")`` or ``("pod", "data", "model")``), or of one
     device when ``mesh`` is None.  A node axis wider than 1 gets the
-    cluster wiring (DESIGN.md §9); ``cluster`` names the ClusterTopology,
-    synthesized from the comm profile (``cluster_for``) when None."""
+    cluster wiring (DESIGN.md §9, §15); ``cluster`` names the
+    ClusterTopology, synthesized from the comm profile (``cluster_for``)
+    when None."""
     comm = comm or CommConfig()
     if mesh is None:
         return ParallelCtx(comm_config=comm, cluster=cluster)
 
     def size(a):
         return mesh.axis_size(a) if a in mesh.axes else 1
-    dp, tp, nodes = size("data"), size("model"), size("node")
+    dp, tp, nodes, pods = size("data"), size("model"), size("node"), \
+        size("pod")
     return ParallelCtx(tp_axis="model" if tp > 1 else None,
                        dp_axis="data" if dp > 1 else None,
                        node_axis="node" if nodes > 1 else None,
+                       pod_axis="pod" if pods > 1 else None,
                        tp_size=tp, dp_size=dp, node_size=nodes,
-                       comm_config=comm, cluster=cluster, mesh=mesh)
+                       pod_size=pods, comm_config=comm, cluster=cluster,
+                       mesh=mesh)
 
 
 def rank_specs(cfg: ArchConfig, ctx: ParallelCtx):
@@ -99,24 +107,24 @@ def rank_specs(cfg: ArchConfig, ctx: ParallelCtx):
 
 def local_params(params, specs, ctx: ParallelCtx):
     """This rank's shards of a GLOBAL tree by ``specs`` (the tree itself
-    when no axis of the ctx shards a leaf)."""
-    data = ctx.ep_size > 1 and "data" in spec_axes(specs)
-    if ctx.tp_size <= 1 and not data:
+    when no axis of the ctx shards a leaf): model-axis dims at the model
+    index, the expert dim at the combined ep index."""
+    ep = ep_sharded(specs, ctx)
+    if ctx.tp_size <= 1 and not ep:
         return params
     return shard_params(params, specs, ctx.tp_index(), ctx.tp_size,
-                        dp_index=ctx.dp_index() if data else 0,
-                        dp=ctx.dp_size if data else 1)
+                        ep_index=ctx.ep_index() if ep else 0,
+                        ep=ctx.ep_size if ep else 1)
 
 
 def local_batch(batch: Dict[str, np.ndarray], ctx: ParallelCtx,
                 device) -> Dict[str, torch.Tensor]:
     """This rank's rows of a global batch, as tensors on ``device``: shard
-    ``node * dp + data`` of ``dp * nodes`` (``shapes.batch_axes``'
-    outermost-major order)."""
-    dp = max(ctx.dp_size, 1)
-    shards = dp * max(ctx.node_size, 1)
-    i = ctx.node_index() * dp + (ctx.mesh.axis_index(ctx.dp_axis)
-                                 if dp > 1 else 0)
+    ``(pod * nodes + node) * dp + data`` of ``dp * nodes * pods``
+    (``shapes.batch_axes``' outermost-major order)."""
+    dp, nodes = max(ctx.dp_size, 1), max(ctx.node_size, 1)
+    shards = dp * nodes * max(ctx.pod_size, 1)
+    i = (ctx.pod_index() * nodes + ctx.node_index()) * dp + ctx.dp_index()
     out = {}
     for k, v in batch.items():
         if v.shape[0] % shards:

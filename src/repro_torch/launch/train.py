@@ -9,10 +9,16 @@ config (2 layers, d_model 256).  The mesh shape is (data, model), and
 prepends a node axis, as the reference's ``make_cluster_mesh``: the mesh is
 (node, data, model), N x dp x tp ranks, the global batch divides over
 dp x N, and the gradient sync is the hierarchical all-reduce over the
-cluster's tiers (``repro_torch.cluster``).  Every rank is a process
+cluster's tiers (``repro_torch.cluster``).  ``--pods P`` with ``--nodes``
+prepends a pod axis too, (pod, node, data, model): the three-tier cluster,
+whose pod tier crosses the spine as its own communicator and joins the
+gradient sync and the rail-local expert all_to_all; ``--pods`` without
+``--nodes`` exits 2 with the reference's message.  A 3-dim
+``--mesh-shape`` without ``--nodes`` is the legacy (pod, data, model)
+mesh, whose pod axis is a plain reduction.  Every rank is a process
 (``launch.mesh.run_ranks``) that builds the same global weights from seed
 0 and keeps its model-axis shards of them
-(``convert.shard_params``; ep_a2a experts over the data axis as well),
+(``convert.shard_params``; ep_a2a experts over the ep span as well),
 takes its rows of the global batch (the same
 rows on every rank of a model line), combines its tensor-parallel
 partial results through the model axis's FlexCommunicator and reduces
@@ -40,8 +46,8 @@ leave.  ``--bucket-mb`` > 0
 buckets the gradient sync and launches each bucket from the backward
 (train/bucketer.py); with a lossy ``--compress`` codec the AdamW state is
 paired with error-feedback residuals, this rank's shards of them on a
-model axis.  ``--pods`` needs a tier not ported yet: it exits 2 and names
-the ROADMAP item that lifts it (queue 1 item 14).
+model axis.  A node loss with ``--pods`` > 1 exits 2 before any rank is
+spawned: the reference's resume rebuilds the mesh without its pod axis.
 """
 
 from __future__ import annotations
@@ -66,28 +72,42 @@ from repro_torch.train.loop import LoopConfig, run_loop
 from repro_torch.train.train_step import ef_init_residuals
 
 
-def unported(args) -> str:
-    """The ROADMAP item a flag of this run needs, or "" (the serve
-    launcher's flags too)."""
-    if args.pods > 1:
-        return "--pods: ROADMAP queue 1 item 14 (pod tier)"
-    return ""
+#: the reference's refusal of --pods without a multi-node cluster
+NEEDS_NODES = ("--pods > 1 needs a multi-node cluster run (--nodes/"
+               "--cluster): the pod tier composes above the NIC tier")
+#: the refusal of a node loss on a pod mesh
+NODE_LOSS_ON_PODS = ("--fault node events with --pods > 1: elastic resume "
+                     "rebuilds a (node, data, model) mesh over the "
+                     "survivors, and the reference's drops the pod axis "
+                     "there, so the resumed run would not be the launched "
+                     "fabric")
 
 
 def resolve_fabric(args, profile: str = "h100"):
-    """``(cluster or None, node count, intra profile, timeline or None)``
-    of ``--cluster``, ``--nodes``, ``--degrade`` and ``--fault`` (the
-    reference's resolve_cluster then resolve_faults; a step-0 event always
-    folds statically, the later ones make the timeline)."""
+    """``(cluster or None, node count, pod count, intra profile, timeline
+    or None)`` of ``--cluster``, ``--nodes``, ``--pods``, ``--degrade`` and
+    ``--fault`` (the reference's resolve_cluster then resolve_faults; a
+    step-0 event always folds statically, the later ones make the
+    timeline; pods count for the spine targets)."""
     from repro_torch.configs.clusters import resolve_cluster, resolve_faults
-    cluster, nodes, _ = resolve_cluster(getattr(args, "cluster", ""),
-                                        args.nodes)
+    cluster, nodes, pods = resolve_cluster(getattr(args, "cluster", ""),
+                                           args.nodes, args.pods)
     if cluster is not None:
         profile = cluster.node.name
     cluster, profile, timeline = resolve_faults(cluster, nodes, profile,
                                                 degrade=args.degrade,
-                                                fault=args.fault)
-    return cluster, nodes, profile, timeline
+                                                fault=args.fault, pods=pods)
+    return cluster, nodes, pods, profile, timeline
+
+
+def mesh_axes(n_dims: int, nodes: int) -> tuple:
+    """The axes of a launch's mesh of ``n_dims`` dims: with nodes, (node,
+    data, model) or (pod, node, data, model), as the reference's
+    ``make_cluster_mesh``; without, (data, model) or the legacy (pod,
+    data, model)."""
+    if nodes > 1:
+        return ("pod", "node", "data", "model")[-n_dims:]
+    return ("data", "model") if n_dims == 2 else ("pod", "data", "model")
 
 
 def node_events(timeline) -> bool:
@@ -101,17 +121,19 @@ def train_rank(args: argparse.Namespace, dims, world: int) -> dict:
     """One rank's training run (or the only one, with ``world == 1``):
     weights from seed 0 (this rank's model-axis shards), the global
     synthetic batch stream, this rank's rows of it.  ``dims`` is (data,
-    model), or (node, data, model) on a cluster.  Rank 0 logs and saves
-    the tuning cache; the ranks of node 0 and data row 0 checkpoint
-    (model rank 0 writes), decided again after an elastic resume.  With
-    ``--fault`` the result carries the clock's report, and on the ranks
-    of a lost node ``dropped_at``."""
+    model), (node, data, model) or (pod, node, data, model) on a cluster,
+    or the legacy (pod, data, model) (``mesh_axes``).  Rank 0 logs and
+    saves the tuning cache; the ranks of pod 0, node 0 and data row 0
+    checkpoint (model rank 0 writes), decided again after an elastic
+    resume.  The result carries each communicator's tier by axis; with
+    ``--fault`` the clock's report, and on the ranks of a lost node
+    ``dropped_at``."""
     from repro_torch.launch.mesh import Mesh
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    cluster, _, profile, timeline = resolve_fabric(args)
-    axes = ("node", "data", "model")[-len(dims):]
+    cluster, nodes, _, profile, timeline = resolve_fabric(args)
+    axes = mesh_axes(len(dims), nodes)
     mesh = Mesh(dims, axes, device=args.device) if world > 1 else None
     rank = mesh.rank if mesh is not None else 0
     device = mesh.device if mesh is not None else torch.device(args.device)
@@ -167,8 +189,11 @@ def train_rank(args: argparse.Namespace, dims, world: int) -> dict:
     final = clock.ctx if clock is not None else ctx
     report = dict(loop.report or {})
     dropped = report.pop("dropped_at", None)
+    comm_report = final.comm_report()
     return {"history": hist, "report": report,
-            "cluster": final.comm_report().get("cluster"),
+            "cluster": comm_report.get("cluster"),
+            "tiers": {c.axis_name: comm_report[c.axis_name]["tier"]
+                      for c in final.comms()},
             "faults": clock.report() if clock is not None else None,
             "dropped_at": dropped}
 
@@ -200,8 +225,9 @@ def main(argv=None) -> int:
                          "(default: synthesized from the comm profile); "
                          "implies its node count")
     ap.add_argument("--pods", type=int, default=0,
-                    help="pod count: > 1 is not ported yet (ROADMAP queue "
-                         "1 item 14), exits 2")
+                    help="pod count of a multi-node run: prepends a pod "
+                         "axis; the pod tier crosses the spine as its own "
+                         "communicator (DESIGN.md §15)")
     ap.add_argument("--degrade", default="",
                     help="launch-time fault injection name[:member]=factor "
                          "(e.g. rail3=0.25, nvlink=0.5): the NIC tier or "
@@ -247,31 +273,32 @@ def main(argv=None) -> int:
                          "pays.  Default: off")
     args = ap.parse_args(argv)
 
-    missing = unported(args)
-    if missing:
-        print(f"error: not ported yet: {missing}", file=sys.stderr)
-        return 2
     dims = tuple(int(x) for x in args.mesh_shape.split(",")) \
         if args.mesh_shape else (1, 1)
-    if len(dims) != 2:
-        print("error: --mesh-shape takes (data, model)", file=sys.stderr)
-        return 2
     try:
-        _, nodes, _, timeline = resolve_fabric(args)
+        _, nodes, pods, _, timeline = resolve_fabric(args)
     except (KeyError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
+        return 2
+    if pods > 1 and nodes <= 1:
+        print(f"error: {NEEDS_NODES}", file=sys.stderr)
         return 2
     if node_events(timeline) and not args.ckpt_dir:
         print(f"error: {NEEDS_CKPT}", file=sys.stderr)
         return 2
+    if node_events(timeline) and pods > 1:
+        print(f"error: {NODE_LOSS_ON_PODS}", file=sys.stderr)
+        return 2
     if nodes > 1:
-        if get_config(args.arch).moe is not None and \
-                get_config(args.arch).moe.impl == "ep_a2a":
-            print("error: not ported yet: ep_a2a on a node mesh: ROADMAP "
-                  "queue 1 item 14 (rail-local ep_all_to_all)",
-                  file=sys.stderr)
+        if len(dims) != 2:
+            print("error: --nodes combines with a 2-dim (data, model) "
+                  "--mesh-shape only", file=sys.stderr)
             return 2
-        dims = (nodes,) + dims
+        dims = ((pods,) if pods > 1 else ()) + (nodes,) + dims
+    elif len(dims) not in (2, 3):
+        print("error: --mesh-shape takes (data, model) or (pod, data, "
+              "model)", file=sys.stderr)
+        return 2
     world = int(np.prod(dims))
     shards = int(np.prod(dims[:-1]))
     if args.batch % shards:
@@ -303,11 +330,11 @@ def main(argv=None) -> int:
         results = run_ranks(this.train_rank, world, backend=args.dist,
                             device=device, timeout_s=3600,
                             args=(args, dims, world))
-        # rank = (node * dp + data) * tp + model.  A MoE loss carries the
-        # router's aux loss, which each model rank computes from its own
-        # copies of the replicated leaves; those drift apart as the
-        # reference's do under check_vma=False, so only the ranks of one
-        # model index agree
+        # rank = ((pod * nodes + node) * dp + data) * tp + model.  A MoE
+        # loss carries the router's aux loss, which each model rank
+        # computes from its own copies of the replicated leaves; those
+        # drift apart as the reference's do under check_vma=False, so only
+        # the ranks of one model index agree
         # ranks of a lost node stopped at dropped_at: their losses are
         # the survivors' first dropped_at
         tp = dims[-1]
@@ -329,7 +356,7 @@ def main(argv=None) -> int:
     if args.out:
         rep = {"final_loss": hist[-1], "losses": hist, "steps": args.steps,
                "device": args.device, "dist": args.dist, "ranks": world,
-               **(res["report"] or {})}
+               "tiers": res["tiers"], **(res["report"] or {})}
         if res.get("cluster") is not None:
             rep["cluster"] = res["cluster"]
         if res.get("faults") is not None:

@@ -1,17 +1,20 @@
 """Mixture-of-Experts blocks.
 
-Port of ``src/repro/models/moe.py``, single-node form.  Two sharding
-schemes, selected per arch (``MoEConfig.impl``):
+Port of ``src/repro/models/moe.py``.  Two sharding schemes, selected per
+arch (``MoEConfig.impl``):
 
   ep_a2a : experts sharded over the expert-parallel span (the data axis,
-           ``ctx.ep_axes``) with all_to_all dispatch and return, plus
+           plus the node and pod axes on a cluster mesh: ``ctx.ep_axes``,
+           DESIGN.md §15) with all_to_all dispatch and return, plus
            tensor parallelism inside each expert over the model axis
            (col/row split of the expert FFN, combined by a FlexLink
-           all-reduce).  Kimi-K2.  The all_to_all is the data axis's flex
-           all_to_all (``ctx.ep_all_to_all``), differentiable through
-           ``routing.execute``: MoE dispatch is the traffic the paper
-           targets.  The rail-local cluster decomposition is ROADMAP
-           queue 1 item 14.
+           all-reduce).  Kimi-K2.  The all_to_all is a flex all_to_all
+           (``ctx.ep_all_to_all``), differentiable through
+           ``routing.execute``: MoE dispatch is exactly the traffic the
+           paper targets.  On a single-node mesh it is the data axis's;
+           on a cluster mesh the RAIL-LOCAL decomposition (intra shuffle,
+           rail-aligned NIC leg, spine leg), bit for bit the flat
+           all_to_all over the span.
   tp     : experts replicated, every expert's FFN hidden dim sharded over
            the model axis; tokens never leave their rank and the
            row-parallel combine is a FlexLink all-reduce.  Mixtral.
@@ -145,7 +148,9 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype, device,
 
 def moe_specs(cfg: ArchConfig, data_axis, model_axis: str):
     """The mesh axis of each dim of every leaf of ``init_moe``:
-    ``data_axis`` is the expert-dim entry of ep_a2a experts."""
+    ``data_axis`` is the expert-dim entry of ep_a2a experts, a bare axis
+    name or the outermost-major ep axis tuple of a cluster mesh
+    (``ctx.ep_spec_axis()``)."""
     e_axis = data_axis if cfg.moe.impl == "ep_a2a" else None
     return {
         "w_router": (None, None),
@@ -170,16 +175,13 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig,
     slots, keep = dispatch_indices(experts.reshape(-1), moe.n_experts, cap)
     buf = gather_to_buffers(xk, slots, keep, moe.n_experts, cap)
 
-    if moe.impl == "ep_a2a" and ctx.node_size > 1:
-        raise NotImplementedError(
-            "ep_a2a dispatch on a node mesh (the rail-local all_to_all "
-            "across cluster tiers) is not ported yet: ROADMAP queue 1 "
-            "item 14")
     if moe.impl == "ep_a2a" and ctx.ep_size > 1:
         ep = ctx.ep_size
         n_local = moe.n_experts // ep
         # [E*cap, D] -> a2a over the ep span: each rank keeps its expert
-        # slice of every peer's buffer -> [ep * n_local * cap, D]
+        # slice of every peer's buffer -> [ep * n_local * cap, D]; on a
+        # cluster mesh the rail-local decomposition, bit for bit the flat
+        # all_to_all over the span
         sent = ctx.ep_all_to_all(buf, split_axis=0, concat_axis=0)
         inb = sent.reshape(ep, n_local, cap, d)
         inb = inb.transpose(0, 1).reshape(n_local, ep * cap, d)

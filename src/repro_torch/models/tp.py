@@ -1,7 +1,8 @@
 """Parallelism context — how model code reaches the communication backend.
 
-Port of ``src/repro/models/tp.py`` for one device, a (data, model) mesh
-and a (node, data, model) cluster mesh.  Model layers call collectives
+Port of ``src/repro/models/tp.py`` for one device, a (data, model) mesh,
+the (node, data, model) and (pod, node, data, model) cluster meshes and
+the legacy multi-pod (pod, data, model) mesh.  Model layers call collectives
 only through a ``ParallelCtx``.  On one device every collective is the
 identity and there are no communicators: constant signature, no Stage-2
 feedback, empty reports.
@@ -40,16 +41,21 @@ all_to_all, differentiable through ``routing.execute``, and
 ``expert_grad_reduce`` is the identity, as the reference's ``pod_psum``
 without a pod axis.
 
-A node axis wider than 1 is the two-tier cluster (DESIGN.md §9): the ctx
-takes (or synthesizes with ``cluster_for``) the :class:`ClusterTopology`,
-builds the node axis's communicator on the NIC tier's profile with the
-data axis (else the model axis) as its ortho axis, and composes it with
-the data axis's into a :class:`~repro_torch.cluster.communicator.
-ClusterCommunicator`: ``grad_all_reduce`` is then the hierarchical
-all-reduce, the ep span is (node, data), ``metrics_reduce`` sums over the
-mesh's (node, data) plane group, and ``comm_report`` adds the cluster's
-block.  The ep_a2a dispatch across tiers and a pod axis still raise,
-naming ROADMAP queue 1 item 14.
+A node axis wider than 1 is the cluster (DESIGN.md §9, §15): the ctx
+takes (or synthesizes with ``cluster_for``, with as many pods as the pod
+axis spans) the :class:`ClusterTopology`, builds the node axis's
+communicator on the NIC tier's profile with the data axis (else the
+model axis) as its ortho axis and, when the cluster has the pod axis's
+pods, the pod axis's communicator on the pod tier's spine profile with
+the node axis as its ortho axis, and composes them with the data axis's
+into a :class:`~repro_torch.cluster.communicator.ClusterCommunicator`:
+``grad_all_reduce`` is then the hierarchical all-reduce over every tier,
+the ep span is (pod, node, data) and ``ep_all_to_all`` the rail-local
+decomposition, ``metrics_reduce`` sums over the mesh's gradient plane
+group, and ``comm_report`` adds the cluster's block.  On the legacy
+(pod, data, model) mesh, and on a cluster without a pod tier, the pod
+axis has no communicator: gradients and expert gradients take a plain
+``pod_psum`` after the flex reduce, as the reference's.
 """
 
 from __future__ import annotations
@@ -64,9 +70,6 @@ from torch.utils import _pytree as pytree
 from repro_torch.core.communicator import (CommConfig, FlexCommunicator,
                                            comm_init_rank)
 
-_LATER = (("pod_size", "a pod axis is not ported yet (ROADMAP queue 1 "
-           "item 14)"),)
-
 
 @dataclasses.dataclass
 class ParallelCtx:
@@ -77,6 +80,10 @@ class ParallelCtx:
     dp_axis : data-parallel axis ("data"), likewise
     node_axis : inter-node axis ("node"), crossing the cluster's NIC tier;
               gradient reduction becomes the hierarchical all-reduce
+    pod_axis : pod axis ("pod"): on a cluster mesh with a pod tier it
+              crosses the spine as its own communicator and joins the
+              compositions and the ep span; on the legacy pod-only mesh
+              it stays a plain psum (gradient reduction only)
     cluster : the ClusterTopology behind the node axis; synthesized from
               the comm profile (``cluster_for``) when left None
     mesh    : this rank's Mesh (launch/mesh.py); None on one device
@@ -100,6 +107,7 @@ class ParallelCtx:
     _tp_comm: Optional[FlexCommunicator] = None
     _dp_comm: Optional[FlexCommunicator] = None
     _node_comm: Optional[FlexCommunicator] = None
+    _pod_comm: Optional[FlexCommunicator] = None
     _cluster_comm: Optional[object] = None  # ClusterCommunicator
     #: the stream issue scopes run on (a CUDA ctx with live
     #: communicators; made by the first scope)
@@ -107,15 +115,14 @@ class ParallelCtx:
         default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
-        for field, msg in _LATER:
-            if getattr(self, field) > 1:
-                raise NotImplementedError(f"ParallelCtx: {msg}")
         tp = bool(self.tp_axis) and self.tp_size > 1
         dp = bool(self.dp_axis) and self.dp_size > 1
         node = bool(self.node_axis) and self.node_size > 1
+        pod = bool(self.pod_axis) and self.pod_size > 1
+        want_pods = self.pod_size if pod else 1
         if node:
-            self._check_cluster()
-        if (tp or dp or node) and self.mesh is None:
+            self._check_cluster(want_pods)
+        if (tp or dp or node or pod) and self.mesh is None:
             raise ValueError("ParallelCtx: an axis wider than 1 needs the "
                              "rank's mesh")
         if tp:
@@ -127,15 +134,15 @@ class ParallelCtx:
                 self.dp_axis, self.dp_size, self.comm_config,
                 ortho_name=self.tp_axis if tp else None, mesh=self.mesh)
         if node:
-            self._init_cluster(dp, tp)
+            self._init_cluster(dp, tp, want_pods)
 
-    def _check_cluster(self) -> None:
+    def _check_cluster(self, want_pods: int) -> None:
         """Synthesize the node axis's cluster when none is given, and
         refuse one that does not fit the mesh or the comm profile."""
         from repro_torch.cluster.topology import cluster_for
         if self.cluster is None:
             self.cluster = cluster_for(self.comm_config.profile,
-                                       self.node_size)
+                                       self.node_size, pods=want_pods)
         if self.cluster.n_nodes != self.node_size:
             raise ValueError(
                 f"cluster {self.cluster.name!r} has "
@@ -148,12 +155,16 @@ class ParallelCtx:
                 f"profile is {self.comm_config.profile!r} — reports, "
                 f"timing constants and warm-start keys would describe "
                 f"a fabric that never ran")
-        if self.cluster.n_pods > 1:
-            raise NotImplementedError(f"ParallelCtx: {_LATER[0][1]}")
+        if self.cluster.n_pods > 1 and self.cluster.n_pods != want_pods:
+            raise ValueError(
+                f"cluster {self.cluster.name!r} has "
+                f"{self.cluster.n_pods} pods but the mesh's pod axis "
+                f"spans {want_pods}")
 
-    def _init_cluster(self, dp: bool, tp: bool) -> None:
-        """The node tier's communicator and the cluster's composition
-        (reference tp.py:113-140, without the pod tier)."""
+    def _init_cluster(self, dp: bool, tp: bool, want_pods: int) -> None:
+        """The node tier's communicator, the pod tier's when the cluster
+        has the pod axis's pods, and the cluster's composition (reference
+        tp.py:113-148)."""
         from repro_torch.cluster.communicator import ClusterCommunicator
         # the NIC tier is its own communicator: same CommConfig knobs, the
         # tier profile's link pool, so its SlotControllers balance the
@@ -164,16 +175,26 @@ class ParallelCtx:
         self._node_comm = comm_init_rank(
             self.node_axis, self.node_size, inter_cfg, ortho_name=ortho,
             mesh=self.mesh)
+        if want_pods > 1 and self.cluster.n_pods == want_pods:
+            # the spine tier is its own communicator too: same knobs, the
+            # pod tier profile's link pool, so it tunes, drains,
+            # compresses and re-keys like the tiers below it
+            pod_cfg = dataclasses.replace(
+                self.comm_config, profile=self.cluster.pod_tier.name)
+            self._pod_comm = comm_init_rank(
+                self.pod_axis, self.pod_size, pod_cfg,
+                ortho_name=self.node_axis, mesh=self.mesh)
         self._cluster_comm = ClusterCommunicator(
-            self.cluster, self._dp_comm, self._node_comm)
+            self.cluster, self._dp_comm, self._node_comm, self._pod_comm)
 
     # -- plan-engine plumbing -------------------------------------------------
 
     def comms(self) -> Tuple[FlexCommunicator, ...]:
         """The live communicators behind this ctx (tp, dp, then the
-        cluster's NIC tier)."""
+        cluster's NIC tier, then its pod tier)."""
         return tuple(c for c in (self._tp_comm, self._dp_comm,
-                                 self._node_comm) if c is not None)
+                                 self._node_comm, self._pod_comm)
+                     if c is not None)
 
     @contextlib.contextmanager
     def unrecorded(self):
@@ -403,19 +424,26 @@ class ParallelCtx:
     # -- data-parallel collectives --------------------------------------------
 
     def grad_all_reduce(self, grads):
-        """Sum every tensor of the ``grads`` tree over the data axis through
-        the FlexLink communicator (the identity on one device); with a
-        node axis this is the cluster's hierarchical all-reduce (one
-        RoutePlan a leg); a data axis without a communicator takes the
-        mesh's plain all-reduce."""
-        if self._cluster_comm is not None:
-            return pytree.tree_map(self._cluster_comm.all_reduce, grads)
-        if self._dp_comm is not None:
-            return pytree.tree_map(self._dp_comm.all_reduce, grads)
-        if self.dp_axis and self.dp_size > 1:
-            return pytree.tree_map(
-                lambda g: self.mesh.all_reduce(g, self.dp_axis), grads)
-        return grads
+        """Sum every tensor of the ``grads`` tree over the data, node and
+        pod axes (the identity on one device): with a node axis the
+        cluster's hierarchical all-reduce (one RoutePlan a leg, the pod
+        tier's too when it has a communicator), else the data axis's flex
+        all-reduce (a data axis without a communicator takes the mesh's
+        plain all-reduce); a pod axis without a communicator (the legacy
+        pod-only mesh) then takes a plain ``pod_psum``."""
+        if self.mesh is None:
+            return grads
+
+        def red(g):
+            if self._cluster_comm is not None:
+                g = self._cluster_comm.all_reduce(g)
+                return g if self._pod_comm is not None else self.pod_psum(g)
+            if self._dp_comm is not None:
+                g = self._dp_comm.all_reduce(g)
+            elif self.dp_axis and self.dp_size > 1:
+                g = self.mesh.all_reduce(g, self.dp_axis)
+            return self.pod_psum(g)
+        return pytree.tree_map(red, grads)
 
     def dp_all_to_all(self, x: torch.Tensor, split_axis: int,
                       concat_axis: int) -> torch.Tensor:
@@ -464,13 +492,33 @@ class ParallelCtx:
             return 0
         return self.mesh.axis_index(self.node_axis)
 
+    # -- pod-axis collectives --------------------------------------------------
+
+    def pod_psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Plain pod-axis reduction on the mesh's primary group: the
+        legacy pod-only mesh's, where the pod tier has no link pool; on a
+        three-tier cluster the pod axis rides its own communicator."""
+        if self.pod_axis is None or self.pod_size <= 1:
+            return x
+        return self.mesh.psum(x, self.pod_axis)
+
+    def pod_index(self) -> int:
+        """This rank's coordinate on the pod axis."""
+        if self.pod_axis is None or self.pod_size <= 1:
+            return 0
+        return self.mesh.axis_index(self.pod_axis)
+
     # -- expert-parallel span (MoE ep_a2a dispatch, DESIGN.md §15) ------------
 
     @property
     def ep_axes(self) -> Tuple[str, ...]:
         """Mesh axes the expert dimension shards over, outermost first:
-        (node, data) on a cluster mesh, the tiers the cluster composes."""
+        (pod, node, data) on a cluster mesh, the tiers the cluster
+        composes, so ``ep_all_to_all`` and the expert specs agree on the
+        combined rank order."""
         axes = []
+        if self._pod_comm is not None:
+            axes.append(self.pod_axis)
         if self._node_comm is not None:
             axes.append(self.node_axis)
         if self.dp_axis and self.dp_size > 1:
@@ -480,11 +528,20 @@ class ParallelCtx:
     @property
     def ep_size(self) -> int:
         """Expert-parallel ways: the product of the ep axes' sizes."""
-        sizes = {self.node_axis: self.node_size, self.dp_axis: self.dp_size}
+        sizes = {self.pod_axis: self.pod_size, self.node_axis:
+                 self.node_size, self.dp_axis: self.dp_size}
         s = 1
         for a in self.ep_axes:
             s *= sizes[a]
         return s
+
+    def ep_index(self) -> int:
+        """This rank's combined index on the ep span, outermost-major:
+        ``(pod * n + node) * dp + data`` on a three-tier mesh."""
+        g = 0
+        for a in self.ep_axes:
+            g = g * self.mesh.axis_size(a) + self.mesh.axis_index(a)
+        return g
 
     def ep_spec_axis(self):
         """The expert-dim entry of ``param_specs``: None, an axis name, or
@@ -497,9 +554,9 @@ class ParallelCtx:
     def ep_all_to_all(self, x: torch.Tensor, split_axis: int,
                       concat_axis: int) -> torch.Tensor:
         """Expert-dispatch all_to_all over the ep span: the flat data-axis
-        flex all_to_all (the reference's single-node form); on a cluster
-        the cluster's (whose decomposition across tiers raises, item
-        14)."""
+        flex all_to_all on a single-node mesh; on a cluster mesh the
+        rail-local decomposition of ``ClusterCommunicator.ep_all_to_all``
+        (intra shuffle, rail-aligned NIC leg, spine leg)."""
         if self._cluster_comm is not None:
             return self._cluster_comm.ep_all_to_all(x, split_axis,
                                                     concat_axis)
@@ -508,22 +565,25 @@ class ParallelCtx:
     def expert_grad_reduce(self, g: torch.Tensor) -> torch.Tensor:
         """Reduce one ep_a2a expert grad over the gradient axes outside
         the expert-parallel span: the backward all_to_all already summed
-        it over every ep tier (data, and node on a cluster), and without a
-        pod tier no gradient axis is left (the reference's ``pod_psum``
-        without a pod axis)."""
+        it over every ep tier (data, plus node and pod when their
+        communicators are live), so only a pod axis without a
+        communicator is left, a plain ``pod_psum``."""
+        if self._pod_comm is None:
+            return self.pod_psum(g)
         return g
 
     def metrics_reduce(self, sums: Dict[str, torch.Tensor],
                        means: Optional[Dict[str, torch.Tensor]] = None
                        ) -> Dict[str, torch.Tensor]:
         """ONE small all-reduce of every step metric stacked in a float32
-        vector over the gradient axes wider than 1 (data, node; both at
-        once on the mesh's (node, data) plane group): ``sums`` come back
+        vector over the gradient axes wider than 1 (pod, node, data; all
+        at once on the mesh's gradient plane group): ``sums`` come back
         summed over the ranks (the loss, pre-scaled per rank), ``means``
         divided by the rank count (values replicated after the gradient
         sync).  Without such an axis the inputs pass through."""
         means = means or {}
-        present = tuple(a for a, n in ((self.node_axis, self.node_size),
+        present = tuple(a for a, n in ((self.pod_axis, self.pod_size),
+                                       (self.node_axis, self.node_size),
                                        (self.dp_axis, self.dp_size))
                         if a and n > 1)
         if not present:

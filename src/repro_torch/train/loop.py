@@ -24,7 +24,7 @@ from typing import Callable, Dict, Iterator, Optional, Union
 import numpy as np
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.convert import spec_axes
+from repro_torch.convert import ep_sharded, respec_ep
 from repro_torch.core.communicator import comm_release
 from repro_torch.faults.elastic import NodeLeft
 from repro_torch.models.tp import ParallelCtx
@@ -61,13 +61,13 @@ class LoopConfig:
 
 def saves_checkpoints(ctx: ParallelCtx, specs) -> bool:
     """Whether this rank takes part in the Checkpointer's saves: the ranks
-    of node 0 and data row 0 (model rank 0 of them writes), or every rank
-    when the data axis shards leaves (ep_a2a experts), whose save gathers
-    over it."""
+    of pod 0, node 0 and data row 0 (model rank 0 of them writes), or
+    every rank when the ep span shards leaves (ep_a2a experts), whose save
+    gathers over it."""
     return (ctx.mesh is None
-            or (ctx.node_index() == 0 and ctx.dp_index() == 0)
-            or (ctx.ep_size > 1 and specs is not None
-                and "data" in spec_axes(specs)))
+            or (ctx.pod_index() == 0 and ctx.node_index() == 0
+                and ctx.dp_index() == 0)
+            or (specs is not None and ep_sharded(specs, ctx)))
 
 
 def _checkpointer(loop: LoopConfig, ctx: ParallelCtx
@@ -115,9 +115,11 @@ def run_loop(step: Union[StepProgram, Callable[[], Callable]],
                     (program, ctx, params, opt_state, batches, i) = swap
                     owned = True
                     loop.faults.attach(ctx)
-                    # who saves is decided again on the rebuilt mesh (the
-                    # specs stay: ep_a2a, whose span moves with the mesh,
-                    # takes no node axis)
+                    # who saves is decided again on the rebuilt mesh, and
+                    # ep_a2a experts shard over its ep span
+                    if loop.param_specs is not None:
+                        loop.param_specs = respec_ep(
+                            loop.param_specs, ctx.ep_spec_axis() or "data")
                     ckpt = _checkpointer(loop, ctx)
                     continue
             batch = next(batches)

@@ -1394,3 +1394,205 @@ def elastic(case):
             "params": leaf_digests(params)}
     comm_destroy_all()
     return out
+
+
+#: the three-tier cluster's mesh axes, outermost first
+POD_AXES = ("pod", "node", "data")
+
+
+def _comm3(layout, cache, mesh, tag):
+    """tests/test_pod.py's ``_comm3`` on this rank's (pod, node, data)
+    mesh: one ClusterCommunicator over the h800 cluster of p pods of n
+    nodes, tiers of size 1 absent, each warm-started from ``cache``."""
+    from repro_torch.cluster.communicator import ClusterCommunicator
+    from repro_torch.cluster.topology import make_cluster
+    from repro_torch.core.communicator import CommConfig, FlexCommunicator
+    p, n, m = layout
+    topo = make_cluster("h800", n, nics_per_node=4, nic_gbit=400.0,
+                        pods=p, pod_uplinks=4, pod_gbit=400.0)
+    intra = (FlexCommunicator("data", m, CommConfig(
+        profile="h800", tuning_cache=cache, tag=f"{tag}-intra"),
+        mesh=mesh) if m > 1 else None)
+    inter = (FlexCommunicator("node", n, CommConfig(
+        profile=topo.nic_tier.name, tuning_cache=cache, tag=f"{tag}-inter"),
+        ortho_name="data" if m > 1 else None, mesh=mesh) if n > 1 else None)
+    pod = (FlexCommunicator("pod", p, CommConfig(
+        profile=topo.pod_tier.name, tuning_cache=cache, tag=f"{tag}-pod"),
+        ortho_name="node" if n > 1 else None, mesh=mesh) if p > 1 else None)
+    return ClusterCommunicator(topo, intra, inter, pod)
+
+
+def pod(case):
+    """tests/test_torch_pod.py on this rank (8 ranks), each input this
+    rank's row block of a global payload (a shard_map in_spec over every
+    mesh axis):
+
+    * ``coll``: the three-tier all-reduce, all-gather and reduce-scatter
+      of a ClusterCommunicator on each (pod, node, data) layout, the
+      tiers' plan signatures, and the rail-local ``ep_all_to_all`` where
+      the case asks, beside the flat all_to_all over the mesh's plane
+      group, with its a2a report and summary;
+    * ``a2a2``: the two-tier (node=2, data=4) ``ep_all_to_all`` and the
+      flat one;
+    * ``parity``: the pods=1 cluster against the two-tier one on (node=2,
+      data=4): outputs and plan signatures;
+    * ``ctx``: the ctx on (pod=2, node=2, data=2, model=1): its pod
+      communicator, ep span, comms order, gradient reduce, plan signature
+      and comm report; the fused metrics reduce over the plane;
+    * ``train``: reduced runs from the reference's initial params through
+      build_train_program on (pod=2, node=2, data=2, model=1): per-step
+      losses, the ctx's ep span and this rank's initial expert shards;
+    * ``legacy``, last: on ranks 0-3 only, the ctx on the legacy (pod=2,
+      data=2, model=1) mesh (built over those ranks alone): its gradient
+      and expert reduces (the data tier's, then a plain pod psum)."""
+    import json
+    import torch.distributed as dist
+    from repro_torch.cluster.communicator import ClusterCommunicator
+    from repro_torch.cluster.topology import make_cluster
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_reference
+    from repro_torch.core.communicator import (CommConfig, FlexCommunicator,
+                                               comm_destroy_all)
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.launch.steps import (build_train_program, local_params,
+                                          rank_specs)
+    from repro_torch.models.tp import ParallelCtx
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    world, rank = dist.get_world_size(), dist.get_rank()
+    cache = case["cache"]
+    meshes = {}
+
+    def mesh_of(shape, axes, ranks=None):
+        key = (tuple(shape), tuple(axes))
+        if key not in meshes:
+            meshes[key] = Mesh(shape, axes, device="cpu", ranks=ranks)
+        return meshes[key]
+
+    def rows(x, n=world, i=rank):
+        return torch.from_numpy(np.ascontiguousarray(np.split(x, n)[i]))
+
+    def sig(comm):
+        return tuple((a, plain_signature(s)) for a, s in
+                     comm.plan_signature())
+
+    out = {"coll": {}, "parity": {}}
+    for name, c in case["coll"].items():
+        comm_destroy_all()
+        mesh = mesh_of(c["layout"], POD_AXES)
+        cc = _comm3(c["layout"], cache, mesh, name)
+        dt = getattr(torch, c["dtype"])
+        got = {op: as_bits(_cluster_op(cc, op, rows(
+            c["x_ar" if op == "all_reduce" else "x"]).to(dt)))
+            for op in ("all_reduce", "all_gather", "reduce_scatter")}
+        if "x_a2a" in c:
+            x = rows(c["x_a2a"]).to(dt)
+            got["a2a"] = as_bits(cc.ep_all_to_all(x, 0, 0))
+            got["a2a_flat"] = as_bits(mesh.all_to_all(x, POD_AXES))
+            got["a2a_report"] = cc.a2a_report()
+            got["summary"] = json.dumps(cc.summary(), sort_keys=True,
+                                        default=str)
+        got["signature"] = sig(cc)
+        out["coll"][name] = got
+
+    comm_destroy_all()
+    c = case["a2a2"]
+    mesh = mesh_of((2, 4), ("node", "data"))
+    topo = make_cluster("h800", 2)
+    cc = ClusterCommunicator(topo, FlexCommunicator("data", 4, CommConfig(
+        profile="h800", tag="a2a2-intra"), mesh=mesh), FlexCommunicator(
+        "node", 2, CommConfig(profile=topo.nic_tier.name, tag="a2a2-inter"),
+        ortho_name="data", mesh=mesh))
+    x = rows(c["x"])
+    out["a2a2"] = {"a2a": as_bits(cc.ep_all_to_all(x, 0, 0)),
+                   "flat": as_bits(mesh.all_to_all(x, ("node", "data")))}
+
+    for name, c in case["parity"].items():
+        comm_destroy_all()
+        mesh = mesh_of((2, 4), ("node", "data"))
+
+        def two_tier(tag, topo, mesh=mesh):
+            return ClusterCommunicator(topo, FlexCommunicator(
+                "data", 4, CommConfig(profile="h800", tag=f"{tag}-intra"),
+                mesh=mesh), FlexCommunicator(
+                "node", 2, CommConfig(profile=topo.nic_tier.name,
+                                      tag=f"{tag}-inter"),
+                ortho_name="data", mesh=mesh))
+        ccs = (two_tier("par-a", make_cluster("h800", 2)),
+               two_tier("par-b", make_cluster("h800", 2, pods=1)))
+        x = rows(c["x"])
+        out["parity"][name] = {
+            "pod": ccs[1].pod is None and ccs[1].comms() == (ccs[1].intra,
+                                                              ccs[1].inter),
+            "out": [{op: as_bits(_cluster_op(cc, op, x))
+                     for op in ("all_reduce", "all_gather",
+                                "reduce_scatter")} for cc in ccs],
+            "signature": [sig(cc) for cc in ccs]}
+
+    comm_destroy_all()
+    c = case["ctx"]
+    mesh = mesh_of((2, 2, 2, 1), POD_AXES + ("model",))
+    ctx = ParallelCtx(tp_axis="model", dp_axis="data", node_axis="node",
+                      pod_axis="pod", tp_size=1, dp_size=2, node_size=2,
+                      pod_size=2, mesh=mesh,
+                      comm_config=CommConfig(profile="h800", tag="ctx-pod"))
+    y = ctx.grad_all_reduce({"w": rows(c["x"])})["w"]
+    rep = ctx.comm_report()
+    fused = ctx.metrics_reduce({"loss": rows(c["x"]).sum()},
+                               {"lr": torch.tensor(0.5)})
+    out["ctx"] = {
+        "pod_comm": ctx._pod_comm is not None, "n_pods": ctx.cluster.n_pods,
+        "ep": (ctx.ep_axes, ctx.ep_size, ctx.ep_spec_axis(),
+               ctx.ep_index()),
+        "axes": [cm.axis_name for cm in ctx.comms()], "y": as_bits(y),
+        "signature": sig(ctx),
+        "tiers": {a: rep[a]["tier"] for a in rep if a != "cluster"},
+        "cluster": json.dumps(rep["cluster"], sort_keys=True, default=str),
+        "metrics": {"loss": as_bits(fused["loss"]),
+                    "lr": as_bits(fused["lr"]),
+                    "nested": as_bits(ctx.pod_psum(ctx.node_psum(
+                        ctx.dp_psum_small(rows(c["x"]).sum()))))}}
+
+    out["train"] = {}
+    for name, run in case["train"].items():
+        comm_destroy_all()
+        mesh = mesh_of((2, 2, 2, 1), POD_AXES + ("model",))
+        cfg = get_config(run["arch"]).reduced(**run["reduced"])
+        program, ctx = build_train_program(
+            cfg, mesh, comm=CommConfig(profile="tpu_v5e", tag=name),
+            opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+            device="cpu", name=name)
+        specs = rank_specs(cfg, ctx)
+        params = local_params(params_from_reference(run["params"]), specs,
+                              ctx)
+        batches = make_batches(cfg, seq_len=32, batch_per_shard=8, seed=7)
+        got = {"ep": (ctx.ep_axes, ctx.ep_size, ctx.ep_index()),
+               "axes": [cm.axis_name for cm in ctx.comms()]}
+        if cfg.moe is not None:
+            # copies: the step updates the params in place
+            got["experts"] = {k: v.copy() for k, v in flat_leaves(
+                params["layers"]["moe"]["experts"]).items()}
+        _, _, got["losses"] = _run_prog(program, params, init_state(params),
+                                        batches, run["steps"])
+        got["tiers"] = sorted(ctx.comm_report()["cluster"]["rollup"])
+        program.close()
+        out["train"][name] = got
+    comm_destroy_all()
+    c = case["legacy"]
+    if rank < 4:
+        mesh = mesh_of((2, 2, 1), ("pod", "data", "model"),
+                       ranks=range(4))
+        ctx = ParallelCtx(tp_axis="model", dp_axis="data", pod_axis="pod",
+                          tp_size=1, dp_size=2, pod_size=2, mesh=mesh,
+                          comm_config=CommConfig(profile="h800",
+                                                 tuning_cache=cache,
+                                                 tag="legacy"))
+        y = ctx.grad_all_reduce({"w": rows(c["x"], 4)})["w"]
+        out["legacy"] = {"y": as_bits(y), "signature": sig(ctx),
+                         "pod_comm": ctx._pod_comm is not None,
+                         "cluster": ctx._cluster_comm is not None,
+                         "expert": as_bits(ctx.expert_grad_reduce(
+                             rows(c["x"], 4))),
+                         "ep": (ctx.ep_axes, ctx.ep_size)}
+
+    comm_destroy_all()
+    return out

@@ -142,14 +142,11 @@ def test_default_profile_is_h100_and_compress_raises():
 @pytest.mark.parametrize("field,item", [("node_size", "item 12"),
                                         ("pod_size", "item 14")])
 def test_parallel_ctx_names_what_still_raises(field, item):
-    """A pod axis still raises, naming item 14.  The node axis (item 12)
-    is ported: like every axis wider than 1 it needs the rank's mesh."""
-    if field == "node_size":
-        with pytest.raises(ValueError, match="needs the rank's mesh"):
-            ParallelCtx(node_axis="node", node_size=2)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        ParallelCtx(**{field: 2})
+    """The node axis (ported by ROADMAP item 12) and the pod axis (item
+    14): like every axis wider than 1 each needs the rank's mesh."""
+    axis = field.removesuffix("_size")
+    with pytest.raises(ValueError, match="needs the rank's mesh"):
+        ParallelCtx(**{f"{axis}_axis": axis, field: 2})
 
 
 def test_parallel_ctx_one_device_and_data_axis_without_mesh():

@@ -88,6 +88,19 @@ def test_the_cluster_slice_is_checked():
         assert m in MODULES, m
 
 
+def test_the_pod_slice_is_checked():
+    """The pod tier's modules are among those checked above: the mesh with
+    its gradient plane, the three-tier communicator, the ctx, the MoE
+    dispatch, the shard and checkpoint code of the ep span and both
+    launchers."""
+    for m in ("repro_torch.launch.mesh", "repro_torch.cluster.communicator",
+              "repro_torch.models.tp", "repro_torch.models.moe",
+              "repro_torch.convert", "repro_torch.checkpoint.checkpointer",
+              "repro_torch.launch.steps", "repro_torch.train.loop",
+              "repro_torch.launch.train", "repro_torch.launch.serve"):
+        assert m in MODULES, m
+
+
 def test_the_tensor_parallel_slice_is_checked():
     """The modules the tensor-parallel train step added or changed are
     among those checked above: K7's wrapper and source, the differentiable

@@ -510,16 +510,19 @@ def test_serve_launcher_flags_take_the_reference_note(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--nodes", "2"], "item 12"), (["--pods", "2"], "item 14"),
+    (["--nodes", "2"], "item 12"), (["--nodes", "2", "--pods", "2"],
+                                     "item 14"),
     (["--degrade", "nvlink=0.5"], "item 13"),
     (["--fault", "nvlink@step2=0.5"], "item 13")])
 def test_serve_launcher_refuses_unported_tiers(flags, item, capsys,
                                                tmp_path):
-    """``--pods`` needs a tier not ported yet: exit 2 naming the ROADMAP
-    item, before any work.  ``--nodes`` and the launch-time ``--degrade``
-    came with the two-tier cluster (item 12), as the reference's:
-    ``--nodes 2`` serves on one device and reports the cluster it
-    registered, equal to the reference's ``cluster_for``; ``--degrade``
+    """Every tier flag is ported, each by the ROADMAP item named.
+    ``--nodes`` and the launch-time ``--degrade`` came with the two-tier
+    cluster (item 12), as the reference's: ``--nodes 2`` serves on one
+    device and reports the cluster it registered, equal to the
+    reference's ``cluster_for``; ``--pods`` with the pod tier (item 14):
+    ``--nodes 2 --pods 2`` registers the three-tier cluster, equal to the
+    reference's ``cluster_for(..., pods=2)``; ``--degrade``
     serves on the degraded profile, named as the reference's
     ``resolve_faults`` names it.  ``--fault`` came with the fault tier
     (item 13): it serves, the engine ticks the clock, and the record
@@ -532,10 +535,6 @@ def test_serve_launcher_refuses_unported_tiers(flags, item, capsys,
     rc = t_serve.main(["--smoke", "--device", "cpu", "--requests", "2",
                        "--max-new", "3", "--out", str(rec), *flags])
     out, err = capsys.readouterr()
-    if flags[0] == "--pods":
-        assert rc == 2
-        assert "not ported yet" in err and item in err
-        return
     assert rc == 0 and "served 2 requests" in out
     got = json.loads(rec.read_text())
     if flags[0] == "--fault":
@@ -550,9 +549,13 @@ def test_serve_launcher_refuses_unported_tiers(flags, item, capsys,
         return
     assert "faults" not in got
     if flags[0] == "--nodes":
-        want = j_cluster_for("h100", 2)
+        pods = 2 if "--pods" in flags else 1
+        want = j_cluster_for("h100", 2, pods=pods)
         assert got["cluster"] == want.describe()
         assert f"NIC tier {want.nic_tier.name}" in out
+        assert (want.pod_tier is not None) == (pods > 1)
+        if pods > 1:
+            assert f"2 pods, pod tier {want.pod_tier.name}" in out
         assert got["profile"] == "h100"
     else:
         assert got["cluster"] is None

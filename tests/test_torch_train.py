@@ -339,11 +339,14 @@ def test_train_launcher_bucketed_smoke_learns():
 
 
 def test_train_launcher_refuses_what_is_not_ported(capsys):
-    """--pods (item 14), ep_a2a dispatch on a node mesh (item 14), a node
-    event of --fault without --ckpt-dir (the reference's refusal: resume
-    needs a snapshot) and a batch that does not divide over node x data
-    exit 2, before any rank is spawned; --nodes and --fault themselves
-    are ported (tests/test_torch_cluster.py, tests/test_torch_faults.py)."""
+    """--pods without --nodes (the reference's message: the pod tier
+    composes above the NIC tier), a node event of --fault with --pods
+    (elastic resume rebuilds no pod axis), a node event without
+    --ckpt-dir (the reference's refusal: resume needs a snapshot) and a
+    batch that does not divide over node x data exit 2, before any rank
+    is spawned; --nodes, --pods and --fault themselves are ported
+    (tests/test_torch_cluster.py, test_torch_pod.py,
+    test_torch_faults.py)."""
     from repro_torch.launch import train
     assert train.main(["--smoke", "--device", "cpu", "--dist", "gloo",
                        "--fault", "node1@step2=down", "--nodes", "2",
@@ -351,12 +354,18 @@ def test_train_launcher_refuses_what_is_not_ported(capsys):
     assert ("elastic node loss needs --ckpt-dir: resume is only defined "
             "from a Checkpointer snapshot") in capsys.readouterr().err
     assert train.main(["--smoke", "--device", "cpu", "--dist", "gloo",
-                       "--arch", "kimi-k2-1t-a32b", "--nodes", "2",
-                       "--mesh-shape", "2,1"]) == 2
+                       "--fault", "node1@step2=down", "--nodes", "2",
+                       "--pods", "2", "--ckpt-dir", "unused",
+                       "--mesh-shape", "1,1"]) == 2
+    assert "--fault node events with --pods > 1" in \
+        capsys.readouterr().err
     assert train.main(["--smoke", "--device", "cpu", "--dist", "gloo",
                        "--nodes", "3", "--mesh-shape", "2,1"]) == 2
     assert train.main(["--smoke", "--device", "cpu", "--dist", "gloo",
                        "--pods", "2", "--mesh-shape", "2,1"]) == 2
+    assert ("--pods > 1 needs a multi-node cluster run (--nodes/--cluster): "
+            "the pod tier composes above the NIC tier") in \
+        capsys.readouterr().err
     assert train.main(["--smoke", "--device", "cpu", "--mesh-shape",
                        "2,1"]) == 2                   # nccl on the CPU
     if not torch.cuda.is_available():
