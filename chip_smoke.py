@@ -151,7 +151,12 @@ non-zero:
    ``flexlink-b64``, the same run with 64 MiB buckets launched from the
    backward: 27 buckets a step (a rank's shards) issued in order on the
    side stream, one data-axis call recorded in each bucket's scope, the
-   launches of its plans, losses within 5e-3 of flexlink;
+   launches of its plans, losses within 5e-3 of flexlink.  Before the
+   flexlink run's first step each rank lowers the same program
+   (``StepProgram.lower``) on meta copies of its arguments: the lowered
+   step's collectives (op, axis, dtype, bytes) equal the first live
+   step's, traced and executed, as multisets, and so do the plan
+   signatures;
 14. K7a/K7b, the payload split and merge on segments.cuh's tables,
    against their plain versions in float32, bfloat16 and uint8 at the
    reference test's cases, at lengths and offsets one element off its
@@ -232,7 +237,9 @@ non-zero:
    the logits gathered over the model axis), each issued and awaited,
    the model axis's all-reduce pinned to 50/25/25: K1 launches equal to
    what the executed plans imply, 81 combines and 40 Q gathers (issued =
-   joined) a step, ms a step, peak memory; the same steps on the shards
+   joined) a step, ms a step, peak memory, and the program lowered on
+   meta copies before the first step issuing, tracing and planning what
+   that step does (as phase 13's); the same steps on the shards
    upcast to float32: the last step's logits within 2e-3 of one rank's
    float32 decode of the same tokens; (c) the same model, batch 1, the
    cache over (data=2, model=2) (4 ranks, 32768, 8192 a rank), filled,
@@ -311,7 +318,13 @@ non-zero:
    (b)'s model, batch, seed and steps: losses within 5e-3 of phase 20
    (b)'s (data=4) ones, every rank's report with the pod tier, K1 = the
    plans'; then every K1 segment table of (a) and (d) against the plain
-   version, bit for bit.
+   version, bit for bit;
+23. the dry-run (``python -m repro_torch.launch.dryrun``, no card, no
+   rank): glm4-9b ``decode_32k`` on the production mesh (16, 16) and
+   ``train_4k --mesh-split 2,4``, both started beside phase 1's build
+   and read here, both ``ok``; each record's collective structure,
+   argument bytes, the roofline's terms at the H100's datasheet peaks,
+   its lowering wall and its run's are printed.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  The launches in that line are the
@@ -334,16 +347,19 @@ file, it prints no result and exits 1.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import contextlib
 import dataclasses
 import gc
 import hashlib
 import importlib.util
+import itertools
 import json
 import os
 import re
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2143,6 +2159,53 @@ def _step_phase() -> str:
     return "recompute" if torch.is_grad_enabled() else "backward"
 
 
+def _trace_first_step(program, ctx, mesh) -> list:
+    """From now on, the program's first ``step`` runs inside a trace scope
+    of ``mesh``; the list it returns gets (its log, the program's plan
+    signature before the step's Stage-2 observation)."""
+    live, step = [], program.step
+
+    def first_traced(*args, **kwargs):
+        if live:
+            return step(*args, **kwargs)
+        with mesh.tracing() as log:
+            out = program(*args, **kwargs)
+        live.append((log, ctx.plan_signature(program.name)))
+        program.observe()
+        return out
+    program.step = first_traced
+    return live
+
+
+def _lowered_vs_live(lowered, live) -> dict:
+    """A lowered step against its live call: whether their traced and
+    executed collectives (op, axis, dtype, bytes) agree as multisets and
+    their plan signatures are equal, with the lowered log's counts."""
+    (log, sig), = live
+    low = lowered.log
+    return {"traced": collections.Counter(low.traced)
+            == collections.Counter(log.traced),
+            "executed": collections.Counter(low.executed)
+            == collections.Counter(log.executed),
+            "signature": lowered.plan_signature == sig,
+            "n_traced": len(low.traced), "n_executed": len(low.executed),
+            "structure": low.structure(), "lower_s": lowered.lower_s}
+
+
+def _check_lowered(phase: str, res: list) -> dict:
+    """Every rank's lowered step equal to its live one; rank 0's record."""
+    for r, got in enumerate(res):
+        check(got is not None and got["traced"] and got["executed"]
+              and got["signature"], f"{phase}: rank {r}'s lowered step "
+              f"differs from its live call: {got}")
+    rec = res[0]
+    print(f"phase {phase}: lowered on meta = the first live step on every "
+          f"rank (traced {rec['n_traced']}, executed {rec['n_executed']} "
+          f"calls, plan signatures equal); traced structure "
+          f"{rec['structure']}; lowering {rec['lower_s']:.2f} s a rank")
+    return rec
+
+
 def tp_train_rank(pinned: str):
     """One rank of phase 13: two 3-step runs of full-width glm4-9b (depth
     cut) on the (data=2, model=2) mesh through build_train_program +
@@ -2160,6 +2223,7 @@ def tp_train_rank(pinned: str):
     from repro_torch.launch.steps import build_train_program
     from repro_torch.models.transformer import init_params, param_specs
     from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.runtime.program import meta_like
     from repro_torch.train.loop import LoopConfig, run_loop
     from torch.utils import _pytree as pytree
     cfg = dataclasses.replace(get_config("glm4-9b"), n_layers=TRAIN_LAYERS)
@@ -2193,6 +2257,15 @@ def tp_train_rank(pinned: str):
                                            opt_state)
             batches = make_batches(cfg, seq_len=TP_SEQ,
                                    batch_per_shard=TP_BATCH)
+            lowered = live = None
+            if name == "flexlink":
+                # the program lowered on meta copies, then its first live
+                # step traced: their logs and plan signatures
+                first = next(batches)
+                batches = itertools.chain([first], batches)
+                lowered = program.lower(*meta_like((params, opt_state,
+                                                    first)))
+                live = _trace_first_step(program, ctx, mesh)
             calls.clear()
             seen = set()
             log, roundtrips = [], collections.Counter()
@@ -2230,6 +2303,8 @@ def tp_train_rank(pinned: str):
                 "leaves": len(pytree.tree_leaves(params)),
                 "bucket_calls": bucket_calls,
                 "kernel_calls": seen, "segment_paths": seg_paths,
+                "lowered": (_lowered_vs_live(lowered, live)
+                            if lowered is not None else None),
                 **bucket_record(ctx, bucket_mb, params, opt_state, log,
                                 roundtrips)}
             del params, opt_state, program, ctx
@@ -2304,6 +2379,7 @@ def phase13_tp_training():
               f"{max(r[name]['wall_s'] for r in res):.1f} s for "
               f"{TRAIN_STEPS} steps; peak "
               f"{max(r[name]['peak_gib'] for r in res):.2f} GiB a rank")
+    _check_lowered("13", [r["flexlink"]["lowered"] for r in res])
     for i in range(TRAIN_STEPS):
         d = abs(losses["flexlink"][i] - losses["nccl"][i])
         check(d < 5e-3, f"step {i}: flexlink {losses['flexlink'][i]} vs "
@@ -4141,6 +4217,7 @@ def serve_tp_rank(pinned: str):
     from repro_torch.launch.shapes import InputShape
     from repro_torch.launch.steps import build_serve_program
     from repro_torch.models.transformer import init_cache
+    from repro_torch.runtime.program import meta_like
     mesh = Mesh((1, 2), ("data", "model"))
     out = {"a": _serve_reduced_rank(mesh, SERVE_REDUCED_BATCH)}
     cfg = get_config("glm4-9b")
@@ -4151,9 +4228,13 @@ def serve_tp_rank(pinned: str):
     params = _rank_params(cfg, ctx, mesh)
     cache = init_cache(cfg, ctx, dcfg, SERVE_BATCH, device="cuda")
     _fill_kv(cache, cfg, mesh.axis_index("model"))
-    counts = _q_ag_counts(ctx)
     tok = np.random.default_rng(19).integers(
         1, cfg.vocab, (SERVE_BATCH, 1)).astype(np.int32)
+    # the program lowered on meta copies of the first step's arguments,
+    # before the Q gathers are counted
+    lowered = program.lower(*meta_like((params, cache, tok, SERVE_POS)))
+    counts = _q_ag_counts(ctx)
+    live = []
     stream, calls, ms, k1_calls = [tok[:, 0]], [], [], set()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4161,7 +4242,11 @@ def serve_tp_rank(pinned: str):
     with _executed(calls), recorded_calls(k1_calls):
         for t in range(SERVE_STEPS):
             t0 = time.perf_counter()
-            program.issue(params, cache, stream[-1][:, None], SERVE_POS + t)
+            with mesh.tracing() as log:
+                program.issue(params, cache, stream[-1][:, None],
+                              SERVE_POS + t)
+            if t == 0:
+                live.append((log, ctx.plan_signature("serve")))
             logits, cache = program.await_all()[-1]
             full = _gather_logits(logits, mesh)
             ms.append((time.perf_counter() - t0) * 1e3)
@@ -4180,6 +4265,7 @@ def serve_tp_rank(pinned: str):
                 "plans": sorted({plan.chunk_units for plan, _, _ in calls}),
                 "issued": rep["issued"], "awaits": rep["awaits"],
                 "cache_len_local": dcfg.cache_len_local,
+                "lowered": _lowered_vs_live(lowered, live),
                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     del cache
     gc.collect()
@@ -4433,6 +4519,7 @@ def phase19_serve_sharded(card):
     _phase19a_line("(model=2)", tp, card)
     _phase19a_line("(data=2, model=2)", lg, card)
     # (b)
+    _check_lowered("19 (b)", [r["lowered"] for r in b])
     check(all(np.array_equal(r["stream"], b[0]["stream"]) for r in b),
           "19 (b): the ranks' greedy streams differ")
     check(all(0 <= t < v for t in b[0]["stream"].ravel()),
@@ -5715,6 +5802,73 @@ def phase22_pod(card, flat_losses):
     return k1_a, k1_d, k1_err.get("k1", 0.0), k1_tables
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the dry-run
+# ---------------------------------------------------------------------------
+
+#: the dry-runs of phase 23: name -> their ``launch/dryrun.py`` flags
+DRYRUNS = {"glm4-9b decode_32k single": ["--arch", "glm4-9b", "--shape",
+                                         "decode_32k", "--mesh", "single"],
+           "glm4-9b train_4k (data=2, model=4)": [
+               "--arch", "glm4-9b", "--shape", "train_4k",
+               "--mesh-split", "2,4"]}
+
+
+class DryRuns:
+    """Phase 23's dry-runs (``python -m repro_torch.launch.dryrun`` for
+    each of DRYRUNS), started side by side beside phase 1's build: they
+    need no card and no rank (meta tensors on a dry mesh), so their wall
+    hides under the phases before them.  Stopped at exit whatever
+    happens."""
+
+    def __init__(self):
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        self.tmp = tempfile.mkdtemp(dir=ROOT)
+        self.procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *flags,
+             "--out", f"{self.tmp}/{i}"], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i, (name, flags) in enumerate(DRYRUNS.items())}
+        atexit.register(self.stop)
+
+    def stop(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def phase23_dryrun(card, runs: DryRuns):
+    """Every record of ``runs`` ``ok``, its lines printed."""
+    recs = {}
+    try:
+        for i, (name, p) in enumerate(runs.procs.items()):
+            out, err = p.communicate(timeout=600)
+            check(p.returncode == 0, f"23: {name}: exit {p.returncode}\n"
+                  f"{out[-2000:]}\n{err[-2000:]}")
+            files = list(pathlib.Path(f"{runs.tmp}/{i}").glob("*.json"))
+            check(len(files) == 1, f"23: {name}: records {files}")
+            recs[name] = (json.loads(files[0].read_text()),
+                          re.search(r"wall=([0-9.]+)s", out).group(1))
+    finally:
+        runs.stop()
+    for name, (rec, wall) in recs.items():
+        check(rec.get("ok") is True, f"23: {name}: not ok: {rec}")
+        r, mem = rec["roofline"], rec["memory_analysis"]
+        print(f"phase 23: {name}: {rec['chips']} ranks, structure "
+              f"{rec['collective_structure']}; argument bytes "
+              f"{mem['argument_size_in_bytes']}, output bytes "
+              f"{mem['output_size_in_bytes']} a rank; roofline at the "
+              f"H100 datasheet peaks: t_compute {r['t_compute']:.6g} s, "
+              f"t_memory {r['t_memory']:.6g} s, t_collective "
+              f"{r['t_collective']:.6g} s, dominant {r['dominant']}; "
+              f"lowered in {rec['lower_s']} s, {wall} s the run (beside "
+              f"phase 1's build, on the host of the card {card}, which no "
+              f"dry-run touches)")
+    return recs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -5742,6 +5896,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     marks = [("start", t_start)]
+    dryruns = DryRuns()
 
     def mark(name):
         """Each phase's wall time, printed together at the end."""
@@ -5804,6 +5959,8 @@ def main(argv=None) -> int:
     pod_k1, pod_train_k1, pod_k1_err, pod_tables = phase22_pod(card,
                                                                flat_losses)
     mark("22")
+    phase23_dryrun(card, dryruns)
+    mark("23")
     kernels = [{
         "name": "paged_flash_decode",
         "route": "cuda",

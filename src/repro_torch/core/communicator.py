@@ -382,9 +382,12 @@ class FlexCommunicator:
         else:
             base = self._recorders[name]
             prefix = name + "/"
+        # a program's family leaves out its dry-run's scratch recorder
+        # (``name/lower``, and that one's own issue sub-recorders), which
+        # is a family of its own
         subs = [rec for n, rec in sorted(self._recorders.items())
-                if n.startswith(prefix) and not n.endswith("/lower")
-                and "/lower/" not in n]
+                if n.startswith(prefix)
+                and n[len(prefix):].split("/")[0] != "lower"]
         return [base] + subs
 
     def family_footprint(self, name: Optional[str] = None) -> set:

@@ -16,6 +16,7 @@ process and resolves the plan's axis names through the rank's
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
@@ -508,20 +509,26 @@ class _Execute(torch.autograd.Function):
     forward's plan and never asks a communicator for one.  Every rank
     builds the same graph, so their backwards issue the same collectives
     in the same order; on CUDA they run on autograd's device thread, on
-    the stream the forward used.
+    the stream the forward used.  The backward's collectives trace as the
+    forward's did (``Mesh.untraced``): a repeated layer's transposes
+    repeat too.
     """
 
     @staticmethod
     def forward(ctx, x, plan, mesh, accumulate):
         ctx.plan, ctx.mesh, ctx.accumulate = plan, mesh, accumulate
         ctx.shape = x.shape
+        ctx.traced = mesh.traced_now
         with torch.no_grad():
             return _run(plan, x, mesh, accumulate)
 
     @staticmethod
     def backward(ctx, g):
-        gx = execute(transpose_plan(ctx.plan), g.contiguous(), ctx.mesh,
-                     accumulate=ctx.accumulate)
+        scope = (contextlib.nullcontext() if ctx.traced
+                 else ctx.mesh.untraced())
+        with scope:
+            gx = execute(transpose_plan(ctx.plan), g.contiguous(), ctx.mesh,
+                         accumulate=ctx.accumulate)
         return gx.reshape(ctx.shape), None, None, None
 
 

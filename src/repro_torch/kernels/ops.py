@@ -2,8 +2,10 @@
 
 Port of ``src/repro/kernels/ops.py``.  Each entry point dispatches on the
 device of its input: a CPU tensor goes to the plain PyTorch version in
-``kernels/ref.py``; a CUDA tensor goes to the hand-written kernel, which
-launches or raises — there is no fallback.
+``kernels/ref.py``; a ``meta`` tensor (a step lowered by the dry-run)
+goes there too, which then computes shapes and dtypes only; a CUDA
+tensor goes to the hand-written kernel, which launches or raises — there
+is no fallback.
 
 The reference pads every payload to [rows % 8, 128]-lane tiles
 (``_pad_2d``) for the TPU's BlockSpecs; the port's kernels walk flat
@@ -34,6 +36,12 @@ from repro_torch.kernels import ref
 MAX_SEGMENTS = _ca.MAX_SEGMENTS
 
 
+def _plain(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the plain version: on the CPU, which computes
+    it, or ``meta``, which gets its shapes and dtypes."""
+    return x.device.type in ("cpu", "meta")
+
+
 def _cuda_only(x: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {x.device}")
@@ -41,7 +49,7 @@ def _cuda_only(x: torch.Tensor, what: str) -> None:
 
 def _accumulate_impl(a: torch.Tensor, b: torch.Tensor,
                      acc_dtype) -> torch.Tensor:
-    if a.device.type == "cpu":
+    if _plain(a):
         return ref.chunk_accumulate_ref(a, b, acc_dtype=acc_dtype)
     _cuda_only(a, "accumulate")
     if acc_dtype != torch.float32:
@@ -110,7 +118,7 @@ def accumulate_many(as_: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     _check_list("accumulate_many", as_, bs)
     for a, b in zip(as_, bs):
         _check_operands(a, b, "accumulate_many")
-    if as_[0].device.type == "cpu":
+    if _plain(as_[0]):
         return _one_buffer([ref.chunk_accumulate_ref(a, b, acc_dtype=acc_dtype)
                             for a, b in zip(as_, bs)])
     _cuda_only(as_[0], "accumulate_many")
@@ -143,7 +151,7 @@ def extract_segment(x: torch.Tensor, start_block: int, n_blocks: int,
     (start_block + n_blocks) * block]`` of a flat, block-aligned payload."""
     assert x.ndim == 1 and x.shape[0] % block == 0
     assert (start_block + n_blocks) * block <= x.shape[0]
-    if x.device.type == "cpu":
+    if _plain(x):
         return ref.extract_segment_ref(x, start_block, n_blocks, block=block)
     _cuda_only(x, "extract_segment")
     return _pp.extract(x.contiguous(), start_block * block, n_blocks * block)
@@ -154,7 +162,7 @@ def merge_segments(segments, block: int = ref.BLOCK) -> torch.Tensor:
     segments concatenated."""
     segs = list(segments)
     assert all(s.ndim == 1 and s.shape[0] % block == 0 for s in segs)
-    if all(s.device.type == "cpu" for s in segs):
+    if all(_plain(s) for s in segs):
         return ref.merge_segments_ref(segs)
     for s in segs:
         _cuda_only(s, "merge_segments")
@@ -172,7 +180,7 @@ def merge_segments(segments, block: int = ref.BLOCK) -> torch.Tensor:
 def wire_encode(x: torch.Tensor, *, codec_name: str):
     """Encode a chunk for the wire -> (values [n], scales or None)."""
     flat = x.reshape(-1)
-    if x.device.type == "cpu":
+    if _plain(x):
         if codec_name == "bf16_pack":
             return ref.bf16_pack_ref(flat), None
         return ref.fp8_encode_ref(flat, fmt=codec_name)
@@ -192,7 +200,7 @@ def wire_encode_many(xs: Sequence[torch.Tensor], *, codec_name: str):
     if codec_name != "bf16_pack":
         return [wire_encode(x, codec_name=codec_name) for x in xs]
     flats = [x.reshape(-1) for x in xs]
-    if flats[0].device.type == "cpu":
+    if _plain(flats[0]):
         vals = _one_buffer([ref.bf16_pack_ref(f) for f in flats])
     else:
         _cuda_only(flats[0], "wire_encode_many")
@@ -206,7 +214,7 @@ def wire_decode(vals: torch.Tensor, scales, *, codec_name: str, shape,
     decodes by a plain cast, as the reference's does."""
     if codec_name == "bf16_pack":
         out = vals.to(dtype)
-    elif vals.device.type == "cpu":
+    elif _plain(vals):
         out = ref.fp8_decode_ref(vals, scales, out_dtype=dtype)
     else:
         _cuda_only(vals, "wire_decode")
@@ -221,7 +229,7 @@ def wire_decode_accumulate(vals: torch.Tensor, scales, mine: torch.Tensor,
     (mixed float32 + bfloat16 when ``mine`` is float32); fp8 runs K3."""
     if codec_name == "bf16_pack":
         return accumulate(mine, vals.reshape(mine.shape))
-    if mine.device.type == "cpu":
+    if _plain(mine):
         return ref.fp8_decode_accumulate_ref(vals, scales, mine)
     _cuda_only(mine, "wire_decode_accumulate")
     return _codec.fp8_decode_accumulate(vals, scales, mine.contiguous(),
@@ -258,7 +266,7 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     """Flash-decoding over a paged KV pool (one layer): q [T, Hq, hd],
     pools [n_blocks, block_size, Hkv, hd], block_tables [T, maxb],
     kv_valid [T] -> [T, Hq, hd]."""
-    if q.device.type == "cpu":
+    if _plain(q):
         return ref.paged_flash_decode_ref(q, k_pool, v_pool, block_tables,
                                           kv_valid, window=window)
     if q.device.type != "cuda":

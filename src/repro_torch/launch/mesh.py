@@ -34,10 +34,32 @@ an error:
   accumulate kernel stay on the card.
 
 The mesh's collectives never write into their inputs.
+
+A dry mesh (:meth:`Mesh.dry`, ``wire == "dry"``) has the same lines,
+coords, peers and plane as a live one and no process group: the dry-run's
+production meshes ((16, 16), (2, 16, 16); :func:`make_production_mesh`),
+which one process lowers a step on as one of their ranks.  Its
+collectives take ``meta`` tensors only (they raise on any other) and
+return ``meta`` tensors of the result's shape and dtype.  A live mesh
+given ``meta`` tensors does the same and touches no wire (a step lowered
+on a live rank, ``StepProgram.lower``); the choice goes by the tensor's
+device type.  Every collective a mesh issues over an axis wider than 1
+lands in every open :class:`TraceLog` as ``(op, axis, dtype, bytes)``:
+the reference's HLO op name, the axis (``"node+data"`` for a tuple of
+plane axes), the dtype's name and this rank's operand bytes (a permute
+logs one entry a tensor, as ``ppermute`` lowers to one
+``collective_permute`` a leaf).  A dry mesh keeps one log open for its
+life (:attr:`Mesh.log`); :meth:`Mesh.tracing` opens one on any mesh.
+Each entry counts as ``executed``, and as ``traced`` too unless it was
+issued inside :meth:`Mesh.untraced` (``ParallelCtx.unrecorded``: a
+layer loop's later layers and the checkpoint recompute), the reference's
+scan body traced once.  The backward of a differentiable collective is
+traced as its forward was.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import multiprocessing
 import queue
@@ -57,6 +79,42 @@ PLANE = ("pod", "node", "data")
 CHANNELS = ("primary", "staged")
 
 
+class TraceLog:
+    """The collectives a mesh issued while the log was open, each ``(op,
+    axis, dtype, bytes)`` with ``bytes`` this rank's operand bytes:
+    ``executed`` holds every one, ``traced`` those issued outside
+    :meth:`Mesh.untraced`."""
+
+    def __init__(self):
+        self.traced: List[Tuple[str, str, str, int]] = []
+        self.executed: List[Tuple[str, str, str, int]] = []
+
+    def add(self, entry: Tuple[str, str, str, int], traced: bool) -> None:
+        self.executed.append(entry)
+        if traced:
+            self.traced.append(entry)
+
+    def structure(self, which: str = "traced") -> Dict[str, int]:
+        """Calls by ``op@axis`` (the reference's collective structure)."""
+        out: Dict[str, int] = {}
+        for op, axis, _, _ in getattr(self, which):
+            k = f"{op}@{axis}"
+            out[k] = out.get(k, 0) + 1
+        return out
+
+    def bytes_by(self, which: str = "executed") -> Dict[str, int]:
+        """Operand bytes of this rank by ``op@axis``."""
+        out: Dict[str, int] = {}
+        for op, axis, _, n in getattr(self, which):
+            k = f"{op}@{axis}"
+            out[k] = out.get(k, 0) + n
+        return out
+
+
+def _axis_label(axis) -> str:
+    return "+".join(axis) if isinstance(axis, tuple) else axis
+
+
 class Mesh:
     """This rank's view of a named mesh over the default process group.
 
@@ -74,30 +132,18 @@ class Mesh:
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str], *,
                  device: str = "cuda", ranks: Optional[Sequence[int]] = None):
-        shape, axes = tuple(int(s) for s in shape), tuple(axes)
-        if len(shape) != len(axes) or len(set(axes)) != len(axes):
-            raise ValueError(f"mesh shape {shape} and axes {axes} differ")
-        for a in axes:
-            if a not in AXES:
-                raise ValueError(f"unknown mesh axis {a!r}; one of {AXES}")
         if not dist.is_initialized():
             raise RuntimeError("Mesh needs an initialised default process "
                                "group (run_ranks sets one up)")
-        self.shape = shape
-        self.axes = axes
         local = ranks is not None
         #: the global ranks of the mesh, in mesh order
-        self.ranks = (tuple(int(r) for r in ranks) if local
-                      else tuple(range(dist.get_world_size())))
-        self.world = len(self.ranks)
-        if dist.get_rank() not in self.ranks:
+        all_ranks = (tuple(int(r) for r in ranks) if local
+                     else tuple(range(dist.get_world_size())))
+        if dist.get_rank() not in all_ranks:
             raise ValueError(f"rank {dist.get_rank()} is not one of the "
-                             f"mesh's ranks {self.ranks}")
-        self.rank = self.ranks.index(dist.get_rank())
-        if int(np.prod(shape)) != self.world:
-            raise ValueError(f"mesh {dict(zip(axes, shape))} needs "
-                             f"{int(np.prod(shape))} ranks, the world has "
-                             f"{self.world}")
+                             f"mesh's ranks {all_ranks}")
+        self._place(shape, axes, all_ranks, all_ranks.index(dist.get_rank()))
+        shape, axes = self.shape, self.axes
         self.backend = dist.get_backend()
         if self.backend not in ("gloo", "nccl"):
             raise ValueError(f"backend {self.backend!r}: gloo or nccl")
@@ -110,8 +156,6 @@ class Mesh:
             self.device = torch.device("cpu")
         else:
             raise ValueError(f"device {device!r}: cuda or cpu")
-        self.coords = tuple(int(c) for c in np.unravel_index(self.rank,
-                                                             shape))
         me = dist.get_rank()
         grid = np.array(self.ranks).reshape(shape)
 
@@ -127,9 +171,6 @@ class Mesh:
                                       use_local_synchronization=True)
             return None
 
-        # axis -> the global ranks of this rank's line, by axis index
-        self._line: Dict[str, Tuple[int, ...]] = {}
-        self._groups: Dict[Tuple[str, str], Any] = {}
         for i, a in enumerate(axes):
             lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
             for line in lines:
@@ -138,10 +179,6 @@ class Mesh:
                     g = group(members)
                     if me in members:
                         self._groups[(a, ch)] = g
-                if me in members:
-                    self._line[a] = members
-        #: the mesh's gradient plane: its axes among PLANE, outermost first
-        self.plane = tuple(a for a in PLANE if a in axes)
         if len(self.plane) > 1:
             # every plane, in the same order on every rank
             idx = [axes.index(a) for a in self.plane]
@@ -153,6 +190,60 @@ class Mesh:
                 g = group(members)
                 if me in members:
                     self._groups[(self.plane, "primary")] = g
+
+    @classmethod
+    def dry(cls, shape: Sequence[int], axes: Sequence[str],
+            rank: int = 0) -> "Mesh":
+        """Rank ``rank``'s view of a mesh with no process group: the same
+        lines, coords, peers and plane as a live mesh of that shape; its
+        collectives take and return ``meta`` tensors and log into
+        :attr:`log`, open for the mesh's life."""
+        self = cls.__new__(cls)
+        shape = tuple(int(s) for s in shape)
+        world = int(np.prod(shape))
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of a {world}-rank mesh")
+        self._place(shape, axes, tuple(range(world)), rank)
+        self.backend = self.wire = "dry"
+        self.device = torch.device("meta")
+        #: the dry mesh's trace log, open for its life
+        self.log = TraceLog()
+        self._logs.append(self.log)
+        return self
+
+    def _place(self, shape, axes, ranks: Tuple[int, ...], rank: int) -> None:
+        """Shape, axes, this rank's coords and lines and the plane: what a
+        live and a dry mesh share."""
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} differ")
+        for a in axes:
+            if a not in AXES:
+                raise ValueError(f"unknown mesh axis {a!r}; one of {AXES}")
+        self.shape = shape
+        self.axes = axes
+        self.ranks = ranks
+        self.world = len(ranks)
+        self.rank = rank
+        if int(np.prod(shape)) != self.world:
+            raise ValueError(f"mesh {dict(zip(axes, shape))} needs "
+                             f"{int(np.prod(shape))} ranks, the world has "
+                             f"{self.world}")
+        self.coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+        me = ranks[rank]
+        grid = np.array(ranks).reshape(shape)
+        # axis -> the global ranks of this rank's line, by axis index
+        self._line: Dict[str, Tuple[int, ...]] = {}
+        self._groups: Dict[Tuple[str, str], Any] = {}
+        for i, a in enumerate(axes):
+            for line in np.moveaxis(grid, i, -1).reshape(-1, shape[i]):
+                members = tuple(int(r) for r in line)
+                if me in members:
+                    self._line[a] = members
+        #: the mesh's gradient plane: its axes among PLANE, outermost first
+        self.plane = tuple(a for a in PLANE if a in axes)
+        self._logs: List[TraceLog] = []
+        self._untraced = 0
 
     # -- axis introspection (compat/axes.py) ----------------------------------
 
@@ -184,6 +275,55 @@ class Mesh:
             axis = self.plane
         return self._groups[(axis, channel)]
 
+    # -- the trace log ----------------------------------------------------------
+
+    @contextlib.contextmanager
+    def tracing(self):
+        """A fresh :class:`TraceLog` that every collective this mesh
+        issues inside the scope lands in."""
+        log = TraceLog()
+        self._logs.append(log)
+        try:
+            yield log
+        finally:
+            self._logs.remove(log)
+
+    @contextlib.contextmanager
+    def untraced(self):
+        """Collectives issued inside repeat ones the step's trace already
+        holds: they log as executed, not as traced."""
+        self._untraced += 1
+        try:
+            yield
+        finally:
+            self._untraced -= 1
+
+    @property
+    def traced_now(self) -> bool:
+        """Whether a collective issued now logs as traced."""
+        return not self._untraced
+
+    def _issue(self, op: str, axis, x: torch.Tensor) -> bool:
+        """Log one collective of ``x`` over ``axis`` (an axis wider than 1)
+        into the open trace logs; True when ``x`` is a ``meta`` tensor,
+        whose result the caller makes without the wire."""
+        if self._logs:
+            entry = (op, _axis_label(axis),
+                     str(x.dtype).removeprefix("torch."),
+                     x.numel() * x.element_size())
+            for log in self._logs:
+                log.add(entry, self.traced_now)
+        return x.device.type == "meta"
+
+    def _check(self, xs: Sequence[torch.Tensor]) -> None:
+        """A dry mesh's refusal of a tensor that is not ``meta`` (on an
+        axis of size 1 too, where no collective is issued)."""
+        if self.wire == "dry":
+            for x in xs:
+                if x.device.type != "meta":
+                    raise ValueError(f"dry mesh: a {x.device.type} tensor; "
+                                     f"a dry mesh takes meta tensors only")
+
     # -- the wire -------------------------------------------------------------
 
     def _wire_in(self, x: torch.Tensor) -> torch.Tensor:
@@ -200,10 +340,13 @@ class Mesh:
                    op: str = "sum") -> torch.Tensor:
         """Sum (or max) over ``axis``, or over a tuple of plane axes:
         ``lax.psum`` / ``lax.pmax``."""
+        self._check([x])
         if self.axis_size(axis) == 1:
             return x.clone()
-        h = self._wire_in(x)
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        if self._issue("all_reduce", axis, x):
+            return torch.empty_like(x)
+        h = self._wire_in(x)
         dist.all_reduce(h, op=red, group=self.group(axis))
         return self._wire_out(h, x)
 
@@ -216,9 +359,12 @@ class Mesh:
     def all_gather(self, x: torch.Tensor, axis) -> torch.Tensor:
         """[n, *x.shape], entry j from axis index j (from the j-th rank of
         the plane, for a tuple of plane axes): ``lax.all_gather``."""
+        self._check([x])
         n = self.axis_size(axis)
         if n == 1:
             return x.clone()[None]
+        if self._issue("all_gather", axis, x):
+            return x.new_empty((n,) + tuple(x.shape))
         h = self._wire_in(x)
         bufs = [torch.empty_like(h) for _ in range(n)]
         dist.all_gather(bufs, h, group=self.group(axis))
@@ -228,6 +374,7 @@ class Mesh:
         """Sum over ``axis``, this rank's 1/n of the leading dim:
         ``lax.psum_scatter(..., scatter_dimension=0, tiled=True)``.  On the
         host wire this is a gloo all-reduce and a slice (the same sums)."""
+        self._check([x])
         n = self.axis_size(axis)
         if x.shape[0] % n:
             raise ValueError(f"reduce_scatter: leading dim {x.shape[0]} "
@@ -235,6 +382,8 @@ class Mesh:
         if n == 1:
             return x.clone()
         lead = x.shape[0] // n
+        if self._issue("reduce_scatter", axis, x):
+            return x.new_empty((lead,) + tuple(x.shape[1:]))
         h = self._wire_in(x)
         if self.wire == "host":
             dist.all_reduce(h, group=self.group(axis))
@@ -250,12 +399,15 @@ class Mesh:
         """Block j of the leading dim goes to axis index j (the j-th rank
         of the plane, for a tuple of plane axes); the result's block j
         comes from index j: ``lax.all_to_all(..., 0, 0, tiled=True)``."""
+        self._check([x])
         n = self.axis_size(axis)
         if x.shape[0] % n:
             raise ValueError(f"all_to_all: leading dim {x.shape[0]} does "
                              f"not divide by {n}")
         if n == 1:
             return x.clone()
+        if self._issue("all_to_all", axis, x):
+            return torch.empty_like(x)
         h = self._wire_in(x)
         out = torch.empty_like(h)
         dist.all_to_all_single(out, h, group=self.group(axis))
@@ -263,8 +415,11 @@ class Mesh:
 
     def broadcast(self, x: torch.Tensor, axis: str, root: int) -> torch.Tensor:
         """Every rank of the line gets the tensor of axis index ``root``."""
+        self._check([x])
         if self.axis_size(axis) == 1:
             return x.clone()
+        if self._issue("broadcast", axis, x):
+            return torch.empty_like(x)
         h = self._wire_in(x)
         dist.broadcast(h, src=self.peer(axis, root), group=self.group(axis))
         return self._wire_out(h, x)
@@ -276,9 +431,16 @@ class Mesh:
         send each to axis index ``send_to``, receive its counterpart from
         ``recv_from`` (the caller's permutation, seen from this rank).  All
         transfers are posted before any is waited on; tensor j travels
-        under tag j."""
+        under tag j.  ``meta`` tensors (all of ``xs`` or none) are logged
+        and answered without the wire."""
+        self._check(xs)
         if self.axis_size(axis) == 1:
             return [x.clone() for x in xs]
+        metas = [self._issue("collective_permute", axis, x) for x in xs]
+        if any(metas):
+            if not all(metas):
+                raise ValueError("permute: meta tensors mixed with others")
+            return [torch.empty_like(x) for x in xs]
         group = self.group(axis, channel)
         dst, src = self.peer(axis, send_to), self.peer(axis, recv_from)
         sends = [self._wire_in(x) for x in xs]
@@ -290,6 +452,27 @@ class Mesh:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         return [self._wire_out(r, x) for r, x in zip(recvs, xs)]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The dry-run's production mesh, rank 0's view of it: one pod (16,
+    16) over ("data", "model"), or two (2, 16, 16) over ("pod", "data",
+    "model"), the pod axis crossing DCN.  A dry mesh: 256 or 512 ranks
+    need no process group to lower a step."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh.dry(shape, axes)
+
+
+def mesh_dims(mesh: Mesh) -> Tuple[int, int, int]:
+    """(pods, dp, tp) of a ("pod"?, ["node",] "data", "model") mesh."""
+    sizes = dict(zip(mesh.axes, mesh.shape))
+    return sizes.get("pod", 1), sizes.get("data", 1), sizes.get("model", 1)
+
+
+def mesh_nodes(mesh: Mesh) -> int:
+    """The node axis's size (1 when the mesh has none)."""
+    return dict(zip(mesh.axes, mesh.shape)).get("node", 1)
 
 
 def without_node(mesh: Mesh, node: int) -> Tuple[int, ...]:
@@ -307,11 +490,15 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
         ctx.mesh, ctx.axis = mesh, axis
+        ctx.traced = mesh.traced_now
         return mesh.all_reduce(x, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.all_reduce(g, ctx.axis), None, None
+        scope = (contextlib.nullcontext() if ctx.traced
+                 else ctx.mesh.untraced())
+        with scope:
+            return ctx.mesh.all_reduce(g, ctx.axis), None, None
 
 
 # ---------------------------------------------------------------------------

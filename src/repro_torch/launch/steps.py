@@ -50,8 +50,12 @@ the rank's device, updated in place), the GLOBAL token ``[B, 1]`` (numpy
 or a CPU tensor; this rank's rows go to its device per
 ``input_partition_specs``) and the position as a host int, and returns
 this rank's local-vocab logits ``[B_local, V_local]`` and the cache,
-under ``torch.no_grad()``.  Each build returns a fresh closure (the
-reference's fresh ``jax.jit``); nothing is compiled.
+under ``torch.no_grad()``.  The token's rows split over the data axis
+alone (``input_partition_specs``): a node or pod axis replicates the
+decode wave.  Each build returns a fresh closure (the reference's fresh
+``jax.jit``); nothing is compiled.  Every step callable also takes
+``meta`` tensors (a step lowered by the dry-run, ``StepProgram.lower``):
+a meta batch stays meta on any device.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.convert import ep_sharded, shard_params
 from repro_torch.core.communicator import CommConfig
@@ -68,7 +73,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.tp import ParallelCtx
 from repro_torch.models.transformer import (decode_step, forward,
                                             lm_logits_local, param_specs)
-from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.adamw import AdamWConfig, AdamWState
 from repro_torch.runtime.program import StepProgram
 from repro_torch.train.train_step import make_train_step
 
@@ -117,9 +122,18 @@ def local_params(params, specs, ctx: ParallelCtx):
                         ep=ctx.ep_size if ep else 1)
 
 
+def _on(v, device) -> torch.Tensor:
+    """``v`` (numpy, or a tensor) as a tensor on ``device``; a ``meta``
+    tensor (a lowered step's) stays meta."""
+    if not torch.is_tensor(v):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return v if v.device.type == "meta" else v.to(device)
+
+
 def local_batch(batch: Dict[str, np.ndarray], ctx: ParallelCtx,
                 device) -> Dict[str, torch.Tensor]:
-    """This rank's rows of a global batch, as tensors on ``device``: shard
+    """This rank's rows of a global batch (numpy arrays, or tensors), as
+    tensors on ``device`` (``meta`` ones stay meta): shard
     ``(pod * nodes + node) * dp + data`` of ``dp * nodes * pods``
     (``shapes.batch_axes``' outermost-major order)."""
     dp, nodes = max(ctx.dp_size, 1), max(ctx.node_size, 1)
@@ -131,9 +145,53 @@ def local_batch(batch: Dict[str, np.ndarray], ctx: ParallelCtx,
             raise ValueError(f"batch {k!r}: {v.shape[0]} rows do not divide "
                              f"over {shards} data ranks")
         rows = v.shape[0] // shards
-        out[k] = torch.from_numpy(np.ascontiguousarray(
-            v[i * rows:(i + 1) * rows])).to(device)
+        out[k] = _on(v[i * rows:(i + 1) * rows], device)
     return out
+
+
+def local_inputs(tree, specs, mesh):
+    """This rank's block of a GLOBAL input tree (the dry-run's meta
+    caches) by ``shapes.input_partition_specs``-style specs: each dim
+    whose entry names an axis, or a tuple of axes outermost first, is cut
+    at the rank's (combined) index over them.  Axes the mesh lacks are
+    replicated."""
+    if isinstance(tree, dict):
+        return {k: local_inputs(v, specs[k], mesh) for k, v in tree.items()}
+    for d, entry in enumerate(specs):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        axes = tuple(a for a in axes if a in mesh.axes)
+        if not axes:
+            continue
+        ways, i = 1, 0
+        for a in axes:
+            ways *= mesh.axis_size(a)
+            i = i * mesh.axis_size(a) + mesh.axis_index(a)
+        n = tree.shape[d] // ways
+        tree = tree.narrow(d, i * n, n)
+    return tree.contiguous()
+
+
+def opt_state_specs(psp) -> AdamWState:
+    """The optimizer state's spec tree: the moments shard as the params,
+    the step counter is replicated."""
+    return AdamWState(step=(), mu=psp, nu=psp)
+
+
+def eval_shape_params(cfg: ArchConfig):
+    """The GLOBAL param tree as ``meta`` tensors: shapes and dtypes, no
+    allocation (the dry-run's; ``local_params`` cuts a rank's shards)."""
+    from repro_torch.models.transformer import init_params
+    return init_params(cfg, None, "meta")
+
+
+def eval_shape_opt_state(params) -> AdamWState:
+    """The AdamW state of a (meta) param tree as ``meta`` tensors: float32
+    moments of the params' shapes and an int32 step counter."""
+    def moment(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      mu=pytree.tree_map(moment, params),
+                      nu=pytree.tree_map(moment, params))
 
 
 def _train_builder(cfg: ArchConfig, mesh, *, comm: Optional[CommConfig],
@@ -217,8 +275,8 @@ def build_prefill_program(cfg: ArchConfig, mesh=None, *,
 
 
 def _serve_builder(cfg: ArchConfig, mesh, shape: SH.InputShape, *,
-                   comm: Optional[CommConfig], device):
-    ctx = make_ctx(mesh, comm)
+                   comm: Optional[CommConfig], device, cluster=None):
+    ctx = make_ctx(mesh, comm, cluster=cluster)
     dcfg = SH.decode_config(cfg, shape, tp=ctx.tp_size, dp=ctx.dp_size)
     split = SH.input_partition_specs(cfg, shape, tp=ctx.tp_size,
                                      dp=ctx.dp_size)["token"][0]
@@ -226,9 +284,16 @@ def _serve_builder(cfg: ArchConfig, mesh, shape: SH.InputShape, *,
 
     def builder():
         def serve(params, cache, token, pos: int):
-            token = np.array(token)           # numpy or a CPU tensor
-            tok = (local_batch({"token": token}, ctx, dev)["token"]
-                   if split else torch.from_numpy(token).to(dev))
+            if not torch.is_tensor(token) or token.device.type != "meta":
+                token = np.array(token)       # numpy or a CPU tensor
+            tok = _on(token, dev)
+            if split:                         # rows over the data axis
+                n, i = max(ctx.dp_size, 1), ctx.dp_index()
+                if tok.shape[0] % n:
+                    raise ValueError(f"token: {tok.shape[0]} rows do not "
+                                     f"divide over {n} data ranks")
+                rows = tok.shape[0] // n
+                tok = tok[i * rows:(i + 1) * rows]
             with torch.no_grad():
                 return decode_step(params, cache, tok, int(pos), cfg, ctx,
                                    dcfg)
@@ -248,8 +313,8 @@ def build_serve_step(cfg: ArchConfig, mesh, shape: SH.InputShape, *,
 
 def build_serve_program(cfg: ArchConfig, mesh, shape: SH.InputShape, *,
                         comm: Optional[CommConfig] = None, name: str = "",
-                        device="cuda"):
+                        device="cuda", cluster=None):
     """The serve step as a StepProgram, its ctx and its DecodeConfig."""
     builder, ctx, dcfg = _serve_builder(cfg, mesh, shape, comm=comm,
-                                        device=device)
+                                        device=device, cluster=cluster)
     return StepProgram(builder, ctx, name=name), ctx, dcfg

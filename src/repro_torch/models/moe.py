@@ -20,15 +20,16 @@ arch (``MoEConfig.impl``):
            row-parallel combine is a FlexLink all-reduce.  Mixtral.
 
 Dispatch is capacity-based and one-hot-free, as the reference's: tokens
-are ranked within their expert by a stable argsort and a bincount, then
-scattered into [n_experts * capacity, d] buffers; tokens beyond capacity
-fall back to the residual path.  Ties keep the reference's order:
-``lax.top_k`` puts the lower index first, so the top-k is a stable
-descending sort cut to k (``torch.topk`` promises no order), and the
-argsorts are stable.  Every dropped token adds an exact zero to slot
-``E * cap - 1``, so the scatter-add is exact in any order.  The expert
-FFN is three batched products (``torch.matmul``), as the reference's
-einsums outside any kernel.
+are ranked within their expert by a stable argsort and per-expert counts
+(``index_add_``, which meta tensors take; ``bincount`` has no meta
+kernel), then scattered into [n_experts * capacity, d] buffers; tokens
+beyond capacity fall back to the residual path.  Ties keep the
+reference's order: ``lax.top_k`` puts the lower index first, so the
+top-k is a stable descending sort cut to k (``torch.topk`` promises no
+order), and the argsorts are stable.  Every dropped token adds an exact
+zero to slot ``E * cap - 1``, so the scatter-add is exact in any order.
+The expert FFN is three batched products (``torch.matmul``), as the
+reference's einsums outside any kernel.
 """
 
 from __future__ import annotations
@@ -79,7 +80,9 @@ def dispatch_indices(experts: torch.Tensor, n_experts: int, capacity: int):
     tk = experts.shape[0]
     order = torch.argsort(experts, stable=True)
     sorted_e = experts[order]
-    counts = torch.bincount(experts, minlength=n_experts)
+    counts = torch.zeros(n_experts, dtype=experts.dtype,
+                         device=experts.device).index_add_(
+        0, experts, torch.ones_like(experts))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_expert = torch.arange(tk, device=experts.device) \
         - starts[sorted_e]

@@ -198,11 +198,14 @@ class ParallelCtx:
 
     @contextlib.contextmanager
     def unrecorded(self):
-        """Every communicator's :meth:`FlexCommunicator.unrecorded` scope:
-        the calls inside repeat ones the step's trace already recorded."""
+        """Every communicator's :meth:`FlexCommunicator.unrecorded` scope,
+        and the mesh's :meth:`~repro_torch.launch.mesh.Mesh.untraced`: the
+        calls inside repeat ones the step's trace already recorded."""
         with contextlib.ExitStack() as stack:
             for comm in self.comms():
                 stack.enter_context(comm.unrecorded())
+            if self.mesh is not None:
+                stack.enter_context(self.mesh.untraced())
             yield
 
     # -- StepProgram registration (runtime/program.py, DESIGN.md §7) ----------
@@ -588,9 +591,12 @@ class ParallelCtx:
                         if a and n > 1)
         if not present:
             return {**sums, **means}
+        # on the mesh's device, or meta for a lowered step
+        dev = next((v.device for v in sums.values()
+                    if torch.is_tensor(v) and v.device.type == "meta"),
+                   self.mesh.device)
         vals = torch.stack([torch.as_tensor(v, dtype=torch.float32,
-                                            device=self.mesh.device
-                                            ).reshape(())
+                                            device=dev).reshape(())
                             for v in list(sums.values())
                             + list(means.values())])
         axis = present if len(present) > 1 else present[0]

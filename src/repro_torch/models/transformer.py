@@ -29,8 +29,12 @@ families:
 
 Activation checkpointing (the reference's ``jax.checkpoint`` around each
 scanned block, ``remat=True``) is ``torch.utils.checkpoint`` around each
-block; the reference's selective ``remat="dots"`` policy has no
-counterpart yet and raises.  ``init_params`` builds the GLOBAL tree with
+block.  ``remat="dots"`` is the reference's selective policy
+(``dots_saveable``): torch's selective checkpoint contexts save every
+matmul output (``aten.mm``, ``bmm``, ``addmm``) and the backward
+recomputes only the rest of the block; Whisper's encoder blocks stay
+fully checkpointed under it, as the reference's plain ``jax.checkpoint``
+there.  ``init_params`` builds the GLOBAL tree with
 the reference's keys and shapes, layers stacked on a leading [L] dim, so
 a reference tree carries over 1:1 (``convert.py``); a rank holds the
 local shards ``convert.shard_params`` cuts from it by ``param_specs``.
@@ -59,7 +63,8 @@ import functools
 from typing import Any, Dict, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -292,14 +297,41 @@ def _ssm_block(lp, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
     return x + h, _zero(x)
 
 
+#: the ops whose outputs ``remat="dots"`` saves (the reference's
+#: dot_general under ``dots_saveable``)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default})
+
+
+def _save_dots(_, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _recompute(selective, ctx: ParallelCtx):
+    """A checkpoint's recompute: unrecorded, under ``selective``."""
+    with selective, ctx.unrecorded():
+        yield
+
+
+def _remat_contexts(ctx: ParallelCtx, remat):
+    """(forward, recompute) contexts of one checkpointed block."""
+    if remat == "dots":
+        fwd, rec = create_selective_checkpoint_contexts(_save_dots)
+    else:
+        fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+    return fwd, _recompute(rec, ctx)
+
+
 def _apply(block, lp, x, cfg, ctx, remat):
-    """One block, checkpointed with ``remat`` (its recompute unrecorded):
-    (x, aux)."""
+    """One block, checkpointed with ``remat`` (True, or "dots": matmul
+    outputs saved; its recompute unrecorded): (x, aux)."""
     if not remat:
         return block(lp, x, cfg, ctx)
     return checkpoint(block, lp, x, cfg, ctx, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(),
-                                          ctx.unrecorded()))
+                      context_fn=functools.partial(_remat_contexts, ctx,
+                                                   remat))
 
 
 def _first_records(ctx: ParallelCtx, i: int):
@@ -354,10 +386,11 @@ def _hybrid_forward(p, x, cfg: ArchConfig, ctx: ParallelCtx, remat, aux):
 def _encoder_forward(p, enc_embed: torch.Tensor, cfg: ArchConfig,
                      ctx: ParallelCtx, remat=True) -> torch.Tensor:
     """Whisper's encoder: its own scan of bidirectional blocks over the
-    frame embeddings, then ``enc_norm``."""
+    frame embeddings, then ``enc_norm``.  Any truthy ``remat`` checkpoints
+    its blocks fully (the reference's plain ``jax.checkpoint`` here)."""
     enc, _ = _scan(p["enc_layers"], enc_embed,
                    functools.partial(_dense_block, causal=False), cfg, ctx,
-                   remat, _zero(enc_embed))
+                   bool(remat), _zero(enc_embed))
     return L.rms_norm(enc, p["enc_norm"], cfg.norm_eps)
 
 
@@ -368,10 +401,10 @@ def forward(p, tokens: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx, *,
     ``vis_embed`` [B, n_vis, D] (vlm) and ``enc_embed`` [B, n_frames, D]
     (encdec) are the frontend stubs, cast to the activation dtype.
     ``remat=True`` recomputes each block's activations in the backward
-    pass (one checkpoint per block); ``False`` keeps them."""
-    if remat not in (True, False):
-        raise NotImplementedError(f"remat={remat!r}: only True (per-layer "
-                                  f"checkpointing) and False are ported")
+    pass (one checkpoint per block); ``"dots"`` keeps each block's matmul
+    outputs and recomputes the rest; ``False`` keeps them all."""
+    if remat not in (True, False, "dots"):
+        raise ValueError(f"remat={remat!r}: True, False or 'dots'")
     x = embed_tokens(p, tokens, cfg, ctx)
     aux = _zero(x)
     fam = cfg.family

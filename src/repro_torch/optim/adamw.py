@@ -85,8 +85,9 @@ def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig,
     """One AdamW step, in place on ``params`` and the moments of
     ``state``.  decay_mask: tree of bools — False leaves skip weight decay
     (the default decays leaves of 2 or more dims).  Returns (params,
-    new state, {"grad_norm", "lr"})."""
-    step = int(state.step) + 1
+    new state, {"grad_norm", "lr"}).  A ``meta`` step counter (a step
+    lowered by the dry-run) counts as 0: the schedule changes no shape."""
+    step = (0 if state.step.device.type == "meta" else int(state.step)) + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_schedule(cfg, step)
@@ -113,7 +114,8 @@ def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig,
             if wd:
                 u.add_(ps.float(), alpha=wd)
             ps.copy_(ps.float() - lr * u)
-    new_state = AdamWState(torch.tensor(step, dtype=torch.int32),
+    new_state = AdamWState(torch.tensor(step, dtype=torch.int32,
+                                        device=state.step.device),
                            state.mu, state.nu)
     params = pytree.tree_unflatten(flat_p, spec)
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -13,8 +13,11 @@ its gradient buckets under ``ctx.issue`` from inside its own backward and
 joins them with ``ctx.await_all`` before its optimizer, so the buckets'
 sub-recorders (``name/g0``, ...) are in the program's family by the time
 :meth:`StepProgram.observe` replays it; :meth:`StepProgram.await_all`
-joins whole steps.  ``lower`` (the dry-run path) comes with the dry-run
-port.
+joins whole steps.  :meth:`StepProgram.lower` (the dry-run path) runs a
+fresh step once on ``meta`` arguments: no kernel runs, no byte is
+allocated and no wire is touched, and the mesh logs the collectives the
+step issues (``launch/mesh.py``'s trace log) where the reference reads
+them from the lowered HLO.
 
 Usage::
 
@@ -23,16 +26,22 @@ Usage::
     program.observe()                          # Stage-2 feedback
     out = program.step(*args)                  # or: both in one call
     program.issue(*args); program.await_all()  # or: in flight, then joined
+    lowered = program.lower(*meta_args)        # the dry-run's record
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import itertools
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
+from repro_torch.launch.mesh import TraceLog
 from repro_torch.runtime.exec_cache import DEFAULT_CAPACITY, ExecutableCache
 
 _PROGRAM_IDS = itertools.count()
@@ -55,6 +64,46 @@ class StepHandle:
         self.out = out
         self.t0 = t0
         self.ready = False
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in ``tree`` (``meta`` ones by their shape and
+    dtype; tensors reached twice count once)."""
+    seen, n = set(), 0
+    for t in pytree.tree_leaves(tree):
+        if torch.is_tensor(t) and id(t) not in seen:
+            seen.add(id(t))
+            n += t.numel() * t.element_size()
+    return n
+
+
+def meta_like(tree):
+    """``tree`` with every tensor and numpy array replaced by a ``meta``
+    tensor of its shape and dtype (the arguments :meth:`StepProgram.lower`
+    takes); other leaves pass unchanged."""
+    def meta(x):
+        if isinstance(x, np.ndarray):
+            dtype = torch.from_numpy(np.empty(0, x.dtype)).dtype
+            return torch.empty(x.shape, dtype=dtype, device="meta")
+        if torch.is_tensor(x):
+            return torch.empty(x.shape, dtype=x.dtype, device="meta")
+        return x
+    return pytree.tree_map(meta, tree)
+
+
+@dataclasses.dataclass
+class LoweredStep:
+    """What :meth:`StepProgram.lower` gives: the collectives the step
+    issued on this rank (``log.traced``: outside ``ctx.unrecorded()``,
+    the reference's scan body once; ``log.executed``: all), the bytes of
+    this rank's arguments and outputs, the plan signature of the slots
+    the step touched, and the wall of the lowering."""
+
+    log: TraceLog
+    argument_bytes: int
+    output_bytes: int
+    plan_signature: Tuple
+    lower_s: float
 
 
 class StepProgram:
@@ -182,6 +231,30 @@ class StepProgram:
         self.observe()
         return out
 
+    def lower(self, *args, **kwargs) -> LoweredStep:
+        """Run a freshly built step once on ``meta`` arguments (the
+        dry-run path): the same builder as a live call, under a scratch
+        recorder ``name/lower`` that is unregistered afterwards, so the
+        replay log a later live call feeds to Stage 2 stays as it was.
+        The step's collectives log into a trace scope of the ctx's mesh.
+        The result is not cached (it is not a callable)."""
+        fn = self._builder()
+        mesh = getattr(self.ctx, "mesh", None)
+        scratch = self.ctx.register_program(f"{self.name}/lower")
+        t0 = time.perf_counter()
+        try:
+            with contextlib.ExitStack() as stack:
+                log = (stack.enter_context(mesh.tracing())
+                       if mesh is not None else TraceLog())
+                stack.enter_context(self.ctx.recording(scratch))
+                out = fn(*args, **kwargs)
+            sig = self.ctx.plan_signature(scratch)
+        finally:
+            self.ctx.unregister_program(scratch)
+        return LoweredStep(log=log, argument_bytes=tree_bytes((args, kwargs)),
+                           output_bytes=tree_bytes(out), plan_signature=sig,
+                           lower_s=time.perf_counter() - t0)
+
     def close(self) -> None:
         """Retire the program: drop its recorders and cached callables."""
         self.ctx.unregister_program(self.name)
@@ -202,3 +275,15 @@ class StepProgram:
                 "plan_rekeys": self._plan_rekeys,
                 "shape_buckets": sorted(self._shape_keys)}
 
+
+
+@contextlib.contextmanager
+def program_scope(builder: Callable[[], Callable], ctx, **kwargs):
+    """``with program_scope(builder, ctx) as prog:`` — a StepProgram that
+    unregisters its recorders on exit (for tools and tests that build
+    programs against long-lived memoized communicators)."""
+    prog = StepProgram(builder, ctx, **kwargs)
+    try:
+        yield prog
+    finally:
+        prog.close()

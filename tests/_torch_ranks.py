@@ -1596,3 +1596,55 @@ def pod(case):
 
     comm_destroy_all()
     return out
+
+
+def lowered_vs_live(pinned: str, cases: dict):
+    """tests/test_torch_dryrun.py on this rank of a (data=2, model=2)
+    mesh: for each case, the program ``StepProgram.lower`` lowers on meta
+    arguments, then one live call of it on the same shapes under a trace
+    scope of the mesh; the two logs and plan signatures come back.  Both
+    axes' all-reduce slots are pinned by ``pinned`` to three routes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.communicator import CommConfig, comm_destroy_all
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import (build_serve_program,
+                                          build_train_program, local_params,
+                                          rank_specs)
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.optim.adamw import init_state
+    from repro_torch.runtime.program import meta_like
+    mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+    cfg = get_config("glm4-9b").reduced()
+    out = {}
+    for name, c in cases.items():
+        comm_destroy_all()
+        comm = CommConfig(profile="h100", tuning_cache=pinned)
+        if c["kind"] == "train":
+            program, ctx = build_train_program(
+                cfg, mesh, comm=comm, name=name, bucket_mb=c["bucket_mb"],
+                device="cpu")
+        else:
+            program, ctx, dcfg = build_serve_program(
+                cfg, mesh, InputShape(name, "decode", c["seq"],
+                                      c["batch"]),
+                comm=comm, name=name, device="cpu")
+        params = local_params(init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"),
+            rank_specs(cfg, ctx), ctx)
+        if c["kind"] == "train":
+            args = (params, init_state(params), c["batch"])
+        else:
+            cache = init_cache(cfg, ctx, dcfg, c["batch"] // 2,
+                               device="cpu")
+            args = (params, cache, c["token"], c["pos"])
+        lowered = program.lower(*meta_like(args))
+        with mesh.tracing() as live:
+            program(*args)
+        sig = ctx.plan_signature(name)
+        program.observe()
+        program.close()
+        out[name] = {"lowered": (lowered.log.traced, lowered.log.executed),
+                     "live": (live.traced, live.executed),
+                     "signatures": (lowered.plan_signature, sig)}
+    comm_destroy_all()
+    return out

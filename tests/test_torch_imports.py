@@ -185,3 +185,81 @@ def test_serve_launcher_refuses_tensor_parallel(monkeypatch, paged):
     with pytest.raises(ValueError, match="one-device.*build_serve_program"):
         serve.main(["--smoke", "--device", "cpu", "--paged", paged,
                     "--requests", "1"])
+
+
+def test_the_dryrun_slice_is_checked():
+    """The dry-run's modules are among those checked above: the driver,
+    the roofline (analytic model, the card's summary), the dry mesh, the
+    step helpers and ``StepProgram.lower``."""
+    for m in ("repro_torch.launch.dryrun", "repro_torch.roofline",
+              "repro_torch.roofline.analytic",
+              "repro_torch.roofline.analysis", "repro_torch.launch.mesh",
+              "repro_torch.launch.steps", "repro_torch.runtime.program"):
+        assert m in MODULES, m
+
+
+def test_dry_mesh_refuses_a_cpu_tensor():
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh.dry((2, 2), ("data", "model"))
+    with pytest.raises(ValueError, match="meta tensors only"):
+        mesh.all_reduce(torch.ones(4), "model")
+    out = mesh.all_reduce(torch.ones(4, device="meta"), "model")
+    assert out.device.type == "meta" and out.shape == (4,)
+
+
+def test_ops_send_meta_to_the_plain_version_and_cpu_never_to_a_kernel(
+        monkeypatch):
+    """kernels/ops.py: a meta operand takes the plain version (shapes and
+    dtypes only), a CPU one too; neither ever reaches a kernel wrapper."""
+    import torch
+    from repro_torch.kernels import chunk_accumulate as ca
+    from repro_torch.kernels import codec, flash_decode, ops, ref
+    from repro_torch.kernels import payload_partition as pp
+    plain = []
+    for name in ("chunk_accumulate_ref", "bf16_pack_ref", "fp8_encode_ref",
+                 "fp8_decode_ref", "fp8_decode_accumulate_ref",
+                 "extract_segment_ref", "merge_segments_ref",
+                 "paged_flash_decode_ref"):
+        fn = getattr(ref, name)
+        monkeypatch.setattr(ref, name, lambda *a, _n=name, _f=fn, **k: (
+            plain.append(_n), _f(*a, **k))[1])
+
+    def kernel(*a, **k):
+        raise AssertionError("a kernel wrapper was called")
+    for mod, names in ((ca, ("chunk_accumulate",
+                             "chunk_accumulate_segments")),
+                       (codec, ("bf16_pack", "bf16_pack_segments",
+                                "fp8_encode", "fp8_decode",
+                                "fp8_decode_accumulate")),
+                       (pp, ("extract", "merge")),
+                       (flash_decode, ("paged_flash_decode_pool",))):
+        for n in names:
+            monkeypatch.setattr(mod, n, kernel)
+    for dev in ("meta", "cpu"):
+        plain.clear()
+        a = torch.ones(256, device=dev)
+        b = torch.ones(256, dtype=torch.bfloat16, device=dev)
+        outs = [ops.accumulate(a, a), ops.accumulate_many([a], [a])[0],
+                ops.wire_roundtrip(a, codec_name="fp8_e4m3"),
+                ops.wire_encode_many([a], codec_name="bf16_pack")[0][0],
+                ops.wire_decode_accumulate(
+                    *ops.wire_encode(a, codec_name="fp8_e4m3"), a,
+                    codec_name="fp8_e4m3"),
+                ops.wire_decode_accumulate(b, None, a,
+                                           codec_name="bf16_pack"),
+                ops.extract_segment(a, 0, 1, block=128),
+                ops.merge_segments([a[:128], a[128:]], block=128)]
+        q = torch.ones((2, 4, 8), device=dev)
+        pool = torch.ones((3, 4, 2, 8), device=dev)
+        tables = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+        valid = torch.ones(2, dtype=torch.int32, device=dev)
+        outs.append(ops.paged_flash_decode(q, pool, pool, tables, valid))
+        assert all(o.device.type == dev for o in outs)
+        assert outs[-1].shape == (2, 4, 8)
+        assert [o.shape[0] for o in outs[:6]] == [256] * 6
+        assert set(plain) >= {"chunk_accumulate_ref", "fp8_encode_ref",
+                              "fp8_decode_ref", "fp8_decode_accumulate_ref",
+                              "bf16_pack_ref", "extract_segment_ref",
+                              "merge_segments_ref",
+                              "paged_flash_decode_ref"}
