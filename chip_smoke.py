@@ -269,8 +269,9 @@ non-zero:
    tier's plans on all three routes, K1 launches equal to what the
    executed plans imply, wall time a call; a (data=4) cluster with the
    intra tier alone gives the bare communicator's plan signature and
-   bits; (b) Whisper-medium at its published widths and depth, bf16,
-   seed 0, 8 rows a rank, 2 flexlink steps on (node=2, data=2) and on
+   bits; (b) Whisper-medium at its published widths, depth cut 24 + 24
+   -> 12 + 12, bf16, seed 0, 8 rows a rank, 2 flexlink steps on (node=2,
+   data=2) and on
    (data=4): losses equal on every rank, the cluster run within 5e-3 of
    the flat one (the reference's own bound), K1 = the plans', peak
    memory, wall time; then every K1 segment table of (a) and (b) against
@@ -312,19 +313,33 @@ non-zero:
    drawing only its own experts (seeded per expert; 4.2 GB a rank),
    forward and the backward to its input, output and input gradient bit
    for bit between the rail-local and the flat dispatch, all_to_alls a
-   pass and peak memory; then on 4 gloo ranks (d) Whisper-medium whole
-   through the train launcher's rank path with ``--pods 2 --nodes 2
-   --mesh-shape 1,1`` (the NIC and spine tiers, no intra tier), phase 20
-   (b)'s model, batch, seed and steps: losses within 5e-3 of phase 20
-   (b)'s (data=4) ones, every rank's report with the pod tier, K1 = the
-   plans'; then every K1 segment table of (a) and (d) against the plain
-   version, bit for bit;
+   pass and peak memory; then on 4 gloo ranks (d) phase 20 (b)'s
+   Whisper-medium (12 + 12 layers) through the train launcher's rank path
+   with ``--pods 2 --nodes 2 --mesh-shape 1,1`` (the NIC and spine tiers,
+   no intra tier), phase 20 (b)'s batch, seed and steps: losses within
+   5e-3 of phase 20 (b)'s (data=4) ones, every rank's report with the pod
+   tier, K1 = the plans'; then every K1 segment table of (a) and (d)
+   against the plain version, bit for bit;
 23. the dry-run (``python -m repro_torch.launch.dryrun``, no card, no
    rank): glm4-9b ``decode_32k`` on the production mesh (16, 16) and
    ``train_4k --mesh-split 2,4``, both started beside phase 1's build
    and read here, both ``ok``; each record's collective structure,
    argument bytes, the roofline's terms at the H100's datasheet peaks,
-   its lowering wall and its run's are printed.
+   its lowering wall and its run's are printed;
+24. the port's four examples (``examples/*_torch.py``), each a subprocess
+   from the repository root with ``PYTHONPATH=src``, read here: the
+   tuning demo (no card; started beside phase 1's build), and, started
+   side by side beside phase 21, ``quickstart_torch.py --dist gloo`` (8
+   ranks on the card), ``serve_decode_torch.py`` (one process) and
+   ``train_lm_torch.py --dist gloo --steps 2`` (8 ranks on (data=2,
+   model=4)): each exits 0
+   and prints its asserted line (the predicted Stage-1 line for the
+   demo); every process they start logs its kernel launches and peak
+   card memory at exit (``REPRO_TORCH_KERNEL_LOG``, kernels/__init__.py),
+   and the phase prints each run's wall, its peak a process and the
+   K1-K7 launches it saw (float32 paths, no paged pool, no ``execute``
+   call of K7: 0 each expected; a count that is not 0 is printed with
+   its example, not failed).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  The launches in that line are the
@@ -364,6 +379,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1562,7 +1578,8 @@ def codec_launches(plan, n: int, dtype) -> collections.Counter:
 
 def _kernel_counts(reset=False):
     """This process's K1-K5 and K7 launch counts (set to 0 first with
-    reset)."""
+    reset), as ``kernels.launch_counts`` names them."""
+    from repro_torch import kernels
     from repro_torch.kernels import chunk_accumulate as ca
     from repro_torch.kernels import codec
     from repro_torch.kernels import payload_partition as pp
@@ -1573,11 +1590,9 @@ def _kernel_counts(reset=False):
         ca.launch_count.clear()
         ca.segment_paths.clear()
         codec.segment_paths.clear()
-    mixed = ca.launch_count[ca.MIXED]
-    return collections.Counter({**codec.launch_count, "k1_mixed": mixed,
-                                "k1": sum(ca.launch_count.values()) - mixed,
-                                "k7a": pp.launch_count["extract"],
-                                "k7b": pp.launch_count["merge"]})
+    counts = kernels.launch_counts()
+    del counts["k6"]
+    return collections.Counter(counts)
 
 
 def _segment_paths():
@@ -4676,6 +4691,20 @@ CLUSTER_ROWS = 8
 CLUSTER_VS_FLAT = 5e-3
 #: (b): steps of each run (3 until phase 21 needed the time)
 CLUSTER_STEPS = 2
+#: (b): Whisper-medium's depth, encoder and decoder each (24, its
+#: published depth, until phase 24 needed the time); phase 22 (d) trains
+#: the same model
+CLUSTER_DEPTH = 12
+
+
+def _cluster_whisper():
+    """Whisper-medium at its published widths, CLUSTER_DEPTH encoder and
+    CLUSTER_DEPTH decoder layers: the model of phases 20 (b) and 22 (d)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-medium")
+    return dataclasses.replace(
+        cfg, n_layers=CLUSTER_DEPTH, encdec=dataclasses.replace(
+            cfg.encdec, n_enc_layers=CLUSTER_DEPTH))
 
 
 def _pin_cluster(path: str) -> str:
@@ -4712,14 +4741,14 @@ def cluster_rank(pinned: str):
     ClusterCommunicator's hierarchical collectives at CLUSTER_BYTES of
     bfloat16 and float32 (``_pattern`` payloads, [rows, CLUSTER_COLS]),
     every executed plan and K1 call recorded, the kernel counts set to 0
-    just before and read just after; the N=1 parity on (data=4); (b) Whisper-medium whole,
-    bf16, seed 0, CLUSTER_STEPS flexlink steps on (node=2, data=2) and then
-    on (data=4), the same global batch."""
+    just before and read just after; the N=1 parity on (data=4); (b)
+    Whisper-medium at its widths (``_cluster_whisper``), bf16, seed 0,
+    CLUSTER_STEPS flexlink steps on (node=2, data=2) and then on (data=4),
+    the same global batch."""
     sys.path.insert(0, str(SRC))
     import dataclasses
     from repro_torch.cluster.communicator import ClusterCommunicator
     from repro_torch.cluster.topology import cluster_for
-    from repro_torch.configs import get_config
     from repro_torch.core.communicator import (CommConfig, FlexCommunicator,
                                                comm_destroy_all)
     from repro_torch.data.pipeline import make_batches
@@ -4783,7 +4812,7 @@ def cluster_rank(pinned: str):
     comm_destroy_all()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("whisper-medium")
+    cfg = _cluster_whisper()
     out["b"] = {}
     for name, m in (("cluster", mesh), ("flat", flat)):
         torch.cuda.reset_peak_memory_stats()
@@ -4917,8 +4946,9 @@ def phase20_cluster(card):
           f"vs flat {fl['losses']}: {gap:.3g} > {CLUSTER_VS_FLAT}")
     k1_b = sum(r["k1"] for r in b["cluster"])
     check(k1_b > 0, "20 (b): no K1 launch in the cluster run")
-    print(f"phase 20 (b): whisper-medium at its published widths and depth, "
-          f"bf16, seed 0, seq 128, {CLUSTER_ROWS} rows a rank, AdamW lr "
+    print(f"phase 20 (b): whisper-medium at its published widths (depth cut "
+          f"24 + 24 -> {CLUSTER_DEPTH} + {CLUSTER_DEPTH}), bf16, seed 0, seq "
+          f"128, {CLUSTER_ROWS} rows a rank, AdamW lr "
           f"{WHISPER_TRAIN_LR}, flexlink, {CLUSTER_STEPS} steps: on (node=2, "
           f"data=2) losses {cl['losses']} (equal on every rank), on "
           f"(data=4) {fl['losses']}, max gap {gap:.3g} (bound "
@@ -5597,13 +5627,15 @@ def pod_rank(pinned: str):
 def pod_train_rank(pinned: str):
     """One rank of phase 22 (d): the train launcher's rank path
     (``launch.train.train_rank``) with ``--arch whisper-medium --pods 2
-    --nodes 2 --mesh-shape 1,1``: phase 20 (b)'s model, batch, seed, lr
-    and steps, flexlink, the node and pod tiers pinned by ``pinned``;
-    every executed plan and K1 call recorded, the counts set to 0 just
-    before and read just after."""
+    --nodes 2 --mesh-shape 1,1``: phase 20 (b)'s model (the launcher's
+    config lookup answers ``_cluster_whisper()`` in this rank's process),
+    batch, seed, lr and steps, flexlink, the node and pod tiers pinned by
+    ``pinned``; every executed plan and K1 call recorded, the counts set
+    to 0 just before and read just after."""
     sys.path.insert(0, str(SRC))
     import types
     from repro_torch.launch import train as T
+    T.get_config = lambda arch: _cluster_whisper()
     args = types.SimpleNamespace(
         arch="whisper-medium", smoke=False, cluster="", nodes=2, pods=2,
         degrade="", fault="", device="cuda", backend="flexlink",
@@ -5781,7 +5813,8 @@ def phase22_pod(card, flat_losses):
           f"{flat_losses}: {gap:.3g} > {CLUSTER_VS_FLAT}")
     k1_d = sum(r["k1"] for r in train)
     check(k1_d > 0, "22 (d): no K1 launch")
-    print(f"phase 22 (d): whisper-medium at its published widths and depth "
+    print(f"phase 22 (d): whisper-medium at its published widths (depth cut "
+          f"24 + 24 -> {CLUSTER_DEPTH} + {CLUSTER_DEPTH}) "
           f"through the train launcher's rank path (--pods 2 --nodes 2 "
           f"--mesh-shape 1,1: the NIC and spine tiers, no intra tier), bf16, "
           f"seed 0, seq 128, {CLUSTER_ROWS} rows a rank, {CLUSTER_STEPS} "
@@ -5869,6 +5902,129 @@ def phase23_dryrun(card, runs: DryRuns):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the examples
+# ---------------------------------------------------------------------------
+
+#: train_lm_torch.py's steps: the reference example's 60 cut to the
+#: fewest whose loss still falls
+EXAMPLE_TRAIN_STEPS = 2
+#: phase 24's runs: name -> (script under examples/, its arguments, the
+#: processes it starts, those of them that use the card, a pattern of its
+#: asserted line)
+EXAMPLES = {
+    "flexlink_tuning_demo": ("flexlink_tuning_demo_torch.py", [], 1, 0,
+                             r"^  predicted: NCCL .* -> FlexLink "),
+    "quickstart": ("quickstart_torch.py", ["--dist", "gloo"], 9, 8,
+                   r"^multi-path all_gather == single-path reference "
+                   r"\(bit-exact\)"),
+    "serve_decode": ("serve_decode_torch.py", [], 1, 1,
+                     r"^served 7 requests in waves over zamba2-1.2b "),
+    "train_lm": ("train_lm_torch.py",
+                 ["--dist", "gloo", "--steps", str(EXAMPLE_TRAIN_STEPS)],
+                 9, 8,
+                 rf"^loss .* over {EXAMPLE_TRAIN_STEPS} steps on a \(2x4\) "
+                 r"mesh with the FlexLink backend$"),
+}
+#: the example that touches no card, started beside phase 1's build
+DEMO = "flexlink_tuning_demo"
+
+
+class ExampleRun:
+    """One of EXAMPLES as a subprocess from the repository root with
+    ``PYTHONPATH=src`` and ``REPRO_TORCH_KERNEL_LOG`` (each process it
+    starts, its spawned ranks included, logs its kernel launches and peak
+    card memory at exit); its wall taken when it exits.  Stopped at exit
+    whatever happens."""
+
+    def __init__(self, name: str, tmp: str):
+        script, argv, self.procs, self.card_procs, self.line = \
+            EXAMPLES[name]
+        self.name = name
+        self.log = pathlib.Path(tmp) / f"{name}.jsonl"
+        self.out = open(pathlib.Path(tmp) / f"{name}.out", "w+")
+        self.err = open(pathlib.Path(tmp) / f"{name}.err", "w+")
+        env = dict(os.environ, PYTHONPATH=str(SRC),
+                   REPRO_TORCH_KERNEL_LOG=str(self.log))
+        self.t0 = time.perf_counter()
+        self.wall = None
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / script), *argv],
+            cwd=ROOT, env=env, stdout=self.out, stderr=self.err, text=True)
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+        atexit.register(self.stop)
+
+    def _wait(self):
+        self.proc.wait()
+        self.wall = time.perf_counter() - self.t0
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        self.err.close()
+
+    def result(self, timeout: float) -> dict:
+        """Its exit code, wall, asserted line, the processes that logged,
+        their summed launches by kernel and the largest peak of those that
+        used the card (MiB; None when none did)."""
+        self.waiter.join(timeout)
+        check(not self.waiter.is_alive(), f"24: {self.name} still running "
+              f"after {timeout} s")
+        self.out.seek(0)
+        self.err.seek(0)
+        out, err = self.out.read(), self.err.read()
+        self.stop()
+        check(self.proc.returncode == 0, f"24: {self.name}: exit "
+              f"{self.proc.returncode}\n{out[-2000:]}\n{err[-3000:]}")
+        lines = [ln for ln in out.splitlines() if re.search(self.line, ln)]
+        check(len(lines) == 1, f"24: {self.name}: no line /{self.line}/ in "
+              f"{out[-2000:]}")
+        logs = [json.loads(ln) for ln in self.log.read_text().splitlines()]
+        check(len(logs) == self.procs, f"24: {self.name}: {len(logs)} "
+              f"processes logged, {self.procs} expected")
+        launches = collections.Counter()
+        for rec in logs:
+            launches.update(rec["launches"])
+        peaks = [rec["peak_bytes"] for rec in logs
+                 if rec["peak_bytes"] is not None]
+        check(len(peaks) == self.card_procs, f"24: {self.name}: "
+              f"{len(peaks)} processes used the card, {self.card_procs} "
+              f"expected")
+        return {"rc": self.proc.returncode, "wall_s": self.wall,
+                "line": lines[0].strip(), "procs": len(logs),
+                "card_procs": len(peaks), "launches": dict(launches),
+                "peak_mib": max(peaks) / 2 ** 20 if peaks else None}
+
+
+def phase24_examples(card, runs: dict):
+    """Reads ``runs`` (ExampleRun by name): the tuning demo, started beside
+    phase 1's build (no card), and the three examples that use the card,
+    started side by side beside phase 21: every run exits 0 with its
+    asserted line, every process it starts logged.  Returns each run's
+    result (``ExampleRun.result``) and their launches summed."""
+    t_phase = time.perf_counter()
+    res = {name: run.result(600) for name, run in runs.items()}
+    total = collections.Counter()
+    for name, r in res.items():
+        total.update(r["launches"])
+        script, argv = EXAMPLES[name][:2]
+        beside = "phase 1's build" if name == DEMO else "phase 21"
+        peak = ("no card" if r["peak_mib"] is None else
+                f"peak {r['peak_mib']:.3f} MiB (the largest of its "
+                f"{r['card_procs']} processes on the card)")
+        launched = {k: v for k, v in r["launches"].items() if v}
+        note = f" (not 0: {launched}, launched by {name})" if launched else ""
+        print(f"phase 24: {' '.join([script, *argv])}: exit {r['rc']}, wall "
+              f"{r['wall_s']:.1f} s (beside {beside}), processes "
+              f"{r['procs']}, {peak}; kernel launches {r['launches']}{note}; "
+              f"asserted: {r['line']!r}; {card}")
+    print(f"phase 24: K1-K7 launches over the four examples {dict(total)}; "
+          f"read in {time.perf_counter() - t_phase:.1f} s")
+    return res, total
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -5897,6 +6053,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     marks = [("start", t_start)]
     dryruns = DryRuns()
+    examples_tmp = tempfile.mkdtemp(dir=ROOT)
+    atexit.register(shutil.rmtree, examples_tmp, ignore_errors=True)
+    examples = {DEMO: ExampleRun(DEMO, examples_tmp)}
 
     def mark(name):
         """Each phase's wall time, printed together at the end."""
@@ -5954,6 +6113,10 @@ def main(argv=None) -> int:
     (cluster_k1, cluster_train_k1, cluster_k1_err, cluster_tables,
      flat_losses) = phase20_cluster(card)
     mark("20")
+    # the examples that use the card, side by side beside phase 21 (their
+    # 17 processes mostly import and spawn; read in phase 24)
+    examples.update({name: ExampleRun(name, examples_tmp)
+                     for name in EXAMPLES if name != DEMO})
     fault_k1, elastic_k1, fault_k1_err, fault_tables = phase21_faults(card)
     mark("21")
     pod_k1, pod_train_k1, pod_k1_err, pod_tables = phase22_pod(card,
@@ -5961,6 +6124,8 @@ def main(argv=None) -> int:
     mark("22")
     phase23_dryrun(card, dryruns)
     mark("23")
+    _, example_launches = phase24_examples(card, examples)
+    mark("24")
     kernels = [{
         "name": "paged_flash_decode",
         "route": "cuda",
@@ -6088,6 +6253,16 @@ def main(argv=None) -> int:
     kernels += [_k7_row(name, line, k7_err, k7_rows)
                 for name, line in (("extract_segment", 36),
                                    ("merge_segments", 59))]
+    # phase 24's launches by row: each row's kernel, K1's float32 + bf16
+    # pairs in its mixed block
+    example_key = {"paged_flash_decode": "k6", "chunk_accumulate": "k1",
+                   "extract_segment": "k7a", "merge_segments": "k7b"}
+    for row in kernels:
+        row["launches_examples"] = example_launches[
+            example_key.get(row["name"], row["name"])]
+        if row["name"] == "chunk_accumulate":
+            row["mixed_f32_bf16"]["launches_examples"] = \
+                example_launches["k1_mixed"]
     for row in kernels:
         if row.get("kernel") in ("K7a", "K7b"):
             got = k7_launches[row["kernel"].lower()]

@@ -241,3 +241,16 @@ class Checkpointer:
         if opt_template is not None:
             opt = _unflatten_into(opt_template, flat, "opt" + _SEP)
         return params, opt, meta
+
+    def restore_latest(self, params_template, opt_template=None
+                       ) -> Tuple[Any, Any, Dict, int]:
+        """The newest snapshot and its step: :meth:`restore` with
+        ``step=None``, plus the step the snapshot's meta records (the
+        reference's ``Checkpointer.restore_latest``, checkpointer.py:128).
+        Raises FileNotFoundError when the directory holds none."""
+        step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        params, opt, meta = self.restore(params_template, opt_template,
+                                         step)
+        return params, opt, meta, int(meta.get("step", step))

@@ -4,9 +4,10 @@ torch process groups (port of ``src/repro/core/``).
 ``links``, ``topology``, ``simulator``, ``tuner``, ``balancer``,
 ``pipeline`` and ``codecs`` are plain-Python copies of the reference's
 modules; ``collectives``, ``routing`` and ``communicator`` are ports.  The
-names below are re-exported lazily (PEP 562), so importing this package
-loads none of them, and the control plane (``repro_torch.control``) can
-import the core leaf modules without re-entering it.
+names below, and the ``collectives`` module, are re-exported lazily (PEP
+562), so importing this package loads none of them, and the control plane
+(``repro_torch.control``) can import the core leaf modules without
+re-entering it.
 """
 
 _EXPORTS = {
@@ -24,8 +25,10 @@ _EXPORTS = {
 
 
 def __getattr__(name):
+    import importlib
     if name in _EXPORTS:
-        import importlib
         mod = importlib.import_module(f"{__name__}.{_EXPORTS[name]}")
         return getattr(mod, name)
+    if name == "collectives":       # the module itself, as the reference's
+        return importlib.import_module(f"{__name__}.collectives")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -416,3 +416,22 @@ def ortho_all_reduce(x: torch.Tensor, mesh, axis: str, ortho: str, *,
     if mesh.axis_size(ortho) <= 1:
         return mesh.all_reduce(x, axis)
     return _detour(x, mesh, ortho, lambda g: mesh.all_reduce(g, axis), codec)
+
+
+# ---------------------------------------------------------------------------
+# flex_* re-exports: the multi-path collectives live in the RoutePlan engine
+# (routing.py), which builds on the primitives above; importing them lazily
+# (PEP 562) avoids the module cycle and keeps the reference's
+# ``collectives.flex_all_gather`` spelling (reference collectives.py:526).
+# Their signatures are routing's: the mesh is the second argument.
+# ---------------------------------------------------------------------------
+
+_ROUTED = ("flex_all_reduce", "flex_all_gather", "flex_reduce_scatter",
+           "flex_all_to_all", "RoutePlan", "build_plan", "execute")
+
+
+def __getattr__(name: str):
+    if name in _ROUTED:
+        from repro_torch.core import routing
+        return getattr(routing, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

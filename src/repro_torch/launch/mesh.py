@@ -7,7 +7,8 @@ inside ``shard_map``; here every rank is a process, and a :class:`Mesh`
 maps each axis name to the process groups of this rank's line along it.
 Ranks take mesh coordinates in the order ``jax.make_mesh`` gives devices:
 row-major over the axis tuple, so rank r sits at
-``np.unravel_index(r, shape)``.
+``np.unravel_index(r, shape)``.  Axis names are free, as
+``jax.make_mesh``'s are (the quickstart's mesh is ``("x", "y")``).
 
 Each axis has two channels, each its own process group over the same
 ranks: ``"primary"`` carries the native collective and ``"staged"`` the
@@ -71,8 +72,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-#: axis names the reference's meshes use, outermost first
-AXES = ("pod", "node", "data", "model")
 #: the axes a gradient plane may have, outermost first: what a step's
 #: gradients and metrics sum over
 PLANE = ("pod", "node", "data")
@@ -217,9 +216,6 @@ class Mesh:
         shape, axes = tuple(int(s) for s in shape), tuple(axes)
         if len(shape) != len(axes) or len(set(axes)) != len(axes):
             raise ValueError(f"mesh shape {shape} and axes {axes} differ")
-        for a in axes:
-            if a not in AXES:
-                raise ValueError(f"unknown mesh axis {a!r}; one of {AXES}")
         self.shape = shape
         self.axes = axes
         self.ranks = ranks
@@ -525,6 +521,25 @@ def _rank_main(fn, rank, world, backend, device, port, timeout_s, args,
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def device_error(device: str, backend: str = "gloo",
+                 world: int = 1) -> Optional[str]:
+    """Why ``world`` ranks cannot run on ``device`` (``cuda[:i]`` or
+    ``cpu``) over ``backend``, or None when they can.  An entry point
+    prints it and exits 2: none falls back to the CPU or to another
+    backend.  ``nccl`` puts one rank on each card."""
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        return (f"--device {device} but no CUDA card is present; pass "
+                f"--device cpu to run on the CPU")
+    if world > 1 and backend == "nccl":
+        if not device.startswith("cuda"):
+            return ("--dist nccl needs --device cuda; use --dist gloo on "
+                    "the CPU")
+        if torch.cuda.device_count() < world:
+            return (f"--dist nccl runs one card per rank: {world} ranks, "
+                    f"{torch.cuda.device_count()} cards")
+    return None
 
 
 def run_ranks(fn: Callable[..., Any], world: int, *, backend: str = "gloo",

@@ -142,11 +142,12 @@ def main(argv=None) -> int:
                          "line up with three-tier launches")
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print(f"error: --device {args.device} but no CUDA card is present; "
-              f"pass --device cpu to serve on the CPU", file=sys.stderr)
+    from repro_torch.launch.mesh import device_error
+    err = device_error(args.device)
+    if err:
+        print(f"error: {err}", file=sys.stderr)
         return 2
+    device = torch.device(args.device)
 
     cfg = get_config(args.arch)
     if args.smoke:

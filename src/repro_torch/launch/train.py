@@ -305,26 +305,16 @@ def main(argv=None) -> int:
         print(f"error: --batch {args.batch} does not divide over "
               f"{shards} data ranks", file=sys.stderr)
         return 2
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        print(f"error: --device {args.device} but no CUDA card is present; "
-              f"pass --device cpu to train on the CPU", file=sys.stderr)
+    from repro_torch.launch.mesh import device_error, run_ranks
+    err = device_error(args.device, args.dist, world)
+    if err:
+        print(f"error: {err}", file=sys.stderr)
         return 2
-    if world > 1 and args.dist == "nccl":
-        if not args.device.startswith("cuda"):
-            print("error: --dist nccl needs --device cuda; use --dist gloo "
-                  "on the CPU", file=sys.stderr)
-            return 2
-        if torch.cuda.device_count() < world:
-            print(f"error: --dist nccl runs one card per rank: {world} "
-                  f"ranks, {torch.cuda.device_count()} cards",
-                  file=sys.stderr)
-            return 2
 
     if world > 1:
         # by its module's name, so spawned ranks unpickle it under
         # ``python -m`` too
         from repro_torch.launch import train as this
-        from repro_torch.launch.mesh import run_ranks
         device = "cuda" if args.device.startswith("cuda") else "cpu"
         args.device = device
         results = run_ranks(this.train_rank, world, backend=args.dist,

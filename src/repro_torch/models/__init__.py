@@ -6,4 +6,5 @@ from repro_torch.models.tp import ParallelCtx, single_device_ctx
 from repro_torch.models.transformer import (DecodeConfig, PagedConfig,
                                             decode_step, forward, init_cache,
                                             init_paged_pool, init_params,
-                                            lm_loss, paged_decode_step)
+                                            lm_loss, paged_decode_step,
+                                            param_specs)

@@ -179,6 +179,25 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def lse_merge(parts):
+    """Merge per-shard ``(acc [B,Hkv,g,Sq,hd], m, l [B,Hkv,g,Sq])``
+    attention partials (``chunked_attention(..., with_stats=True)``) into
+    the normalised ``[B,Hkv,g,Sq,hd]`` accumulator: a shard whose ``m`` is
+    -inf adds nothing, the normaliser is clamped at 1e-30 (the reference's
+    ``lse_merge``, layers.py:174)."""
+    m_glob = parts[0][1]
+    for _, m, _ in parts[1:]:
+        m_glob = torch.maximum(m_glob, m)
+    m_safe = torch.where(torch.isfinite(m_glob), m_glob, 0.0)
+    l_tot = torch.zeros_like(parts[0][2])
+    acc_tot = torch.zeros_like(parts[0][0])
+    for acc, m, l in parts:
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l_tot = l_tot + l * alpha
+        acc_tot = acc_tot + acc * alpha[..., None]
+    return acc_tot / torch.clamp(l_tot, min=1e-30)[..., None]
+
+
 # ---------------------------------------------------------------------------
 # attention block
 # ---------------------------------------------------------------------------

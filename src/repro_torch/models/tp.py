@@ -196,6 +196,25 @@ class ParallelCtx:
                                  self._node_comm, self._pod_comm)
                      if c is not None)
 
+    def observe_executed_step(self) -> bool:
+        """Stage-2 feedback from every communicator's default recorder
+        (direct use of the data plane, outside a StepProgram, which uses
+        :meth:`observe_program`); True when any balancer moved a share
+        (the reference's ``ParallelCtx.observe_executed_step``,
+        tp.py:151)."""
+        changed = False
+        for comm in self.comms():
+            changed |= comm.observe_executed_step()
+        return changed
+
+    def reset_issued(self) -> None:
+        """Clear every communicator's issued-call replay log (the
+        reference's ``ParallelCtx.reset_issued``, tp.py:331).  The log is
+        shared by every ctx on the same memoized communicator, so this is
+        for explicit isolation only."""
+        for comm in self.comms():
+            comm.reset_issued()
+
     @contextlib.contextmanager
     def unrecorded(self):
         """Every communicator's :meth:`FlexCommunicator.unrecorded` scope,

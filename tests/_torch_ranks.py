@@ -1648,3 +1648,42 @@ def lowered_vs_live(pinned: str, cases: dict):
                      "signatures": (lowered.plan_signature, sig)}
     comm_destroy_all()
     return out
+
+
+def ctx_trace(ctx, plan, calls, observes):
+    """``calls`` ((op, float32 elements) pairs) recorded by ``plan(comm,
+    op, n)`` on every communicator of ``ctx.comms()``, then ``observes``
+    calls of ``ctx.observe_executed_step()`` and one of
+    ``ctx.reset_issued()``: each call's return value and every
+    communicator's replay-log length after it.  Either package's ctx
+    (the test drives the reference's with its own ``plan``)."""
+    def lengths():
+        return [len(c.issued_calls()) for c in ctx.comms()]
+
+    for op, n in calls:
+        for comm in ctx.comms():
+            plan(comm, op, n)
+    trace = [("planned", None, lengths())]
+    for _ in range(observes):
+        trace.append(("observe", ctx.observe_executed_step(), lengths()))
+    trace.append(("reset", ctx.reset_issued(), lengths()))
+    return trace
+
+
+def ctx_replay(comm_cfg, calls, observes):
+    """tests/test_torch_api.py on this rank of a (data=2) mesh:
+    ``ctx_trace`` of a ParallelCtx over it."""
+    from repro_torch.core.communicator import CommConfig, comm_destroy_all
+    from repro_torch.core.topology import Collective
+    from repro_torch.models.tp import ParallelCtx
+    comm_destroy_all()
+    mesh = Mesh((2,), ("data",), device="cpu")
+    ctx = ParallelCtx(dp_axis="data", dp_size=2, mesh=mesh,
+                      comm_config=CommConfig(**comm_cfg))
+
+    def plan(comm, op, n):
+        comm.plan_for(Collective(op), torch.empty((n,), device="meta"))
+
+    trace = ctx_trace(ctx, plan, calls, observes)
+    comm_destroy_all()
+    return trace

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the reference package
-``repro`` — checked statically (AST) and by importing every port module
-in a fresh interpreter."""
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and none of the port's examples (``examples/*_torch.py``)
+imports ``jax`` or anything of the reference package ``repro`` — checked
+statically (AST) and by importing every port module in a fresh
+interpreter."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__") for p in PORT.rglob("*.py"))
@@ -53,6 +55,25 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert len(MODULES) >= 20
+
+
+def test_examples_import_without_jax():
+    """The four port examples are checked above, and import in a fresh
+    interpreter (as their spawned ranks do, ``examples.<name>``) without
+    loading jax or the reference."""
+    names = [p.stem for p in EXAMPLES]
+    assert names == ["flexlink_tuning_demo_torch", "quickstart_torch",
+                     "serve_decode_torch", "train_lm_torch"]
+    code = ("import importlib, sys\n"
+            f"for m in {names!r}:\n"
+            "    importlib.import_module('examples.' + m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=f"{ROOT}{os.pathsep}{ROOT / 'src'}")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_the_training_slice_is_checked():
