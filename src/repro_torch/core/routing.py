@@ -29,6 +29,7 @@ from repro_torch.core.collectives import (CHUNK_GRID, PATH_ORDER, PATH_ORTHO,
 from repro_torch.core.pipeline import N_BUFFERS
 from repro_torch.core.topology import Collective
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime import spans
 
 #: accumulate policies for the staged ring's per-step reduce (DESIGN.md §3).
 ACC_AUTO = "auto"              # kernel_fp32 for inexact dtypes, native for ints
@@ -435,6 +436,14 @@ def execute(plan: RoutePlan, x: torch.Tensor, mesh, *,
     return _run(plan, x, mesh, accumulate)
 
 
+def _route(executor, path: str, seg: torch.Tensor, plan: RoutePlan, acc,
+           mesh) -> torch.Tensor:
+    """One path's executor on its segment, in the span ``route.<path>``
+    (its argument the segment's bytes)."""
+    with spans.span(f"route.{path}", seg.numel() * seg.element_size()):
+        return executor(seg, plan, acc, mesh)
+
+
 def _run(plan: RoutePlan, x: torch.Tensor, mesh,
          accumulate: Optional[Callable]) -> torch.Tensor:
     """The forward-only body of :func:`execute`."""
@@ -442,14 +451,15 @@ def _run(plan: RoutePlan, x: torch.Tensor, mesh,
     if plan.is_primary_only:
         # whole payload through the ONE registered primary executor — the
         # same cell mixed plans use for their primary segment
-        return executor_for(plan.collective, PATH_PRIMARY)(x, plan, None,
-                                                           mesh)
+        return _route(executor_for(plan.collective, PATH_PRIMARY),
+                      PATH_PRIMARY, x, plan, None, mesh)
     acc = resolve_accumulate(plan, x.dtype, accumulate)
     units = plan.units()
     disp = {p: executor_for(plan.collective, p) for p in plan.paths}
     if spec.layout == "payload":
         segs, pad = cx.partition_payload(x, units, PATH_ORDER, plan.grain)
-        outs = {p: disp[p](seg, plan, acc, mesh) for p, seg in segs.items()}
+        outs = {p: _route(disp[p], p, seg, plan, acc, mesh)
+                for p, seg in segs.items()}
         if spec.stacked:            # each outs[p] is [n, seg_len]
             n = mesh.axis_size(plan.axis_name)
             per_rank = cx.merge_columns(outs, PATH_ORDER, pad)
@@ -464,7 +474,8 @@ def _run(plan: RoutePlan, x: torch.Tensor, mesh,
             f"axis size {n}")
     feat = x.reshape(lead, -1)
     segs, pad = cx.partition_columns(feat, units, PATH_ORDER, plan.grain)
-    outs = {p: disp[p](seg, plan, acc, mesh) for p, seg in segs.items()}
+    outs = {p: _route(disp[p], p, seg, plan, acc, mesh)
+            for p, seg in segs.items()}
     merged = cx.merge_columns(outs, PATH_ORDER, pad)
     out_lead = lead // n if spec.scatters_lead else lead
     return merged.reshape((out_lead,) + tuple(x.shape[1:]))

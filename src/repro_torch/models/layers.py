@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as K
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.tp import ParallelCtx
+from repro_torch.runtime import spans
 
 ATTN_CHUNK = 512  # KV-axis chunk for the streaming softmax
 
@@ -329,15 +330,17 @@ def attention_block(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx,
         positions = torch.arange(s, device=x.device)
 
     new_cache = None
-    if xattn_kv is not None:
-        out = chunked_attention(_project_q(p, x, cfg, ctx), *xattn_kv,
-                                causal=False, window=None)
-    else:
-        out, new_cache = _self_attention(p, x, cfg, ctx, causal, positions,
-                                         kv_cache, cache_pos, seq_shard,
-                                         window)
-    o = out.reshape(b, s, hq_l * cfg.head_dim_) @ p["wo"]
-    o = ctx.tp_all_reduce(o)       # row-parallel combine
+    with spans.span("attn") as sp:
+        x = sp.inputs(x)
+        if xattn_kv is not None:
+            out = chunked_attention(_project_q(p, x, cfg, ctx), *xattn_kv,
+                                    causal=False, window=None)
+        else:
+            out, new_cache = _self_attention(p, x, cfg, ctx, causal,
+                                             positions, kv_cache, cache_pos,
+                                             seq_shard, window)
+        o = out.reshape(b, s, hq_l * cfg.head_dim_) @ p["wo"]
+        o = sp.outputs(ctx.tp_all_reduce(o))       # row-parallel combine
     return o, new_cache
 
 

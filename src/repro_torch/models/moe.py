@@ -42,6 +42,7 @@ import torch
 from repro_torch.models.config import ArchConfig, MoEConfig
 from repro_torch.models.layers import _normal, silu
 from repro_torch.models.tp import ParallelCtx
+from repro_torch.runtime import spans
 
 
 # ---------------------------------------------------------------------------
@@ -165,19 +166,12 @@ def moe_specs(cfg: ArchConfig, data_axis, model_axis: str):
     }
 
 
-def moe_block(p, x: torch.Tensor, cfg: ArchConfig,
-              ctx: ParallelCtx) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, D] -> (out [B, S, D], aux loss scalar)."""
+def _experts(p, buf: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx,
+             cap: int) -> torch.Tensor:
+    """The capacity buffers [E*cap, D] through the experts (ep_a2a: over
+    the ep span's all_to_alls), the row-parallel combine included."""
     moe = cfg.moe
-    b, s, d = x.shape
-    x2d = x.reshape(b * s, d)
-    t = b * s
-    weights, experts, aux = route(x2d, p["w_router"], moe)
-    cap = capacity_of(t, moe)
-    xk = torch.repeat_interleave(x2d, moe.top_k, dim=0)     # [T*k, D]
-    slots, keep = dispatch_indices(experts.reshape(-1), moe.n_experts, cap)
-    buf = gather_to_buffers(xk, slots, keep, moe.n_experts, cap)
-
+    d = buf.shape[-1]
     if moe.impl == "ep_a2a" and ctx.ep_size > 1:
         ep = ctx.ep_size
         n_local = moe.n_experts // ep
@@ -192,13 +186,43 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig,
         out_loc = ctx.tp_all_reduce(out_loc)              # row-parallel
         outb = out_loc.reshape(n_local, ep, cap, d).transpose(0, 1)
         outb = outb.reshape(ep * n_local * cap, d)
-        buf_out = ctx.ep_all_to_all(outb, split_axis=0, concat_axis=0)
-    else:
-        out_loc = expert_ffn(p["experts"],
-                             buf.reshape(moe.n_experts, cap, d))
-        out_loc = ctx.tp_all_reduce(out_loc)              # row-parallel
-        buf_out = out_loc.reshape(moe.n_experts * cap, d)
+        return ctx.ep_all_to_all(outb, split_axis=0, concat_axis=0)
+    out_loc = expert_ffn(p["experts"], buf.reshape(moe.n_experts, cap, d))
+    out_loc = ctx.tp_all_reduce(out_loc)                  # row-parallel
+    return out_loc.reshape(moe.n_experts * cap, d)
 
-    yk = combine_from_buffers(buf_out, slots, keep, weights.reshape(-1))
-    y = yk.reshape(t, moe.top_k, d).sum(dim=1)
+
+def moe_block(p, x: torch.Tensor, cfg: ArchConfig,
+              ctx: ParallelCtx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] -> (out [B, S, D], aux loss scalar).
+
+    Spans: ``moe.dispatch`` holds the routing and the scatter into the
+    capacity buffers, and again the combine; ``moe.experts`` the expert
+    FFN with its combines and the ep all_to_alls.  Counters:
+    ``moe.assigned`` (token, expert) pairs and ``moe.dropped``, those past
+    capacity."""
+    moe = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    cap = capacity_of(t, moe)
+    x2d = x.reshape(t, d)
+    with spans.span("moe.dispatch") as sp:
+        x2d = sp.inputs(x2d)
+        weights, experts, aux = route(x2d, p["w_router"], moe)
+        xk = torch.repeat_interleave(x2d, moe.top_k, dim=0)     # [T*k, D]
+        slots, keep = dispatch_indices(experts.reshape(-1), moe.n_experts,
+                                       cap)
+        buf = gather_to_buffers(xk, slots, keep, moe.n_experts, cap)
+        if spans.counting() and not keep.is_meta:   # meta: a lowered step
+            spans.count("moe.assigned", t * moe.top_k)
+            spans.count("moe.dropped", (~keep).sum())
+        weights, aux, buf = sp.outputs(weights, aux, buf)
+
+    with spans.span("moe.experts") as sp:
+        buf_out = sp.outputs(_experts(p, sp.inputs(buf), cfg, ctx, cap))
+
+    with spans.span("moe.dispatch") as sp:
+        buf_out, weights = sp.inputs(buf_out, weights)
+        yk = combine_from_buffers(buf_out, slots, keep, weights.reshape(-1))
+        y = sp.outputs(yk.reshape(t, moe.top_k, d).sum(dim=1))
     return y.reshape(b, s, d), aux.float()

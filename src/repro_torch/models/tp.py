@@ -69,6 +69,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.core.communicator import (CommConfig, FlexCommunicator,
                                            comm_init_rank)
+from repro_torch.runtime import spans
 
 
 @dataclasses.dataclass
@@ -274,6 +275,7 @@ class ParallelCtx:
                                f"gradient bucket issued from a repeated "
                                f"call would go unrecorded")
         with contextlib.ExitStack() as stack:
+            stack.enter_context(spans.span("sync.bucket", tag))
             for comm in comms:
                 stack.enter_context(comm.issue_scope(tag))
             if comms and self.mesh.device.type == "cuda":

@@ -71,6 +71,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.tp import ParallelCtx
+from repro_torch.runtime import spans
 
 # ---------------------------------------------------------------------------
 # init + specs
@@ -310,8 +311,11 @@ def _save_dots(_, op, *args, **kwargs) -> CheckpointPolicy:
 
 @contextlib.contextmanager
 def _recompute(selective, ctx: ParallelCtx):
-    """A checkpoint's recompute: unrecorded, under ``selective``."""
-    with selective, ctx.unrecorded():
+    """A checkpoint's recompute: unrecorded, under ``selective``, and
+    outside the span counters and the backward spans
+    (``spans.recomputing``, outermost: the selective context replays
+    the forward's ops, and the backward spans' ranges are not of them)."""
+    with spans.recomputing(), selective, ctx.unrecorded():
         yield
 
 

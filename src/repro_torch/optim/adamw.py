@@ -18,6 +18,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.runtime import spans
+
 #: elements per in-place update slice (64 MiB of float32 a temporary)
 UPDATE_SLICE = 1 << 24
 
@@ -86,7 +88,14 @@ def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig,
     ``state``.  decay_mask: tree of bools — False leaves skip weight decay
     (the default decays leaves of 2 or more dims).  Returns (params,
     new state, {"grad_norm", "lr"}).  A ``meta`` step counter (a step
-    lowered by the dry-run) counts as 0: the schedule changes no shape."""
+    lowered by the dry-run) counts as 0: the schedule changes no shape.
+    The span ``adamw`` holds it, the global norm included."""
+    with spans.span("adamw"):
+        return _apply_updates(params, grads, state, cfg, decay_mask)
+
+
+def _apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig,
+                   decay_mask):
     step = (0 if state.step.device.type == "meta" else int(state.step)) + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)

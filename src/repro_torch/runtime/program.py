@@ -42,6 +42,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.launch.mesh import TraceLog
+from repro_torch.runtime import spans
 from repro_torch.runtime.exec_cache import DEFAULT_CAPACITY, ExecutableCache
 
 _PROGRAM_IDS = itertools.count()
@@ -177,12 +178,15 @@ class StepProgram:
         self._prev_plan_sig = plan_sig
 
     def _timed(self, fn, args, kwargs):
-        """Run the step; in measured mode, wall-clock it to completion so
-        observe() can feed the duration to the timing source."""
+        """Run the step (in the span ``step``); in measured mode,
+        wall-clock it to completion so observe() can feed the duration to
+        the timing source."""
         if not self._measured:
-            return fn(*args, **kwargs)
+            with spans.span("step", self.name):
+                return fn(*args, **kwargs)
         t0 = self._clock()
-        out = fn(*args, **kwargs)
+        with spans.span("step", self.name):
+            out = fn(*args, **kwargs)
         _block_until_ready()
         self._last_elapsed_s = self._clock() - t0
         return out
@@ -194,7 +198,8 @@ class StepProgram:
         ``__call__``); the result lands at :meth:`await_all`."""
         t0 = self._clock() if self._measured else None
         fn, built = self._lookup(shape_key)
-        with self.ctx.recording(self.name):
+        with self.ctx.recording(self.name), \
+                spans.span("step", self.name, self._issued):
             out = fn(*args, **kwargs)
         if built:
             self._install(fn, shape_key)
@@ -268,12 +273,19 @@ class StepProgram:
         return self._plan_rekeys
 
     def report(self) -> Dict[str, Any]:
-        return {"program": self.name,
-                "executable_cache": self.cache.report(),
-                "issued": self._issued, "awaits": self._awaits,
-                "in_flight": len(self._pending),
-                "plan_rekeys": self._plan_rekeys,
-                "shape_buckets": sorted(self._shape_keys)}
+        """The program's counters; under ``counters``, when a profiled
+        step counted any, the span counters (``runtime/spans.py``) read
+        and reset."""
+        out = {"program": self.name,
+               "executable_cache": self.cache.report(),
+               "issued": self._issued, "awaits": self._awaits,
+               "in_flight": len(self._pending),
+               "plan_rekeys": self._plan_rekeys,
+               "shape_buckets": sorted(self._shape_keys)}
+        counted = spans.counters()
+        if counted:
+            out["counters"] = counted
+        return out
 
 
 

@@ -1687,3 +1687,45 @@ def ctx_replay(comm_cfg, calls, observes):
     trace = ctx_trace(ctx, plan, calls, observes)
     comm_destroy_all()
     return trace
+
+
+def route_spans(pinned: str, nbytes: int):
+    """tests/test_torch_spans.py on this rank of a (data=2,) mesh: one
+    gradient all-reduce of ``nbytes`` of float32 in a ``ctx.issue`` scope
+    under the CPU profiler, its data slot pinned by ``pinned`` to a mixed
+    plan: the ``route.<path>`` and ``sync.bucket`` ranges of the trace
+    (name, argument), and each path's segment bytes in the plan the call
+    took."""
+    import json
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.communicator import CommConfig, bucket_for
+    from repro_torch.core.topology import Collective
+    from repro_torch.models.tp import ParallelCtx
+    mesh = Mesh((2,), ("data",), device="cpu")
+    ctx = ParallelCtx(dp_axis="data", dp_size=2, mesh=mesh,
+                      comm_config=CommConfig(profile="h100",
+                                             tuning_cache=pinned))
+    x = torch.arange(nbytes // 4, dtype=torch.float32) * (mesh.rank + 1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with ctx.issue("g0"):
+            y = ctx.grad_all_reduce({"w": x})["w"]
+        ctx.await_all(y)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    ranges = [tuple(e["name"].split(" ", 1)) for e in events
+              if e.get("cat") == "user_annotation"
+              and e["name"].split(" ")[0] in ("route.primary", "route.staged",
+                                              "route.ortho", "sync.bucket")]
+    plan = ctx.comms()[0].plan_cache.current(Collective.ALL_REDUCE,
+                                             bucket_for(nbytes))
+    segs, _ = cx.partition_payload(x, plan.units(), cx.PATH_ORDER,
+                                   plan.grain)
+    return {"ranges": ranges,
+            "segments": {p: s.numel() * s.element_size()
+                         for p, s in segs.items()},
+            "y": as_bits(y)}
