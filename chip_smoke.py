@@ -16,7 +16,7 @@ Phases, each printing its own lines; any failure raises and exits
 non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
-   kernel from the checkout's CUDA sources (K6, K1, K2-K5 and K7, one
+   kernel from the checkout's CUDA sources (K6, K1, K2-K5, K7 and K8, one
    ``nvcc`` per source, all at once), timed, with ptxas's registers and
    spills of each kernel, the codec, K1 and K7 kernels' SASS instruction
    counts (``cuobjdump -sass``; global loads and stores by width) and K6's
@@ -185,9 +185,11 @@ non-zero:
 16. MoE training: (a) mixtral-8x7b at its published widths (depth cut to
    1, bf16) on (data=2), 2 gloo ranks on the card, seq 128, global batch
    8, 2 steps each with ``nccl`` and ``flexlink``: losses (router aux
-   included) finite, falling, bit for bit equal, K1 launched, peak
-   memory; (b) reduced kimi-k2 ``ep_a2a`` (4 experts over the data axis,
-   their FFN hidden dim over the model axis) on (data=2, model=2), 4
+   included) finite, falling, bit for bit equal, K1 launched, K8
+   launched 3 times a step on every rank (Mixtral's 13 bf16 leaves: one
+   norm, one finalize, one update launch), peak memory; (b) reduced
+   kimi-k2 ``ep_a2a`` (4 experts over the data axis, their FFN hidden
+   dim over the model axis) on (data=2, model=2), 4
    gloo ranks, the data axis's all_to_all slot pinned to primary +
    staged: losses bit for bit equal between nccl and flexlink, and 2
    all_to_alls a step in the forward, 2 in the checkpoint recompute and
@@ -339,7 +341,22 @@ non-zero:
    and the phase prints each run's wall, its peak a process and the
    K1-K7 launches it saw (float32 paths, no paged pool, no ``execute``
    call of K7: 0 each expected; a count that is not 0 is printed with
-   its example, not failed).
+   its example, not failed; K8 launches wherever a card example trains);
+25. K8, the fused AdamW, against its plain version on the card, both
+   passes in one call each over Mixtral-8x7B's stacked expert leaf
+   [2, 8, 4096, 14336], its embedding and a stacked norm (bf16, no decay
+   on the norm), a view one element off 16-byte alignment and the other
+   dtype pairs (float32 params with float32 and bf16 grads, bf16 params
+   with float32 grads), the clip engaged: the norm and clip factor
+   within a relative 1e-5, the moments (and float32 params) within
+   2e-6 of the plain version's largest magnitude, bf16 params apart on
+   under 0.01% of elements and each by at most one bf16 ulp of the
+   result plus 16 float32 ulps of the larger of |p| and |lr u|; one norm
+   launch a gradient dtype, one finalize, one update launch a dtype pair,
+   the odd views on the scalar path; both passes on the expert leaf
+   timed (CUDA events, median) beside the plain version and the bound of
+   24 B a parameter.  Phase 25 runs after
+   phase 6.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  The launches in that line are the
@@ -371,6 +388,7 @@ import hashlib
 import importlib.util
 import itertools
 import json
+import math
 import os
 import re
 import pathlib
@@ -555,11 +573,12 @@ def phase1_card_and_build(baseline=None):
                          text=True, check=True).stdout.strip().splitlines()
     print(smi[0])
     from repro_torch.kernels import _nvcc
+    from repro_torch.kernels import adamw as k8
     from repro_torch.kernels import chunk_accumulate as ca
     from repro_torch.kernels import codec
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import payload_partition as pp
-    sources = [fd.SOURCE, ca.SOURCE, codec.SOURCE, pp.SOURCE]
+    sources = [fd.SOURCE, ca.SOURCE, codec.SOURCE, pp.SOURCE, k8.SOURCE]
     sources += [m.SOURCE for m in (baseline or {}).values()]
     t0 = time.perf_counter()
     built = _nvcc.build_all(sources)
@@ -1578,8 +1597,9 @@ def codec_launches(plan, n: int, dtype) -> collections.Counter:
 
 def _kernel_counts(reset=False):
     """This process's K1-K5 and K7 launch counts (set to 0 first with
-    reset), as ``kernels.launch_counts`` names them."""
+    reset, K8's too), as ``kernels.launch_counts`` names them."""
     from repro_torch import kernels
+    from repro_torch.kernels import adamw as k8
     from repro_torch.kernels import chunk_accumulate as ca
     from repro_torch.kernels import codec
     from repro_torch.kernels import payload_partition as pp
@@ -1590,8 +1610,10 @@ def _kernel_counts(reset=False):
         ca.launch_count.clear()
         ca.segment_paths.clear()
         codec.segment_paths.clear()
+        k8.launch_count.clear()
+        k8.leaf_paths.clear()
     counts = kernels.launch_counts()
-    del counts["k6"]
+    del counts["k6"], counts["k8"]      # not the collectives' kernels
     return collections.Counter(counts)
 
 
@@ -3044,6 +3066,11 @@ MOE_LOGITS_KERNEL_VS_DENSE = 0.2
 MOE_SERVE = (("mixtral-8x7b", 8, 8), ("kimi-k2-1t-a32b", 2, 4))
 SSM_SERVE = (("mamba2-1.3b", None, 4), ("zamba2-1.2b", None, 4))
 MOE_TRAIN_LAYERS = 1
+#: K8's launches a step of phase 16 (a)'s Mixtral run: its 13 leaves (the
+#: layers stacked) are all bf16 with bf16 gradients, one table, so one norm
+#: launch, one finalize and one update launch
+MOE_TRAIN_LEAVES = 13
+MOE_TRAIN_K8_A_STEP = 3
 #: AdamW lr of phase 17 (a)'s Mamba2 training: at phase 11's 1e-4 its
 #: three steps stay within noise of the initial loss (11.264, 11.237,
 #: 11.290 in PR 20's run 2), so they use the CPU tests' 1e-3
@@ -3264,9 +3291,12 @@ def dp_family_rank(arch, layers, lr, reduced=False, tuning_cache=""):
     ``flexlink`` (its slots warm-started from ``tuning_cache`` when one is
     named), each
     from the seed-0 init; the kernel counts set to 0 just before each run
-    and read just after it."""
+    and read just after it (K8's apart, as ``k8``, with the param tree's
+    leaf count and dtypes)."""
     sys.path.insert(0, str(SRC))
     import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core.communicator import CommConfig
     from repro_torch.data.pipeline import make_batches
@@ -3305,11 +3335,15 @@ def dp_family_rank(arch, layers, lr, reduced=False, tuning_cache=""):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _kernel_counts()
+        leaves = pytree.tree_leaves(params)
         program.close()
         out[name] = {"losses": hist, "wall_s": wall,
                      "launches": dict(launches),
+                     "k8": kernels.launch_counts()["k8"],
+                     "leaves": len(leaves),
+                     "leaf_dtypes": sorted({str(p.dtype) for p in leaves}),
                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        del params, opt_state, program, ctx
+        del params, opt_state, program, ctx, leaves
         torch.cuda.empty_cache()
     return out
 
@@ -3414,7 +3448,8 @@ def ep_rank(pinned: str):
 
 def phase16_moe_training(card):
     """(a) mixtral-8x7b at its published widths (depth cut to 1, bf16) on
-    (data=2): nccl and flexlink losses bit for bit, K1 launched; (b)
+    (data=2): nccl and flexlink losses bit for bit, K1 launched, K8
+    MOE_TRAIN_K8_A_STEP times a step on every rank and run; (b)
     reduced kimi-k2 ep_a2a on (data=2, model=2), the data axis's
     all_to_all pinned to primary + staged: nccl and flexlink losses bit
     for bit, the all_to_alls a step (dispatch and return in the forward,
@@ -3436,6 +3471,19 @@ def phase16_moe_training(card):
                     f"(depth cut 32 -> {MOE_TRAIN_LAYERS}), bf16, seed 0, "
                     f"mesh (data=2), the loss with the router's aux loss",
                     res, TRAIN_LR, card)
+    k8 = {name: [r[name]["k8"] for r in res] for name in ("nccl", "flexlink")}
+    for name in k8:
+        for r in res:
+            check(r[name]["leaves"] == MOE_TRAIN_LEAVES
+                  and r[name]["leaf_dtypes"] == ["torch.bfloat16"],
+                  f"16 (a) {name}: param tree of {r[name]['leaves']} leaves "
+                  f"{r[name]['leaf_dtypes']}")
+        check(k8[name] == [MOE_TRAIN_K8_A_STEP * TRAIN_STEPS] * len(res),
+              f"16 (a) {name}: K8 launches by rank {k8[name]}, want "
+              f"{MOE_TRAIN_K8_A_STEP} a step")
+    print(f"phase 16 (a): K8 launches by rank over {TRAIN_STEPS} steps "
+          f"{k8} ({MOE_TRAIN_LEAVES} bf16 leaves: norm, finalize, update a "
+          f"step)")
     # the ep dispatch buffer of a data rank: [E * cap, d] float32 with
     # 4 rows x 128 tokens, top-2 of 4 experts at capacity factor 1.25
     cap = int(np.ceil(4 * 128 * 2 / 4 * 1.25))
@@ -3482,7 +3530,7 @@ def phase16_moe_training(card):
           f"{ {k: v // TRAIN_STEPS for k, v in want.items()} } "
           f"on every rank; ranks ran {time.perf_counter() - t0:.1f} s; "
           f"{card}")
-    return k1
+    return k1, k8["flexlink"][0]
 
 
 def phase17_ssm_hybrid(card):
@@ -6025,6 +6073,206 @@ def phase24_examples(card, runs: dict):
           f"read in {time.perf_counter() - t_phase:.1f} s")
     return res, total
 
+# -- phase 25: K8, the fused AdamW -------------------------------------------
+
+#: phase 25's leaves: (name, shape, param dtype, grad dtype, offset in
+#: elements, weight decay).  Mixtral-8x7B's stacked expert leaf (2 layers
+#: x 8 experts of 4096 x 14336), its embedding and a stacked norm (no
+#: decay), all bf16 as the benchmark trains them; a view one element off
+#: 16-byte alignment (the scalar loop); and the other dtype pairs K8 takes
+K8_LEAVES = (("experts", (2, 8, 4096, 14336), torch.bfloat16,
+              torch.bfloat16, 0, 0.1),
+             ("embed", (32000, 4096), torch.bfloat16, torch.bfloat16, 0,
+              0.1),
+             ("norm", (2, 4096), torch.bfloat16, torch.bfloat16, 0, 0.0),
+             ("odd_view", ((1 << 20) + 3,), torch.bfloat16, torch.bfloat16,
+              1, 0.1),
+             ("f32", ((1 << 20) + 5,), torch.float32, torch.float32, 0, 0.1),
+             ("f32_bf16grad", (4099,), torch.float32, torch.bfloat16, 1,
+              0.0),
+             ("bf16_f32grad", (65536,), torch.bfloat16, torch.float32, 0,
+              0.1))
+#: the moments (and float32 params), normwise: |kernel - plain| <=
+#: K8_MOMENT_REL * max|plain|.  The card's plain version divides by a
+#: host scalar as a multiply by its reciprocal and picks its own fused
+#: multiply-adds; the kernel rounds each operation as the CPU does
+K8_MOMENT_REL = 2e-6
+#: bf16 params: apart on under this share of elements, and each apart by
+#: at most one bf16 ulp of the result (a float32 difference in p - lr u
+#: that flips the final rounding) plus K8_F32_ULPS float32 ulps of p - lr
+#: u's larger operand (the float32 difference itself, which where p - lr u
+#: cancels is many of the small result's own ulps: up to 8192 on the
+#: expert leaf, on an H100)
+K8_ULP_SHARE = 1e-4
+K8_F32_ULPS = 16
+#: the norm and the clip factor: the kernel sums squares in tiles of
+#: 4096-8192 elements and the partials in double, the plain version slice
+#: by slice in float32
+K8_GNORM_REL = 1e-5
+#: the step whose bias corrections phase 25 uses, and the optimizer's
+#: defaults (optim/adamw.py AdamWConfig)
+K8_STEP = 5
+K8_HYPER = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8)
+#: bytes a parameter of a bf16 step: the norm reads g (2), the update
+#: reads p, g, m, v (2 + 2 + 4 + 4) and writes p, m, v (2 + 4 + 4)
+K8_BYTES_BF16 = 24
+
+
+def _k8_leaf(shape, p_dtype, g_dtype, offset, gen):
+    """p, g, m, v of ``shape`` (views ``offset`` elements into their
+    buffers): bf16-scale params, a gradient that the clip scales, moments
+    as after a few steps."""
+    n = math.prod(shape)
+
+    def buf(dtype, scale, square=False):
+        x = torch.empty(n + offset, device="cuda")
+        x.normal_(generator=gen).mul_(scale)
+        if square:
+            x.square_()
+        return x.to(dtype)[offset:].view(shape)
+    return (buf(p_dtype, 0.02), buf(g_dtype, 1e-3),
+            buf(torch.float32, 1e-4), buf(torch.float32, 1e-4, True))
+
+
+def _ulp(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """One ulp at each element's magnitude of a type of ``bits``
+    significant bits (8: bf16, 24: float32), as float32."""
+    return torch.exp2((torch.frexp(x.float())[1] - bits).float())
+
+
+def _bf16_param_gap(got, want, before):
+    """How far the bf16 params ``got`` lie from ``want`` (both after one
+    step from ``before``): the share of elements apart, and the largest
+    difference beyond one bf16 ulp of the result, in float32 ulps of the
+    larger of |p| and |lr u|.  In slices of 2^26 elements, so that the
+    float32 temporaries of the expert leaf stay small."""
+    apart, most = 0, 0.0
+    for x, y, b in zip(*(t.reshape(-1).split(1 << 26)
+                         for t in (got, want, before))):
+        x, y, b = x.float(), y.float(), b.float()
+        d = (x - y).abs()
+        over = d - _ulp(torch.maximum(x.abs(), y.abs()), 8)
+        f32 = _ulp(torch.maximum(b.abs(), (b - y).abs()), 24)
+        apart += int((d > 0).sum())
+        most = max(most, float((over / f32).max()))
+    return apart / got.numel(), most
+
+
+def _k8_hyper():
+    f = np.float32
+    return dict(K8_HYPER,
+                bc1=float(f(1.0) - f(K8_HYPER["b1"]) ** f(K8_STEP)),
+                bc2=float(f(1.0) - f(K8_HYPER["b2"]) ** f(K8_STEP)))
+
+
+def phase25_adamw(card):
+    """K8 against its plain version on the card over K8_LEAVES, one call
+    of each pass; then both passes timed on the expert leaf beside the
+    plain version and the bound."""
+    from repro_torch.kernels import adamw as k8
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    hyper = _k8_hyper()
+    leaves = [_k8_leaf(shape, pd, gd, off, gen)
+              for _, shape, pd, gd, off, _ in K8_LEAVES]
+    wds = [wd for *_, wd in K8_LEAVES]
+    want = [tuple(x.clone() for x in leaf) for leaf in leaves]
+    grads = [leaf[1] for leaf in leaves]
+    torch.cuda.synchronize()
+    before, paths = collections.Counter(k8.launch_count), \
+        collections.Counter(k8.leaf_paths)
+    gnorm, scale = ops.adamw_global_norm(grads, 1.0)
+    ops.adamw_update(*zip(*leaves), wds, scale, **hyper)
+    torch.cuda.synchronize()
+    launches = dict(k8.launch_count - before)
+    took = dict(k8.leaf_paths - paths)
+    pairs = {(pd, gd) for _, _, pd, gd, _, _ in K8_LEAVES}
+    check(launches == {"norm": len({gd for _, gd in pairs}),
+                       "norm_finalize": 1, "update": len(pairs)},
+          f"25: K8 launches {launches}, pairs {pairs}")
+    odd = sum(1 for *_, off, _ in K8_LEAVES if off)
+    check(took == {"vector": len(K8_LEAVES) - odd, "scalar": odd},
+          f"25: leaf paths {took}")
+    w_norm, w_scale = ref.adamw_global_norm_ref(grads, 1.0)
+    norm_rel = abs(float(gnorm) / float(w_norm) - 1)
+    scale_rel = abs(float(scale) / float(w_scale) - 1)
+    check(norm_rel <= K8_GNORM_REL and scale_rel <= K8_GNORM_REL,
+          f"25: gnorm {float(gnorm)} vs {float(w_norm)}, scale "
+          f"{float(scale)} vs {float(w_scale)}")
+    check(float(scale) < 1, f"25: the clip did not engage ({float(scale)})")
+    del grads
+    rows = {}
+    for (name, shape, pd, gd, off, wd), got, ref_in in zip(
+            K8_LEAVES, leaves, want):
+        p, g, m, v = ref_in
+        before = p.clone() if pd == torch.bfloat16 else None
+        ref.adamw_update_ref(p, g, m, v, scale, wd=wd, **hyper)
+        row = {}
+        for what, x, y in (("m", got[2], m), ("v", got[3], v)):
+            row[what] = float((x - y).abs().max() / y.abs().max())
+            check(row[what] <= K8_MOMENT_REL, f"25: {name} {what} "
+                  f"{row[what]} > {K8_MOMENT_REL}")
+        if pd == torch.bfloat16:
+            row["p_share"], row["p_f32_ulps"] = _bf16_param_gap(
+                got[0], p, before)
+            check(row["p_share"] < K8_ULP_SHARE
+                  and row["p_f32_ulps"] <= K8_F32_ULPS,
+                  f"25: {name} params {row}")
+            del before
+        else:
+            row["p"] = float((got[0] - p).abs().max() / p.abs().max())
+            check(row["p"] <= K8_MOMENT_REL, f"25: {name} params {row}")
+        rows[name] = row
+        del p, g, m, v
+    del want
+    cases = [(n, s, str(pd)[6:], str(gd)[6:], off, wd)
+             for n, s, pd, gd, off, wd in K8_LEAVES]
+    print(f"phase 25: K8 vs plain version on the card over {cases}: "
+          f"gnorm {float(gnorm)!r} (plain {float(w_norm)!r}, rel "
+          f"{norm_rel:.3g}), scale rel {scale_rel:.3g}; by leaf "
+          f"{json.dumps(rows)}; launches {launches}; leaf paths {took}")
+    del leaves
+    torch.cuda.empty_cache()
+    # both passes on the expert leaf alone, timed: the kernel, then the
+    # plain version (its operands are 11 GB, so no call finds them in L2)
+    name, shape, pd, gd, off, wd = K8_LEAVES[0]
+    p, g, m, v = _k8_leaf(shape, pd, gd, off, gen)
+    n = p.numel()
+
+    def kernel():
+        _, s = ops.adamw_global_norm([g], 1.0)
+        ops.adamw_update([p], [g], [m], [v], [wd], s, **hyper)
+
+    def plain():
+        _, s = ref.adamw_global_norm_ref([g], 1.0)
+        ref.adamw_update_ref(p, g, m, v, s, wd=wd, **hyper)
+    before = sum(k8.launch_count.values())
+    kernel()
+    torch.cuda.synchronize()
+    per_call = sum(k8.launch_count.values()) - before
+    ms = time_ms(kernel, iters=10, warmup=2)
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    key, (mem_bps, _) = card_peaks(card)
+    nbytes = K8_BYTES_BF16 * n
+    bound_ms = nbytes / mem_bps * 1e3
+    print(f"phase 25: K8 on {name} {shape} bf16 ({n} parameters): "
+          f"{ms:.4f} ms a step ({per_call} launches: norm, finalize, "
+          f"update), {nbytes / ms / 1e9:.3f} TB/s, bound {bound_ms:.4f} ms "
+          f"({nbytes} B at {mem_bps / 1e12:.2f} TB/s: {key}), "
+          f"{100 * bound_ms / ms:.1f}% of it; plain version {plain_ms:.4f} "
+          f"ms; {card}")
+    del p, g, m, v
+    torch.cuda.empty_cache()
+    return {"name": "adamw", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/adamw.cu",
+            "replaces": "none: XLA fused AdamW on the TPU",
+            "launches_phase25": per_call,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "shape": f"{shape} bf16, its norm and update",
+            "gnorm_rel": norm_rel, "by_leaf": rows}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -6077,6 +6325,8 @@ def main(argv=None) -> int:
     main_row, long_row, longer_row = times[6], times[256], times[1024]
     k1_errs = phase6_k1_vs_plain()
     mark("6")
+    k8_row = phase25_adamw(card)
+    mark("25")
     k1_launches, plans, k1_calls = phase7_collectives()
     mark("7")
     k1_rows = phase8_k1_times(card, plans, baseline)
@@ -6100,7 +6350,7 @@ def main(argv=None) -> int:
     mark("14")
     moe_k6 = phase15_moe_serving(card)
     mark("15")
-    moe_k1 = phase16_moe_training(card)
+    moe_k1, moe_k8 = phase16_moe_training(card)
     mark("16")
     ssm_k1 = phase17_ssm_hybrid(card)
     mark("17")
@@ -6253,10 +6503,15 @@ def main(argv=None) -> int:
     kernels += [_k7_row(name, line, k7_err, k7_rows)
                 for name, line in (("extract_segment", 36),
                                    ("merge_segments", 59))]
+    k8_row.update(launches=moe_k8, launches_from=(
+        f"phase 16 (a): Mixtral-8x7B trained {TRAIN_STEPS} steps on "
+        f"(data=2), rank 0's flexlink run, {MOE_TRAIN_K8_A_STEP} a step"))
+    kernels.append(k8_row)
     # phase 24's launches by row: each row's kernel, K1's float32 + bf16
     # pairs in its mixed block
     example_key = {"paged_flash_decode": "k6", "chunk_accumulate": "k1",
-                   "extract_segment": "k7a", "merge_segments": "k7b"}
+                   "extract_segment": "k7a", "merge_segments": "k7b",
+                   "adamw": "k8"}
     for row in kernels:
         row["launches_examples"] = example_launches[
             example_key.get(row["name"], row["name"])]

@@ -25,11 +25,13 @@ from typing import List, Sequence
 
 import torch
 
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import chunk_accumulate as _ca
 from repro_torch.kernels import codec as _codec
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import payload_partition as _pp
 from repro_torch.kernels import ref
+from repro_torch.runtime import spans
 
 #: the most sub-chunks one list-form call takes (a ring step's, at most
 #: routing.MAX_STAGED_SUBSTEPS): the size of the kernels' segment tables
@@ -274,3 +276,47 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     return _fd.paged_flash_decode_pool(
         q, k_pool, v_pool, block_tables.to(torch.int32).contiguous(),
         kv_valid.to(torch.int32).contiguous(), window=window)
+
+
+# -- AdamW (K8) ---------------------------------------------------------------
+#
+# The optimizer's two passes over the whole parameter tree, as flat lists
+# of leaves.  CPU and meta leaves take the plain slice loop; CUDA leaves
+# take K8 (float32 or bfloat16 params and grads), which raises on any
+# other dtype.
+
+def adamw_global_norm(grads: Sequence[torch.Tensor], grad_clip: float):
+    """The global norm of ``grads`` and the clip factor ``min(1, grad_clip /
+    (gnorm + 1e-9))``: (gnorm, scale), float32 scalars on the leaves'
+    device."""
+    grads = list(grads)
+    if all(_plain(g) for g in grads):
+        return ref.adamw_global_norm_ref(grads, grad_clip)
+    for g in grads:
+        _cuda_only(g, "adamw_global_norm")
+    return _adamw.global_norm(grads, grad_clip)
+
+
+def adamw_update(params: Sequence[torch.Tensor],
+                 grads: Sequence[torch.Tensor], mus: Sequence[torch.Tensor],
+                 nus: Sequence[torch.Tensor], wds: Sequence[float],
+                 scale: torch.Tensor, *, lr: float, b1: float, b2: float,
+                 eps: float, bc1: float, bc2: float) -> None:
+    """One AdamW step of every leaf j, in place on ``params[j]`` and its
+    float32 moments ``mus[j]``, ``nus[j]``, with weight decay ``wds[j]``
+    (``ref.adamw_update_ref``'s formula).  The counters ``adamw.fused``
+    and ``adamw.plain`` add the elements each path updated (``meta``
+    leaves, which update nothing, count nowhere)."""
+    params = list(params)
+    n = sum(p.numel() for p in params)
+    hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, bc1=bc1, bc2=bc2)
+    if all(_plain(p) for p in params):
+        if any(p.device.type == "cpu" for p in params):
+            spans.count("adamw.plain", n)
+        for p, g, m, v, wd in zip(params, grads, mus, nus, wds):
+            ref.adamw_update_ref(p, g, m, v, scale, wd=wd, **hyper)
+        return
+    for p in params:
+        _cuda_only(p, "adamw_update")
+    spans.count("adamw.fused", n)
+    _adamw.update(params, grads, mus, nus, wds, scale, **hyper)

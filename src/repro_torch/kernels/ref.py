@@ -181,3 +181,50 @@ def extract_segment_ref(x: torch.Tensor, start_block: int, n_blocks: int, *,
 def merge_segments_ref(segments) -> torch.Tensor:
     """K7b: the flat segments concatenated in order."""
     return torch.cat(list(segments))
+
+
+# -- AdamW (kernels/adamw.py: K8) ---------------------------------------------
+#
+# The optimizer's two passes in plain PyTorch: leaf by leaf, in place, in
+# slices of at most UPDATE_SLICE elements, so that the float32 temporaries
+# stay a few hundred MiB even for a 151552 x 4096 embedding.
+# The per-element formula and its order are the reference's
+# (src/repro/optim/adamw.py apply_updates).
+
+#: elements per in-place update slice (64 MiB of float32 a temporary)
+UPDATE_SLICE = 1 << 24
+
+
+def adamw_global_norm_ref(leaves, grad_clip: float):
+    """sqrt of the sum of squares of every element of ``leaves``, in
+    float32, and the clip factor ``min(1, grad_clip / (gnorm + 1e-9))``:
+    (gnorm, scale), float32 scalars on the leaves' device."""
+    total = None
+    for leaf in leaves:
+        for part in leaf.reshape(-1).split(UPDATE_SLICE):
+            sq = torch.sum(torch.square(part.float()))
+            total = sq if total is None else total + sq
+    gnorm = torch.sqrt(total)
+    return gnorm, torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+
+
+def adamw_update_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                     v: torch.Tensor, scale: torch.Tensor, *, lr: float,
+                     b1: float, b2: float, eps: float, bc1: float,
+                     bc2: float, wd: float) -> None:
+    """One AdamW step of one leaf, in place on the contiguous ``p`` and its
+    float32 moments ``m`` and ``v``: with ``gf = g * scale``,
+    ``m = b1 m + (1 - b1) gf``, ``v = b2 v + (1 - b2) gf^2``,
+    ``u = (m / bc1) / (sqrt(v / bc2) + eps) + wd p`` and ``p -= lr u``,
+    in float32, rounded once to p's dtype."""
+    for ps, gs, ms, vs in zip(p.view(-1).split(UPDATE_SLICE),
+                              g.reshape(-1).split(UPDATE_SLICE),
+                              m.view(-1).split(UPDATE_SLICE),
+                              v.view(-1).split(UPDATE_SLICE)):
+        gf = gs.float() * scale
+        ms.mul_(b1).add_(gf, alpha=1 - b1)       # b1 m + (1 - b1) g
+        vs.mul_(b2).addcmul_(gf, gf, value=1 - b2)
+        u = (ms / bc1) / (torch.sqrt(vs / bc2) + eps)
+        if wd:
+            u.add_(ps.float(), alpha=wd)
+        ps.copy_(ps.float() - lr * u)

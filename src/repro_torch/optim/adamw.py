@@ -3,10 +3,14 @@
 Port of ``src/repro/optim/adamw.py``.  The optimizer state is a tree
 matching the params; moments are kept in float32 even for bf16 params.
 The reference builds new arrays every step; here the update runs IN
-PLACE on the params and moments, leaf by leaf and in slices of at most
-``UPDATE_SLICE`` elements, so the float32 temporaries stay a few hundred
-MiB even for a 151552 x 4096 embedding.  The per-element formula and its
-order of operations are the reference's (``apply_updates``).
+PLACE on the params and moments, in two passes over the whole tree
+(``kernels/ops.py``): the global norm, then the update.  On the card
+both are kernel K8 (``kernels/csrc/adamw.cu``: one norm launch and one
+finalize, then one update launch, a table of up to 16 leaves of one
+dtype pair a launch); on the CPU, and for the dry-run's ``meta`` tensors,
+the plain version (``kernels/ref.py``: leaf by leaf, in slices of at most
+``UPDATE_SLICE`` elements).  The per-element formula and its order of
+operations are the reference's (``apply_updates``).
 """
 
 from __future__ import annotations
@@ -18,10 +22,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.kernels import ops
 from repro_torch.runtime import spans
-
-#: elements per in-place update slice (64 MiB of float32 a temporary)
-UPDATE_SLICE = 1 << 24
 
 
 class AdamWState(NamedTuple):
@@ -65,20 +67,9 @@ def init_state(params) -> AdamWState:
                       nu=pytree.tree_map(zeros, params))
 
 
-def _slices(x: torch.Tensor):
-    """Views of ``x``'s flat elements, UPDATE_SLICE at a time (``x``
-    contiguous, so in-place writes to a slice land in ``x``)."""
-    return x.view(-1).split(UPDATE_SLICE)
-
-
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in float32."""
-    total = None
-    for leaf in pytree.tree_leaves(tree):
-        for part in leaf.reshape(-1).split(UPDATE_SLICE):
-            sq = torch.sum(torch.square(part.float()))
-            total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return ops.adamw_global_norm(pytree.tree_leaves(tree), 1.0)[0]
 
 
 @torch.no_grad()
@@ -97,32 +88,21 @@ def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig,
 def _apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig,
                    decay_mask):
     step = (0 if state.step.device.type == "meta" else int(state.step)) + 1
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_schedule(cfg, step)
-    b1, b2 = cfg.beta1, cfg.beta2
     f = np.float32
-    bc1 = float(f(1.0) - f(b1) ** f(step))
-    bc2 = float(f(1.0) - f(b2) ** f(step))
+    bc1 = float(f(1.0) - f(cfg.beta1) ** f(step))
+    bc2 = float(f(1.0) - f(cfg.beta2) ** f(step))
 
     flat_p, spec = pytree.tree_flatten(params)
     flat_g = pytree.tree_leaves(grads)
-    flat_m = pytree.tree_leaves(state.mu)
-    flat_v = pytree.tree_leaves(state.nu)
     flat_d = ([p.ndim >= 2 for p in flat_p] if decay_mask is None
               else pytree.tree_leaves(decay_mask))
-    for p, g, m, v, dm in zip(flat_p, flat_g, flat_m, flat_v, flat_d):
-        wd = cfg.weight_decay if dm else 0.0
-        for ps, gs, ms, vs in zip(_slices(p),
-                                  g.reshape(-1).split(UPDATE_SLICE),
-                                  _slices(m), _slices(v)):
-            gf = gs.float() * scale
-            ms.mul_(b1).add_(gf, alpha=1 - b1)       # b1 m + (1 - b1) g
-            vs.mul_(b2).addcmul_(gf, gf, value=1 - b2)
-            u = (ms / bc1) / (torch.sqrt(vs / bc2) + cfg.eps)
-            if wd:
-                u.add_(ps.float(), alpha=wd)
-            ps.copy_(ps.float() - lr * u)
+    gnorm, scale = ops.adamw_global_norm(flat_g, cfg.grad_clip)
+    ops.adamw_update(flat_p, flat_g, pytree.tree_leaves(state.mu),
+                     pytree.tree_leaves(state.nu),
+                     [cfg.weight_decay if dm else 0.0 for dm in flat_d],
+                     scale, lr=lr, b1=cfg.beta1, b2=cfg.beta2, eps=cfg.eps,
+                     bc1=bc1, bc2=bc2)
     new_state = AdamWState(torch.tensor(step, dtype=torch.int32,
                                         device=state.step.device),
                            state.mu, state.nu)

@@ -124,7 +124,8 @@ def traced():
     report = prog.report()
     prog.close()
     return {"events": _events(prof), "first": first,
-            "second": report.get("counters", {}), "direct": drops}
+            "second": report.get("counters", {}), "direct": drops,
+            "n_params": sum(p.numel() for p in _leaves(params))}
 
 
 @pytest.mark.parametrize("on", [False, True], ids=["off", "on"])
@@ -222,7 +223,9 @@ def test_moe_counters_are_a_direct_count(traced, counter):
     assert want["moe.assigned"] == CFG.n_layers * BATCH * SEQ * 2
     assert want["moe.dropped"] > 0
     assert traced["first"][counter] == want[counter]
-    assert set(traced["second"]) == set(want)
+    # beside them the optimizer's: every parameter, on the plain path
+    assert set(traced["second"]) == set(want) | {"adamw.plain"}
+    assert traced["second"]["adamw.plain"] == traced["n_params"]
     if counter == "moe.assigned":
         assert traced["second"][counter] == want[counter]
 
