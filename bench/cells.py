@@ -3,8 +3,9 @@ program's.
 
 A cell (``workloads/<cell>.json``) names its configuration
 (``configs/<config>.json``), its traffic mix (``traffic/<traffic>.json``)
-and its driver (``drivers/<driver>.py``); ``BENCHMARK.json`` at the root
-of the checkout lists the metrics, each read by ``metrics/<name>.py``.
+and its driver (``drivers/<driver>.py``); a configuration names its family
+(``reference/<family>.py``); ``BENCHMARK.json`` at the root of the
+checkout lists the metrics, each read by ``metrics/<name>.py``.
 """
 
 from __future__ import annotations
@@ -17,13 +18,16 @@ import re
 import sys
 from typing import Any, Dict, List
 
+from bench import reference
+
 BENCH = pathlib.Path(__file__).resolve().parent
 ROOT = BENCH.parent
 
 #: the characters of a name in BENCHMARK.json
 NAME_RE = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 
-#: configuration key -> ArchConfig field (MoE keys: MoEConfig fields)
+#: configuration key -> ArchConfig field (MoE keys: MoEConfig fields), the
+#: keys of every family; a family adds its own (``program_keys``)
 ARCH_KEYS = {"hidden_size": "d_model", "num_hidden_layers": "n_layers",
              "num_attention_heads": "n_heads",
              "num_key_value_heads": "n_kv_heads",
@@ -95,19 +99,36 @@ def driver(name: str):
     return importlib.import_module(f"bench.drivers.{name}")
 
 
+def program_keys(cfg: Dict[str, Any]) -> Dict[str, str]:
+    """Configuration key -> the ``ArchConfig`` field it sets, dotted into
+    a group (``"moe.n_experts"``): ``ARCH_KEYS``, ``MOE_KEYS`` under
+    ``moe``, and the family's ``PROGRAM_KEYS`` over them."""
+    keys = dict(ARCH_KEYS)
+    keys.update({k: f"moe.{f}" for k, f in MOE_KEYS.items()})
+    keys.update(reference.family(cfg).PROGRAM_KEYS)
+    return keys
+
+
 def program_config(cfg: Dict[str, Any]):
     """The program's ArchConfig of a configuration file: the program's
     own config of ``program_arch`` with every value of the file that names
-    one of its fields (``ARCH_KEYS``, ``MOE_KEYS``, ``head_dim``) put in."""
+    one of its fields (``program_keys``, ``head_dim``) put in."""
     from repro_torch.configs import get_config
     arch = get_config(cfg["program_arch"])
-    fields = {f: cfg[k] for k, f in ARCH_KEYS.items() if k in cfg}
-    if arch.moe is not None:
-        moe = {f: cfg[k] for k, f in MOE_KEYS.items() if k in cfg}
-        fields["moe"] = dataclasses.replace(arch.moe, **moe)
+    fields: Dict[str, Any] = {}
+    groups: Dict[str, Dict[str, Any]] = {}
+    for key, field in program_keys(cfg).items():
+        if key in cfg:
+            group, _, name = field.rpartition(".")
+            (groups.setdefault(group, {}) if group else fields)[name] = \
+                cfg[key]
+    for group, values in groups.items():
+        if getattr(arch, group) is None:
+            raise ValueError(f"{cfg['program_arch']} has no {group} config "
+                             f"for {sorted(values)}")
+        fields[group] = dataclasses.replace(getattr(arch, group), **values)
     out = dataclasses.replace(arch, head_dim=0, **fields)
     if out.head_dim_ != cfg["head_dim"]:
         out = dataclasses.replace(out, head_dim=cfg["head_dim"])
     out.validate()
     return out
-

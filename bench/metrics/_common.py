@@ -41,3 +41,12 @@ def is_comm(op, main_stream) -> bool:
     ran off the compute stream (the sync's side stream)."""
     name, _, _, stream = op
     return "nccl" in name.lower() or is_k1(name) or stream != main_stream
+
+
+def span_ms(run: Dict, span: str) -> Optional[float]:
+    """Device ms a traced step of the program's span ``span``: every
+    device op launched inside one of its ranges (``bench/spans.py``), the
+    mean over the ranks whose trace holds the span; None where none
+    does."""
+    return mean([1e3 * t["spans"][span]["device_s"] / t["steps"]
+                 for t in traced(run) if span in t.get("spans", {})])

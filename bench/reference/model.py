@@ -1,6 +1,7 @@
-"""The plain reference of the dense and moe families: forward and loss in
+"""The plain decoder that the families share: forward and loss in
 float32, written from the published description, with nothing of the
-program under test.
+program under test.  A family module (``dense.py``, ``moe.py``) puts its
+leaves and its loss together from these parts.
 
 A decoder of pre-norm blocks: RMSNorm, causal grouped-query attention with
 rotary embeddings (each head's two halves rotated, the form the program
@@ -18,7 +19,7 @@ stay in float32.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +28,57 @@ from torch.utils.checkpoint import checkpoint
 #: rows of the LM head and loss computed at once
 HEAD_ROWS = 1024
 
+#: the CPU cut of the widths every family has (``small`` of a family)
+SMALL = {"hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
+         "num_key_value_heads": 2, "head_dim": 16, "intermediate_size": 128,
+         "vocab_size": 256}
+
 Matmul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+#: (path, shape, "normal" | "ones" | "zeros") of one leaf
+Spec = Tuple[Tuple[str, ...], Tuple[int, ...], str]
+
+
+# -- the parameter tree: stacks of ``n`` layers under a top-level key --------
+
+def outer_specs(cfg: Dict) -> List[Spec]:
+    """The embedding, the final norm and the LM head (unless tied)."""
+    d, v = cfg["hidden_size"], cfg["vocab_size"]
+    out = [(("embed",), (v, d), "normal"), (("final_norm",), (d,), "ones")]
+    if not cfg.get("tie_word_embeddings"):
+        out.append((("lm_head",), (d, v), "normal"))
+    return out
+
+
+def attention_specs(stack: str, n: int, cfg: Dict) -> List[Spec]:
+    """The two norms and the attention of ``n`` stacked blocks."""
+    d = cfg["hidden_size"]
+    h, kv, hd = (cfg["num_attention_heads"], cfg["num_key_value_heads"],
+                 cfg["head_dim"])
+    out = [((stack, "ln1"), (n, d), "ones"), ((stack, "ln2"), (n, d), "ones"),
+           ((stack, "attn", "wq"), (n, d, h * hd), "normal"),
+           ((stack, "attn", "wk"), (n, d, kv * hd), "normal"),
+           ((stack, "attn", "wv"), (n, d, kv * hd), "normal"),
+           ((stack, "attn", "wo"), (n, h * hd, d), "normal")]
+    if cfg.get("attention_bias"):
+        out += [((stack, "attn", "b" + w), (n, width * hd), "zeros")
+                for w, width in (("q", h), ("k", kv), ("v", kv))]
+    return out
+
+
+def mlp_specs(stack: str, n: int, d: int, f: int) -> List[Spec]:
+    """A SwiGLU MLP of width ``f`` in ``n`` stacked blocks."""
+    return [((stack, "mlp", "w_gate"), (n, d, f), "normal"),
+            ((stack, "mlp", "w_up"), (n, d, f), "normal"),
+            ((stack, "mlp", "w_down"), (n, f, d), "normal")]
+
+
+def moe_specs(stack: str, n: int, d: int, f: int, e: int) -> List[Spec]:
+    """The router and ``e`` SwiGLU experts of width ``f`` in ``n``
+    stacked blocks."""
+    return [((stack, "moe", "w_router"), (n, d, e), "normal"),
+            ((stack, "moe", "experts", "w_gate"), (n, e, d, f), "normal"),
+            ((stack, "moe", "experts", "w_up"), (n, e, d, f), "normal"),
+            ((stack, "moe", "experts", "w_down"), (n, e, f, d), "normal")]
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -82,7 +133,7 @@ def experts(h: torch.Tensor, p: Dict, cfg: Dict, mm: Matmul):
     bsz, s, d = h.shape
     x = h.reshape(bsz * s, d)
     t = x.shape[0]
-    n_exp, k = cfg["num_local_experts"], cfg["num_experts_per_tok"]
+    n_exp, k = p["w_router"].shape[-1], cfg["num_experts_per_tok"]
     probs = torch.softmax(x @ p["w_router"], dim=-1)
     top_p, top_e = probs.topk(k, dim=-1)
     top_p = top_p / top_p.sum(-1, keepdim=True)
@@ -127,16 +178,21 @@ def _nll_sum(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     return (torch.logsumexp(logits, dim=-1) - picked).sum()
 
 
-def loss(params: Dict, tokens: torch.Tensor, labels: torch.Tensor,
-         cfg: Dict, mm: Matmul = torch.matmul) -> torch.Tensor:
-    """Mean next-token NLL over the rows, plus the load-balance loss of
-    every expert layer times its weight."""
+def nll_and_aux(params: Dict, tokens: torch.Tensor, labels: torch.Tensor,
+                cfg: Dict, mm: Matmul, stacks: Sequence[str] = ("layers",)
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mean next-token NLL over the rows, and the load-balance loss
+    summed over the expert layers, through the blocks of each stack of
+    ``stacks`` in turn (a block with ``mlp`` is dense, with ``moe`` a
+    mixture)."""
     x = params["embed"][tokens.long()]
     aux = torch.zeros((), device=x.device)
-    for i in range(cfg["num_hidden_layers"]):
-        x, a = checkpoint(block, x, _layer(params["layers"], i), cfg, mm,
-                          use_reentrant=False)
-        aux = aux + a
+    for stack in stacks:
+        tree = params[stack]
+        for i in range(tree["ln1"].shape[0]):
+            x, a = checkpoint(block, x, _layer(tree, i), cfg, mm,
+                              use_reentrant=False)
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg["rms_norm_eps"])
     w = params["embed"].T if cfg.get("tie_word_embeddings") \
         else params["lm_head"]
@@ -144,7 +200,4 @@ def loss(params: Dict, tokens: torch.Tensor, labels: torch.Tensor,
     total = sum(checkpoint(_nll_sum, flat[r:r + HEAD_ROWS], w,
                            lab[r:r + HEAD_ROWS], mm, use_reentrant=False)
                 for r in range(0, flat.shape[0], HEAD_ROWS))
-    out = total / flat.shape[0]
-    if cfg["family"] == "moe":
-        out = out + cfg["router_aux_loss_coef"] * aux
-    return out
+    return total / flat.shape[0], aux

@@ -1,7 +1,8 @@
 """The reference's first training steps, and the control's.
 
 From the benchmark's seeded weights (``bench/weights.py``) and the same
-global batches the program trained on, it runs the steps in float32 with
+global batches the program trained on, it runs the steps of the
+configuration's family (``bench/reference/<family>.py``) in float32 with
 TF32 off: the loss of each step, the norm of each leaf's gradient at step
 1 (before clipping), and the norm of each leaf's change after the last
 step.  On several ranks each rank computes its own rows and the gradients
@@ -23,7 +24,7 @@ import torch
 import torch.distributed as dist
 
 from bench import weights as W
-from bench.reference import adamw, model
+from bench.reference import adamw, family
 
 F8_MAX = 448.0
 
@@ -77,6 +78,7 @@ def run(cfg: Dict, opt: Dict, seed: int, batches: Sequence[Dict],
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mm = VARIANTS[variant]
+    fam = family(cfg)
     stored = getattr(torch, cfg["torch_dtype"])
     paths, params = [], []
     for path, x in W.leaves(cfg, seed, device):
@@ -90,8 +92,8 @@ def run(cfg: Dict, opt: Dict, seed: int, batches: Sequence[Dict],
     for step, b in enumerate(batches, 1):
         rows = b["tokens"].shape[0] // world
         mine = slice(rank * rows, (rank + 1) * rows)
-        loss = model.loss(tree, b["tokens"][mine], b["labels"][mine], cfg,
-                          mm) / world
+        loss = fam.loss(tree, b["tokens"][mine], b["labels"][mine], cfg,
+                        mm) / world
         grads = list(torch.autograd.grad(loss, params))
         loss = loss.detach()
         if world > 1:

@@ -116,7 +116,9 @@ def assemble(cell: str, files, ranks, trace: bool, peaks,
             ops.append(per)
         out["breakdown"] = {
             "device_ops": TR.top(_mean_totals(ops)),
-            "idle_gaps": TR.top(_mean_totals([t["gaps"] for t in ts]))}
+            "idle_gaps": TR.top(_mean_totals([t["gaps"] for t in ts])),
+            "idle_gaps_by_span": TR.top(_mean_totals(
+                [t["gaps_by_span"] for t in ts]))}
         out["tracing"] = {
             "traced_step_s": ts[0]["wall_s"] / ts[0]["steps"],
             "untraced_step_s": ts[0]["untraced_step_s"]}

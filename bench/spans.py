@@ -35,7 +35,6 @@ import argparse
 import bisect
 import collections
 import json
-import os
 import pathlib
 import sys
 import time
@@ -161,9 +160,9 @@ def summarize(events: List[Dict], wall_s: float) -> Dict:
         while by_start[k][1] < b_start:
             k += 1
         gaps[label[by_start[k]]] += (b_start - a_end) / 1e6
-    if busy and wall_s - (busy[-1][1] - busy[0][0]) / 1e6 > 0:
-        gaps["outside the device's span"] += \
-            wall_s - (busy[-1][1] - busy[0][0]) / 1e6
+    outside = wall_s - ((busy[-1][1] - busy[0][0]) / 1e6 if busy else 0.0)
+    if outside > 0:
+        gaps["outside the device's span"] += outside
     return {"spans": out, "gaps_by_span": dict(gaps),
             "device_s": sum(o[2] for o in ops) / 1e6,
             "ranges": {n: sorted(r, key=lambda x: x[1])
@@ -181,33 +180,6 @@ def per_step(summary: Dict, steps: int) -> Dict[str, float]:
 
 
 # -- the command -------------------------------------------------------------
-
-
-def capture(run_steps, steps: int):
-    """The Chrome trace events of ``run_steps(steps)`` under the profiler
-    (ended by a synchronize), and its wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from bench import trace as TR
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    TR._sync()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run_steps(steps)
-        TR._sync()
-        wall = time.perf_counter() - t0
-    tmp = pathlib.Path(os.environ.get("TMPDIR") or "/tmp")
-    path = tmp / f"bench-spans-{os.getpid()}.json"
-    try:
-        prof.export_chrome_trace(str(path))
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    finally:
-        if path.exists():
-            path.unlink()
-    return events, wall
 
 
 def rank_run(spec: Dict) -> Dict:
@@ -232,7 +204,7 @@ def rank_run(spec: Dict) -> Dict:
         def run(k):
             for _ in range(k):
                 job.step()
-        events, wall = capture(run, n)
+        events, wall = TR.record(run, n, f"spans-rank{job.rank}")
         try:                    # a program older than its spans has none
             mod = importlib.import_module("repro_torch.runtime.spans")
         except ModuleNotFoundError:

@@ -1,21 +1,17 @@
 """A cell's files at a size the CPU runs in seconds: the published
-widths cut, the traffic shortened, the cell's limits kept."""
+widths cut by the family's ``small``, the traffic shortened, the cell's
+limits kept."""
 
 import time
 
-from bench import cells
+from bench import cells, reference
 
 
 def small_cell(cell: str, *, world: int = None, fault: str = "",
                seed: int = 2 ** 31 + 17, trace: bool = False):
     """The run spec of ``cell`` at a CPU size (``world`` gloo ranks)."""
     files = cells.load(cell)
-    cfg = dict(files["config"])
-    cfg.update(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
-               num_key_value_heads=2, head_dim=16, intermediate_size=128,
-               vocab_size=256)
-    if cfg["family"] == "moe":
-        cfg.update(num_local_experts=4)
+    cfg = reference.family(files["config"]).small(files["config"])
     world = world or files["cell"]["chips"]
     trf = dict(files["traffic"], seq_len=64, pool=8, ranks=world)
     prog = dict(files["cell"]["program"],

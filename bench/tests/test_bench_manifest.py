@@ -132,12 +132,12 @@ def test_program_config_takes_the_file(path):
     is the value the program runs with."""
     data = json.loads(path.read_text())
     arch = cells.program_config(data)
-    for key, field in cells.ARCH_KEYS.items():
+    for key, field in cells.program_keys(data).items():
         if key in data:
-            assert getattr(arch, field) == data[key], key
-    for key, field in cells.MOE_KEYS.items():
-        if key in data:
-            assert getattr(arch.moe, field) == data[key], key
+            got = arch
+            for part in field.split("."):
+                got = getattr(got, part)
+            assert got == data[key], key
     assert arch.head_dim_ == data["head_dim"]
 
 
@@ -180,9 +180,11 @@ def test_loaded_modules_hold_no_jax():
         "import run, calibrate\n"
         "from bench import cells, faults, compare, trace, traffic\n"
         "from bench.drivers import train\n"
-        "from bench.reference import model, adamw\n"
+        "from bench.reference import model, adamw, dense, moe\n"
         "import repro_torch.launch.steps, repro_torch.launch.mesh\n"
-        "for m in ('step_mfu_pct', 'offload_pct', 'k1_roofline_pct'):\n"
+        "for m in ('step_mfu_pct', 'offload_pct', 'k1_roofline_pct',\n"
+        "          'attn_ms', 'moe_dispatch_ms', 'moe_expert_ms',\n"
+        "          'optimizer_ms'):\n"
         "    cells.reader(m)\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

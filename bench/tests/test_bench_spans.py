@@ -12,7 +12,7 @@ device op in the spans around its launch."""
 
 import pytest
 
-from bench import run, spans
+from bench import cells, run, spans
 from bench import trace as TR
 from bench.drivers import train
 from bench.metrics import moe_drop_pct
@@ -146,19 +146,69 @@ def test_moe_drop_pct_reads_the_program_counters(report, want):
     assert moe_drop_pct.read(run_) == want
 
 
-def test_moe_drop_pct_only_in_a_traced_run():
+@pytest.fixture(scope="module")
+def traced_small():
+    """A traced CPU run of the cell at a small size, and its line."""
+    spec = small_cell("mixtral-8x7b.train-1chip", trace=True)
+    ranks = train.run_cell(spec)
+    out = run.assemble(spec["cell"]["name"], small_files(spec), ranks,
+                       True, {})
+    return ranks, out
+
+
+def test_moe_drop_pct_only_in_a_traced_run(traced_small):
     """A CPU run of the cell at a small size: the untraced line has no
     ``moe_drop_pct``, the traced one has it, a share of the pairs."""
     spec = small_cell("mixtral-8x7b.train-1chip")
     ranks = train.run_cell(spec)
     assert moe_drop_pct.read({"ranks": ranks}) is None
-    spec = small_cell("mixtral-8x7b.train-1chip", trace=True)
-    ranks = train.run_cell(spec)
-    out = run.assemble(spec["cell"]["name"], small_files(spec), ranks,
-                       True, {})
+    ranks, out = traced_small
     assert out["correct"], out["checks"]
     value = out["metrics"]["moe_drop_pct"]["value"]
     assert 0.0 <= value < 100.0
     counters = ranks[0]["program_report"]["counters"]
     # 3 traced steps, 2 layers, 64 tokens, top-2
     assert counters["moe.assigned"] == train.TRACE_STEPS * 2 * 64 * 2
+
+
+SPAN_READERS = {"attn_ms": "attn", "moe_dispatch_ms": "moe.dispatch",
+                "moe_expert_ms": "moe.experts", "optimizer_ms": "adamw"}
+
+
+def test_span_readers_on_the_synthetic_trace():
+    """Each reader gives its span's device ms over the traced steps, the
+    mean over ranks; none where no rank's trace holds the span."""
+    sp = spans.summarize(EVENTS, WALL_S)["spans"]
+    one = {"trace": {"spans": sp, "steps": 2}}
+    half = {"trace": {"spans": {n: dict(v, device_s=v["device_s"] / 2)
+                                for n, v in sp.items()}, "steps": 2}}
+    want = {"attn_ms": 0.1, "moe_dispatch_ms": None, "moe_expert_ms": 0.045,
+            "optimizer_ms": 0.03}
+    for metric, value in want.items():
+        reader = cells.reader(metric)
+        if value is None:
+            assert reader.read({"ranks": [one, half]}) is None
+        else:
+            assert reader.read({"ranks": [one]}) == pytest.approx(value)
+            assert reader.read({"ranks": [one, half]}) == pytest.approx(
+                0.75 * value)
+    assert cells.reader("attn_ms").read({"ranks": [{}]}) is None
+
+
+def test_traced_run_carries_the_program_spans(traced_small):
+    """The traced run's summary holds the program's spans and the gaps by
+    span, the line's breakdown the gaps by span, and the four readers
+    each give a value (0 ms on the CPU, which runs no device op)."""
+    ranks, out = traced_small
+    t = ranks[0]["trace"]
+    assert set(SPAN_READERS.values()) | {"step"} <= set(t["spans"])
+    # 3 steps of 2 layers: each layer's forward, recompute and backward
+    assert t["spans"]["attn"]["count"] == 3 * train.TRACE_STEPS * 2
+    assert t["spans"]["adamw"]["count"] == train.TRACE_STEPS
+    assert sum(t["gaps_by_span"].values()) == pytest.approx(
+        sum(t["gaps"].values()))
+    for metric, span in SPAN_READERS.items():
+        assert out["metrics"][metric]["unit"] == "ms/step"
+        assert out["metrics"][metric]["value"] == pytest.approx(
+            1e3 * t["spans"][span]["device_s"] / t["steps"])
+    assert len(out["breakdown"]["idle_gaps_by_span"]) <= 10

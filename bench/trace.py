@@ -4,9 +4,10 @@ metrics and the breakdown need.
 The profiler writes its Chrome trace into the run's temporary directory;
 it is read and deleted at once.  From it: every device operation (kernel,
 copy, fill) with its name, start, length and stream; the busy time (the
-union of their intervals); and each idle gap between them, named by the
+union of their intervals); each idle gap between them, named by the
 host operation that launched the work that ended it (the innermost CPU
-op around the launch, found by the launch's correlation id).
+op around the launch, found by the launch's correlation id); and the
+program's spans, read by ``bench/spans.py``.
 """
 
 from __future__ import annotations
@@ -17,9 +18,11 @@ import json
 import os
 import pathlib
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
+
+from bench import spans
 
 DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
 LAUNCH_CATS = {"cuda_runtime", "cuda_driver"}
@@ -32,9 +35,10 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
-def capture(run_steps: Callable[[int], None], steps: int, tag: str) -> Dict:
-    """Profile ``run_steps(steps)`` (ended by a synchronize) and summarise
-    its trace."""
+def record(run_steps: Callable[[int], None], steps: int, tag: str
+           ) -> Tuple[List[Dict], float]:
+    """The Chrome trace events of ``run_steps(steps)`` under the profiler
+    (ended by a synchronize), and its wall time in seconds."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -45,7 +49,6 @@ def capture(run_steps: Callable[[int], None], steps: int, tag: str) -> Dict:
         run_steps(steps)
         _sync()
         wall = time.perf_counter() - t0
-    t_read = time.perf_counter()
     tmp = pathlib.Path(os.environ.get("TMPDIR") or "/tmp")
     path = tmp / f"bench-trace-{tag}-{os.getpid()}.json"
     try:
@@ -55,8 +58,19 @@ def capture(run_steps: Callable[[int], None], steps: int, tag: str) -> Dict:
     finally:
         if path.exists():
             path.unlink()
+    return events, wall
+
+
+def capture(run_steps: Callable[[int], None], steps: int, tag: str) -> Dict:
+    """Profile ``run_steps(steps)`` and summarise its trace, the program's
+    spans too (``spans`` and ``gaps_by_span`` of ``bench/spans.py``)."""
+    t0 = time.perf_counter()
+    events, wall = record(run_steps, steps, tag)
     out = summarize(events, steps, wall)
-    out["read_s"] = time.perf_counter() - t_read
+    by_span = spans.summarize(events, wall)
+    out["spans"] = by_span["spans"]
+    out["gaps_by_span"] = by_span["gaps_by_span"]
+    out["read_s"] = time.perf_counter() - t0 - wall
     return out
 
 

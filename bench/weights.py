@@ -1,10 +1,12 @@
 """Weights from the seed, made on the device in the type they are trained
 in, in the parameter tree the program takes.
 
-The tree is the one ``repro_torch``'s train step takes for the dense and
-moe families (stacked ``[L, ...]`` layers): each matrix is drawn from
+The tree is the one ``repro_torch``'s train step takes, as the
+configuration's family lays it out (``bench/reference/<family>.py``,
+stacked ``[L, ...]`` layers): each matrix is drawn from
 N(0, 0.02^2) in one ``torch.randn`` on a generator of the device, each
-norm is ones.  Leaves are drawn in sorted path order, one call a leaf, so
+norm is ones.  Leaves are drawn in the family's order (sorted by path in
+``dense`` and ``moe``), one call a leaf, so
 :func:`leaves` can draw them again one at a time with the same bits.
 Both the program and the reference are handed these weights.
 """
@@ -15,6 +17,8 @@ import hashlib
 from typing import Dict, Iterator, List, Tuple
 
 import torch
+
+from bench import reference
 
 #: the standard deviation of every drawn matrix
 INIT_STD = 0.02
@@ -30,42 +34,12 @@ def derive(seed: int, tag: str) -> int:
 
 def leaf_specs(cfg: Dict) -> List[Tuple[Path, Tuple[int, ...], str]]:
     """(path, shape, "normal" | "ones" | "zeros") of every leaf, in the
-    order they are drawn."""
-    d, n = cfg["hidden_size"], cfg["num_hidden_layers"]
-    h, kv, hd = (cfg["num_attention_heads"], cfg["num_key_value_heads"],
-                 cfg["head_dim"])
-    f, v = cfg["intermediate_size"], cfg["vocab_size"]
+    order they are drawn: the family's (``bench/reference/<family>.py``)."""
+    v = cfg["vocab_size"]
     if v % 256:
         raise ValueError(f"vocab_size {v}: the program pads the vocabulary "
                          f"to a multiple of 256")
-    out = [(("embed",), (v, d), "normal"), (("final_norm",), (d,), "ones"),
-           (("layers", "ln1"), (n, d), "ones"),
-           (("layers", "ln2"), (n, d), "ones"),
-           (("layers", "attn", "wq"), (n, d, h * hd), "normal"),
-           (("layers", "attn", "wk"), (n, d, kv * hd), "normal"),
-           (("layers", "attn", "wv"), (n, d, kv * hd), "normal"),
-           (("layers", "attn", "wo"), (n, h * hd, d), "normal")]
-    if cfg.get("attention_bias"):
-        out += [(("layers", "attn", "b" + w), (n, width * hd), "zeros")
-                for w, width in (("q", h), ("k", kv), ("v", kv))]
-    if not cfg.get("tie_word_embeddings"):
-        out.append((("lm_head",), (d, v), "normal"))
-    if cfg["family"] == "dense":
-        out += [(("layers", "mlp", "w_gate"), (n, d, f), "normal"),
-                (("layers", "mlp", "w_up"), (n, d, f), "normal"),
-                (("layers", "mlp", "w_down"), (n, f, d), "normal")]
-    elif cfg["family"] == "moe":
-        e = cfg["num_local_experts"]
-        out += [(("layers", "moe", "w_router"), (n, d, e), "normal"),
-                (("layers", "moe", "experts", "w_gate"), (n, e, d, f),
-                 "normal"),
-                (("layers", "moe", "experts", "w_up"), (n, e, d, f),
-                 "normal"),
-                (("layers", "moe", "experts", "w_down"), (n, e, f, d),
-                 "normal")]
-    else:
-        raise ValueError(f"family {cfg['family']!r}: dense or moe")
-    return sorted(out)
+    return reference.family(cfg).leaf_specs(cfg)
 
 
 def leaves(cfg: Dict, seed: int, device, dtype=None
