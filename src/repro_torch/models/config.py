@@ -7,7 +7,8 @@ Port of ``src/repro/models/config.py``: the same dataclasses and
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -25,6 +26,12 @@ class MoEConfig:
     #: (+ TP inside each expert); "tp" = experts replicated, FFN hidden
     #: sharded over the model axis (for n_experts < axis size, e.g. Mixtral).
     impl: str = "ep_a2a"
+
+    @property
+    def n_router(self) -> int:
+        """The router's width: every expert of the layer (this config
+        holds them all)."""
+        return self.n_experts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +128,12 @@ class ArchConfig:
         if self.n_heads:
             assert self.n_heads % self.n_kv_heads == 0
 
+    @property
+    def d_expert(self) -> int:
+        """The width of one routed expert's FFN: the MoE config's own
+        (``SigmoidMoEConfig.d_expert``), else ``d_ff``."""
+        return getattr(self.moe, "d_expert", 0) or self.d_ff
+
     def reduced(self, *, n_layers: int = 2, d_model: int = 256,
                 n_experts: int = 4, vocab: int = 512) -> "ArchConfig":
         """The smoke-test variant: same family/topology, tiny dims."""
@@ -149,3 +162,130 @@ class ArchConfig:
             if self.sliding_window else None,
             moe=moe, ssm=ssm, hybrid=hybrid, encdec=encdec, vlm=vlm,
             param_dtype="float32")
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3-style blocks (Kimi-K2-Instruct): configurations of their own,
+# so the reference's ten configurations keep their fields
+# ---------------------------------------------------------------------------
+
+def _yarn_mscale(factor: float, m: float) -> float:
+    """YaRN's attention scale for a context ``factor`` (DeepSeek-V3's
+    ``yarn_get_mscale``)."""
+    return 1.0 if factor <= 1 else 0.1 * m * math.log(factor) + 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2 §2.1, arXiv:2405.04434):
+    low-rank query and key/value paths, each with its RMSNorm, a RoPE key
+    of ``qk_rope_head_dim`` shared by every head, and YaRN frequencies
+    (DeepSeek-V3's public form) from ``rope_scaling``, the published
+    config's group as given (its keys ``type``, ``factor``,
+    ``original_max_position_embeddings``, ``beta_fast``, ``beta_slow``,
+    ``mscale``, ``mscale_all_dim``)."""
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    rope_scaling: Dict[str, Any] = dataclasses.field(hash=False)
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    def _yarn(self, key: str, default: float) -> float:
+        return float(self.rope_scaling.get(key, default))
+
+    @property
+    def softmax_scale(self) -> float:
+        """qk_head_dim^-1/2 times mscale(factor, mscale_all_dim)^2."""
+        m = _yarn_mscale(self._yarn("factor", 1.0),
+                         self._yarn("mscale_all_dim", 0.0))
+        return self.qk_head_dim ** -0.5 * m * m
+
+    def yarn_ramp(self, theta: float) -> Tuple[int, int]:
+        """(low, high): the frequency pairs below ``low`` keep their
+        frequency, those from ``high`` on are divided by the factor."""
+        dim = self.qk_rope_head_dim
+        orig = self._yarn("original_max_position_embeddings", 4096)
+
+        def corr(rotations: float) -> float:
+            return (dim * math.log(orig / (rotations * 2 * math.pi))
+                    / (2 * math.log(theta)))
+        low = math.floor(corr(self._yarn("beta_fast", 32.0)))
+        high = math.ceil(corr(self._yarn("beta_slow", 1.0)))
+        return max(low, 0), min(high, dim - 1)
+
+    def validate(self) -> None:
+        assert self.qk_rope_head_dim % 2 == 0, self.qk_rope_head_dim
+        assert self.rope_scaling.get("type") == "yarn", self.rope_scaling
+        # the rotation's own scale, mscale(f, mscale) / mscale(f,
+        # mscale_all_dim), is 1 when the two agree, as published
+        assert self._yarn("mscale", 1.0) == \
+            self._yarn("mscale_all_dim", 0.0), self.rope_scaling
+
+
+@dataclasses.dataclass(frozen=True)
+class SigmoidMoEConfig(MoEConfig):
+    """DeepSeek-V3's expert layer (arXiv:2412.19437 §2.1.2): sigmoid
+    scores, top-k selection by score plus a correction bias (a leaf,
+    ``router_bias``, that selects but never weighs), the chosen scores
+    normalised and scaled by ``routed_scaling_factor``, the sequence-wise
+    balance loss, and ``n_shared_experts`` experts every token takes.
+
+    The layer holds ``n_experts`` of the router's ``router_experts``: the
+    block ``expert_share`` of ``router_experts / n_experts`` chips that
+    share it.  It routes over all of them and computes its own experts'
+    part of the result; what the other chips' experts would add is not
+    computed here."""
+    router_experts: int = 0           # 0: the layer holds every expert
+    expert_share: int = 0
+    d_expert: int = 0                 # a routed expert's FFN width
+    n_shared_experts: int = 0
+    routed_scaling_factor: float = 1.0
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = True
+    seq_aux: bool = True
+
+    @property
+    def n_router(self) -> int:
+        return self.router_experts or self.n_experts
+
+    @property
+    def first_held(self) -> int:
+        return self.expert_share * self.n_experts
+
+    def validate(self) -> None:
+        # the forms the program computes; others are refused, not guessed
+        assert (self.scoring_func, self.topk_method, self.n_group,
+                self.topk_group, self.norm_topk_prob, self.seq_aux) == \
+            ("sigmoid", "noaux_tc", 1, 1, True, True), self
+        assert self.n_router % self.n_experts == 0, self
+        assert 0 <= self.expert_share < self.n_router // self.n_experts
+        assert self.top_k <= self.n_router
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAArchConfig(ArchConfig):
+    """An ArchConfig whose attention is MLA (``mla``); ``head_dim`` is the
+    value width the output projection reads."""
+    mla: Optional[MLAConfig] = None
+
+    def validate(self) -> None:
+        super().validate()
+        assert self.mla is not None
+        self.mla.validate()
+        assert self.head_dim_ == self.mla.v_head_dim, \
+            (self.head_dim_, self.mla.v_head_dim)
+        if isinstance(self.moe, SigmoidMoEConfig):
+            self.moe.validate()
+
+
+def mla_of(cfg: ArchConfig) -> Optional[MLAConfig]:
+    """The config's MLA settings; None for the other attentions."""
+    return getattr(cfg, "mla", None)

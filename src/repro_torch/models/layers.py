@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as K
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, MLAConfig, mla_of
 from repro_torch.models.tp import ParallelCtx
 from repro_torch.runtime import spans
 
@@ -60,11 +60,28 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
+def yarn_freqs(mla: MLAConfig, theta: float, device=None) -> torch.Tensor:
+    """The RoPE frequencies of MLA's ``qk_rope_head_dim`` dims under YaRN
+    (DeepSeek-V3's form): pair i keeps theta^(-2i/dim) below the ramp's
+    ``low``, is divided by the factor from its ``high`` on, and is mixed
+    linearly between."""
+    dim = mla.qk_rope_head_dim
+    extra = rope_freqs(dim, theta, device)
+    low, high = mla.yarn_ramp(theta)
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)
+    ramp = torch.clamp((i - low) / max(high - low, 1e-3), 0, 1)
+    inter = extra / mla.rope_scaling["factor"]
+    return inter * ramp + extra * (1 - ramp)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: [B, S, H, hd]; positions: [S] or [B, S]."""
+               theta: float, freqs: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [S] or [B, S].  ``freqs`` [hd/2]
+    replaces theta's (``yarn_freqs``)."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)              # [hd/2]
+    if freqs is None:
+        freqs = rope_freqs(hd, theta, x.device)          # [hd/2]
     if positions.ndim == 1:
         ang = positions[:, None].float() * freqs[None, :]
         ang = ang[None, :, None, :]                      # [1, S, 1, hd/2]
@@ -109,22 +126,25 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, window: Optional[int] = None,
                       q_offset=0, k_offset: int = 0, kv_valid=None,
-                      chunk: int = ATTN_CHUNK, with_stats: bool = False):
+                      chunk: int = ATTN_CHUNK, with_stats: bool = False,
+                      scale: Optional[float] = None):
     """Streaming-softmax attention.
 
-    q: [B, Sq, Hq, hd]; k, v: [B, Skv, Hkv, hd] with Hq % Hkv == 0.
+    q, k: [B, Sq|Skv, Hq|Hkv, hd] with Hq % Hkv == 0; v: [B, Skv, Hkv,
+    hv] (MLA's value width differs from its key width).  The scores are
+    scaled by ``scale``, 1/sqrt(hd) unless given.
     Query positions are q_offset+i (q_offset a scalar or [B]), key
     positions k_offset+j (k_offset a host int: the first position of a
     sequence-sharded cache's slice); kv_valid (scalar or [B]) bounds the
     keys attended.  With ``with_stats`` the result is the un-normalised
-    (acc [B,Hkv,g,Sq,hd], running max [B,Hkv,g,Sq], denominator
+    (acc [B,Hkv,g,Sq,hv], running max [B,Hkv,g,Sq], denominator
     [B,Hkv,g,Sq]) in float32, for a log-sum-exp merge across shards.
     """
     b, sq, hq, hd = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, hv = k.shape[1], k.shape[2], v.shape[-1]
     group = hq // hkv
     dev = q.device
-    qf = q.float() * (1.0 / math.sqrt(hd))
+    qf = q.float() * (1.0 / math.sqrt(hd) if scale is None else scale)
     q_off = torch.as_tensor(q_offset, device=dev)
     ar = torch.arange(sq, device=dev)
     q_pos = (q_off[..., None] + ar) if q_off.ndim else (q_off + ar)
@@ -140,12 +160,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # k_offset, where they alias global positions below it
         local_len = skv
     kc = k.reshape(b, n_chunks, chunk, hkv, hd)
-    vc = v.reshape(b, n_chunks, chunk, hkv, hd)
+    vc = v.reshape(b, n_chunks, chunk, hkv, hv)
     qg = qf.reshape(b, sq, hkv, group, hd)               # [B,Sq,Hkv,g,hd]
 
     m_run = torch.full((b, hkv, group, sq), -math.inf, device=dev)
     l_run = torch.zeros((b, hkv, group, sq), device=dev)
-    acc = torch.zeros((b, hkv, group, sq, hd), device=dev)
+    acc = torch.zeros((b, hkv, group, sq, hv), device=dev)
     for ci in range(n_chunks):                   # lax.scan in the reference
         k_local = ci * chunk + torch.arange(chunk, device=dev)
         kf = kc[:, ci].float()
@@ -175,8 +195,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if with_stats:
         return acc, m_run, l_run
     denom = torch.clamp(l_run, min=1e-30)
-    out = acc / denom[..., None]                          # [B,Hkv,g,Sq,hd]
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd)
+    out = acc / denom[..., None]                          # [B,Hkv,g,Sq,hv]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hv)
     return out.to(q.dtype)
 
 
@@ -230,6 +250,8 @@ def _normal(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype, device,
                    lead: Tuple[int, ...] = ()):
     """GLOBAL param shapes, with ``lead`` prepended (the [L] stack)."""
+    if mla_of(cfg) is not None:
+        return init_mla(gen, cfg, dtype, device, lead)
     d, hd = cfg.d_model, cfg.head_dim_
     p = {
         "wq": _normal(gen, lead + (d, cfg.n_heads * hd), dtype, device),
@@ -248,12 +270,80 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype, device,
 def attention_specs(cfg: ArchConfig, model_axis: str = "model"):
     """Per leaf of init_attention, the mesh axis of each dim (None:
     replicated), as the reference's PartitionSpecs: Q/O sharded over the
-    heads, K/V replicated."""
+    heads, K/V replicated.  MLA's leaves are all replicated: it runs
+    without a model axis."""
+    if mla_of(cfg) is not None:
+        return {k: (None,) * (1 if k.endswith("norm") else 2)
+                for k in MLA_LEAVES}
     p = {"wq": (None, model_axis), "wk": (None, None), "wv": (None, None),
          "wo": (model_axis, None)}
     if cfg.qkv_bias:
         p.update(bq=(model_axis,), bk=(None,), bv=(None,))
     return p
+
+
+#: MLA's leaves: the query path (``wq_a``, its norm, ``wq_b``), the
+#: key/value path (``wkv_a`` to the latent and the shared RoPE key, its
+#: norm, ``wkv_b``) and the output projection
+MLA_LEAVES = ("wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wkv_b", "wo")
+
+
+def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype, device,
+             lead: Tuple[int, ...] = ()):
+    """MLA's GLOBAL param shapes (``MLA_LEAVES``), ``lead`` prepended;
+    norms ones."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+
+    def ones(n):
+        return torch.ones(lead + (n,), dtype=dtype, device=device)
+    return {
+        "wq_a": _normal(gen, lead + (d, m.q_lora_rank), dtype, device),
+        "q_norm": ones(m.q_lora_rank),
+        "wq_b": _normal(gen, lead + (m.q_lora_rank, h * m.qk_head_dim),
+                        dtype, device),
+        "wkv_a": _normal(gen, lead + (d, m.kv_lora_rank
+                                      + m.qk_rope_head_dim), dtype, device),
+        "kv_norm": ones(m.kv_lora_rank),
+        "wkv_b": _normal(gen, lead + (m.kv_lora_rank, h * (
+            m.qk_nope_head_dim + m.v_head_dim)), dtype, device),
+        "wo": _normal(gen, lead + (h * m.v_head_dim, d), dtype, device),
+    }
+
+
+def mla_core(p, x: torch.Tensor, cfg: ArchConfig,
+             positions: torch.Tensor) -> torch.Tensor:
+    """MLA's expanded form, as trained (DeepSeek-V2 §2.1): [B,S,D] ->
+    [B,S,H,v_head_dim], before ``wo``.
+
+    Span ``mla.latent``: c_q = RMSNorm(x W_qa), q = c_q W_qb, each head
+    [q_nope | q_rope]; [c_kv | k_rope] = x W_kva, kv = RMSNorm(c_kv)
+    W_kvb, each head [k_nope | v]; q_rope and the one k_rope rotated
+    (half-split pairs, the YaRN frequencies), k_rope shared by every
+    head.  Span ``mla.core``: causal attention over the expanded heads,
+    at the YaRN-scaled softmax scale."""
+    m, h = cfg.mla, cfg.n_heads
+    b, s, _ = x.shape
+    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    with spans.span("mla.latent") as sp:
+        x = sp.inputs(x)
+        cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+        q = (cq @ p["wq_b"]).reshape(b, s, h, m.qk_head_dim)
+        ckv, k_rope = (x @ p["wkv_a"]).split([m.kv_lora_rank, rope], dim=-1)
+        kv = (rms_norm(ckv, p["kv_norm"], cfg.norm_eps) @ p["wkv_b"]
+              ).reshape(b, s, h, nope + m.v_head_dim)
+        k_nope, v = kv.split([nope, m.v_head_dim], dim=-1)
+        freqs = yarn_freqs(m, cfg.rope_theta, x.device)
+        q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta, freqs)
+        k_rope = apply_rope(k_rope[:, :, None], positions, cfg.rope_theta,
+                            freqs)
+        q = torch.cat([q[..., :nope], q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b, s, h, rope)], dim=-1)
+        q, k, v = sp.outputs(q, k, v)
+    with spans.span("mla.core") as sp:
+        q, k, v = sp.inputs(q, k, v)
+        return sp.outputs(chunked_attention(
+            q, k, v, causal=True, window=cfg.sliding_window,
+            scale=m.softmax_scale))
 
 
 def _kv_slice(p, cfg: ArchConfig, ctx: ParallelCtx, which: str):
@@ -321,8 +411,17 @@ def attention_block(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx,
       (the reference ropes neither side there) and without a cache write.
     window_override: "cfg" uses cfg.sliding_window; None/int overrides.
     Returns (out [B,S,D], new_cache); the cache argument is not modified.
+    An MLA config (``mla_core``) runs causal self-attention only, on one
+    model-axis rank.
     """
     b, s, d = x.shape
+    mla = mla_of(cfg) is not None
+    if mla and (ctx.tp_size > 1 or kv_cache is not None
+                or xattn_kv is not None):
+        raise ValueError("MLA runs causal self-attention in the train and "
+                         "prefill forward on a mesh without a model axis; "
+                         "a model axis, a KV cache and cross-attention are "
+                         "not built for it")
     hq_l = head_layout(cfg, ctx)[0]
     window = cfg.sliding_window if window_override == "cfg" \
         else window_override
@@ -332,7 +431,9 @@ def attention_block(p, x: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx,
     new_cache = None
     with spans.span("attn") as sp:
         x = sp.inputs(x)
-        if xattn_kv is not None:
+        if mla:
+            out = mla_core(p, x, cfg, positions)
+        elif xattn_kv is not None:
             out = chunked_attention(_project_q(p, x, cfg, ctx), *xattn_kv,
                                     causal=False, window=None)
         else:

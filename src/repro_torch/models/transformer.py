@@ -15,7 +15,11 @@ families:
 * dense: a stack of attention + SwiGLU blocks;
 * moe: ``n_dense_prefix`` dense blocks (``prefix``), then attention +
   MoE blocks (``layers``; models/moe.py, ``tp`` or ``ep_a2a``), their
-  router aux losses summed;
+  router aux losses summed.  An ``MLAArchConfig`` (Kimi-K2-Instruct)
+  takes MLA for attention in both stacks (models/layers.py ``mla_core``)
+  and, with a ``SigmoidMoEConfig``, the biased sigmoid router, a shared
+  expert and experts of their own width (``d_expert``; the dense prefix
+  keeps ``d_ff``); it trains and prefills, and refuses both decodes;
 * ssm: a stack of Mamba2 blocks (models/ssm.py);
 * hybrid (Zamba2): Mamba2 blocks with ONE shared attention + MLP block
   (``shared_attn``) after every group of ``attn_every`` of them; the
@@ -69,7 +73,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, mla_of
 from repro_torch.models.tp import ParallelCtx
 from repro_torch.runtime import spans
 
@@ -522,6 +526,13 @@ def _prefix_records(ctx: ParallelCtx, stacked, p, i: int):
     return _first_records(ctx, 0 if stacked is p.get("prefix") else i)
 
 
+def _no_mla_decode(cfg: ArchConfig, step: str) -> None:
+    if mla_of(cfg) is not None:
+        raise ValueError(f"{step}: {cfg.name} has MLA, whose decode (a "
+                         f"latent KV cache) is not built; it trains and "
+                         f"prefills")
+
+
 def decode_step(p, cache, token: torch.Tensor, pos, cfg: ArchConfig,
                 ctx: ParallelCtx, dcfg: DecodeConfig):
     """One decode step: token [B,S] int, pos a scalar (a host int for a
@@ -529,6 +540,7 @@ def decode_step(p, cache, token: torch.Tensor, pos, cfg: ArchConfig,
     cache tensors are updated in place; every self-attention runs over a
     cache sequence-sharded by ``dcfg.seq_shard``; encdec's cross-attention
     reads the cache's ``xk``/``xv``."""
+    _no_mla_decode(cfg, "decode_step")
     x = embed_tokens(p, token, cfg, ctx)
     pos_arr = torch.as_tensor(pos, device=x.device)
     steps = torch.arange(token.shape[1], device=x.device)
@@ -669,6 +681,7 @@ def paged_decode_step(p, pool, tokens: torch.Tensor, positions: torch.Tensor,
     """
     if cfg.family not in PAGED_FAMILIES:
         raise ValueError(cfg.family)
+    _no_mla_decode(cfg, "paged_decode_step")
     valid = row_req >= 0
     n_req = block_tables.shape[0]
     btab = block_tables[torch.clamp(row_req, 0, n_req - 1).long()]
