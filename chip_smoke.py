@@ -356,7 +356,22 @@ non-zero:
    the odd views on the scalar path; both passes on the expert leaf
    timed (CUDA events, median) beside the plain version and the bound of
    24 B a parameter.  Phase 25 runs after
-   phase 6.
+   phase 6;
+26. K9, the train step's attention (CUDA C++, csrc/flash_attention.cu,
+   built in phase 1), at the two train cells' shapes (Mixtral-8x7B's
+   32/8 heads of 128, causal under its 4096 window; Kimi-K2-Instruct's
+   64 heads of 192/128 with MLA's split value view), S 4096: the float32
+   output within 2e-5 of the plain version's largest (float32, on the
+   same bf16 operands), the bf16 output that rounded, every bf16 result
+   (output, dQ, dK, dV) within its rounding plus 1e-4 of the largest;
+   the float32 route on float32 operands, its output and gradients within
+   2e-5 of the plain version's largest; the backward's bits equal over
+   two runs; forward plus backward timed (CUDA events,
+   median) beside its bound (the model's FLOPs at the card's bf16
+   peak), the plain version on the same bf16 operands and, at 128/128,
+   ``F.scaled_dot_product_attention`` (the yardstick the port never
+   calls).  K9's launches on the main path are phase 16 (a)'s.  Phase
+   26 runs after phase 25.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  The launches in that line are the
@@ -576,21 +591,24 @@ def phase1_card_and_build(baseline=None):
     from repro_torch.kernels import adamw as k8
     from repro_torch.kernels import chunk_accumulate as ca
     from repro_torch.kernels import codec
+    from repro_torch.kernels import flash_attention as k9
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import payload_partition as pp
-    sources = [fd.SOURCE, ca.SOURCE, codec.SOURCE, pp.SOURCE, k8.SOURCE]
+    sources = [fd.SOURCE, ca.SOURCE, codec.SOURCE, pp.SOURCE, k8.SOURCE,
+               *k9.variants()]
     sources += [m.SOURCE for m in (baseline or {}).values()]
     t0 = time.perf_counter()
     built = _nvcc.build_all(sources)
     build_s = time.perf_counter() - t0
-    for src, (lib, log) in built.items():
+    for item, (lib, log) in built.items():
+        src, defines = item if isinstance(item, tuple) else (item, ())
         for line in log.splitlines():
             spills = "spill" in line and "0 bytes spill stores, 0 bytes " \
                 "spill loads" not in line
             if spills or "registers" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
         print(f"phase 1: built {os.path.relpath(lib, ROOT)} from "
-              f"{os.path.relpath(src, ROOT)}")
+              f"{os.path.relpath(src, ROOT)} {' '.join(defines)}".rstrip())
     sass = [("", codec.SOURCE), ("", ca.SOURCE), ("", pp.SOURCE)]
     if baseline:
         sass += [("baseline ", baseline[name].SOURCE)
@@ -1603,7 +1621,9 @@ def _kernel_counts(reset=False):
     from repro_torch.kernels import chunk_accumulate as ca
     from repro_torch.kernels import codec
     from repro_torch.kernels import payload_partition as pp
+    from repro_torch.kernels import flash_attention as k9
     if reset:
+        k9.launch_count.clear()
         for counts in (codec.launch_count, pp.launch_count):
             for k in counts:
                 counts[k] = 0
@@ -1613,7 +1633,7 @@ def _kernel_counts(reset=False):
         k8.launch_count.clear()
         k8.leaf_paths.clear()
     counts = kernels.launch_counts()
-    del counts["k6"], counts["k8"]      # not the collectives' kernels
+    del counts["k6"], counts["k8"], counts["k9"]   # not the collectives'
     return collections.Counter(counts)
 
 
@@ -3071,6 +3091,9 @@ MOE_TRAIN_LAYERS = 1
 #: launch, one finalize and one update launch
 MOE_TRAIN_LEAVES = 13
 MOE_TRAIN_K8_A_STEP = 3
+# K9 launches a layer and step of a checkpointed bf16 train step: the
+# forward, the recompute's forward, the dQ and the dK/dV launches
+K9_A_LAYER_STEP = 4
 #: AdamW lr of phase 17 (a)'s Mamba2 training: at phase 11's 1e-4 its
 #: three steps stay within noise of the initial loss (11.264, 11.237,
 #: 11.290 in PR 20's run 2), so they use the CPU tests' 1e-3
@@ -3291,8 +3314,8 @@ def dp_family_rank(arch, layers, lr, reduced=False, tuning_cache=""):
     ``flexlink`` (its slots warm-started from ``tuning_cache`` when one is
     named), each
     from the seed-0 init; the kernel counts set to 0 just before each run
-    and read just after it (K8's apart, as ``k8``, with the param tree's
-    leaf count and dtypes)."""
+    and read just after it (K8's and K9's apart, as ``k8`` and ``k9``,
+    with the param tree's leaf count and dtypes)."""
     sys.path.insert(0, str(SRC))
     import dataclasses
     from torch.utils import _pytree as pytree
@@ -3340,6 +3363,7 @@ def dp_family_rank(arch, layers, lr, reduced=False, tuning_cache=""):
         out[name] = {"losses": hist, "wall_s": wall,
                      "launches": dict(launches),
                      "k8": kernels.launch_counts()["k8"],
+                     "k9": kernels.launch_counts()["k9"],
                      "leaves": len(leaves),
                      "leaf_dtypes": sorted({str(p.dtype) for p in leaves}),
                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -3484,6 +3508,13 @@ def phase16_moe_training(card):
     print(f"phase 16 (a): K8 launches by rank over {TRAIN_STEPS} steps "
           f"{k8} ({MOE_TRAIN_LEAVES} bf16 leaves: norm, finalize, update a "
           f"step)")
+    k9 = {name: [r[name]["k9"] for r in res] for name in ("nccl", "flexlink")}
+    for name in k9:
+        check(k9[name] == [K9_A_LAYER_STEP * MOE_TRAIN_LAYERS * TRAIN_STEPS]
+              * len(res), f"16 (a) {name}: K9 launches by rank {k9[name]}, "
+              f"want {K9_A_LAYER_STEP} a layer and step")
+    print(f"phase 16 (a): K9 launches by rank over {TRAIN_STEPS} steps "
+          f"{k9} (a layer: forward, its checkpoint's recompute, dQ, dK/dV)")
     # the ep dispatch buffer of a data rank: [E * cap, d] float32 with
     # 4 rows x 128 tokens, top-2 of 4 experts at capacity factor 1.25
     cap = int(np.ceil(4 * 128 * 2 / 4 * 1.25))
@@ -3530,7 +3561,7 @@ def phase16_moe_training(card):
           f"{ {k: v // TRAIN_STEPS for k, v in want.items()} } "
           f"on every rank; ranks ran {time.perf_counter() - t0:.1f} s; "
           f"{card}")
-    return k1, k8["flexlink"][0]
+    return k1, k8["flexlink"][0], k9["flexlink"][0]
 
 
 def phase17_ssm_hybrid(card):
@@ -6273,6 +6304,147 @@ def phase25_adamw(card):
             "gnorm_rel": norm_rel, "by_leaf": rows}
 
 
+# K9 at the train cells' shapes: (name, batch, length, q heads, kv heads,
+# d_qk, d_v, window, v a split view of [k_nope | v] as MLA's)
+K9_CASES = (("mixtral-8x7b", 1, 4096, 32, 8, 128, 128, 4096, False),
+            ("kimi-k2-instruct", 1, 4096, 64, 64, 192, 128, None, True))
+# the float32 output against the plain version's largest: another order
+# of summation over 4096 keys, exp2, P's lo half (tests/
+# test_torch_flash_attention.py O32_REL); a bf16 result: its rounding
+# (2^-8 of the value) plus 1e-4 of the largest; the float32 route's
+# results, each against the plain version's largest (F32_REL there)
+K9_O32_REL = 2e-5
+K9_BF16_SLACK = 1e-4
+K9_F32_REL = 2e-5
+
+
+def _k9_operands(case, gen, dtype=torch.bfloat16):
+    _, b, s, hq, hkv, d_qk, d_v, _, view = case
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q, k = draw(b, s, hq, d_qk), draw(b, s, hkv, d_qk)
+    v = draw(b, s, hkv, 128 + d_v)[..., 128:] if view else draw(b, s, hkv,
+                                                                 d_v)
+    return q, k, v, draw(b, s, hq, d_v)
+
+
+def _k9_bf16_gap(got, want) -> float:
+    """The largest amount by which a bf16 result is past its rounding
+    plus K9_BF16_SLACK of the largest (<= 0 passes)."""
+    room = 2 ** -8 * want.abs() + K9_BF16_SLACK * want.abs().max()
+    return float(((got.float() - want).abs() - room).max())
+
+
+def phase26_flash_attention(card):
+    """K9 against its plain version at K9_CASES (bf16, then the float32
+    route), then forward plus backward timed beside the bound, the plain
+    version and SDPA."""
+    from repro_torch.kernels import flash_attention as k9
+    from repro_torch.kernels.ref import chunked_attention
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    _, (_, flops_peak) = card_peaks(card)
+    rows = {}
+    for case in K9_CASES:
+        name, b, s, hq, hkv, d_qk, d_v, window, _ = case
+        q, k, v, do = _k9_operands(case, gen)
+        scale = 1 / math.sqrt(d_qk)
+        kw = dict(causal=True, window=window, scale=scale)
+        t0 = time.perf_counter()
+        before = sum(k9.launch_count.values())
+        o, o32, lse = k9.forward(q, k, v, **kw)
+        grads = k9.backward(q, k, v, o32, lse, do, **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = sum(k9.launch_count.values()) - before
+        check(launches == 3, f"26 {name}: {launches} launches, want 3")
+        again = k9.backward(q, k, v, o32, lse, do, **kw)
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"26 {name}: the backward's bits differ between two runs")
+        del again
+        xs = [x.detach().float().requires_grad_() for x in (q, k, v)]
+        want = chunked_attention(*xs, **kw)
+        want_g = torch.autograd.grad(want, xs, do.float())
+        check(torch.equal(o, o32.to(torch.bfloat16)),
+              f"26 {name}: the bf16 output is not the float32 one rounded")
+        o32_rel = float((o32 - want).abs().max() / want.abs().max())
+        check(o32_rel <= K9_O32_REL, f"26 {name}: float32 output {o32_rel}")
+        gaps = {what: _k9_bf16_gap(x, y) for what, x, y in zip(
+            ("out", "dq", "dk", "dv"), (o, *grads), (want.detach(), *want_g))}
+        check(max(gaps.values()) <= 0, f"26 {name}: bf16 results {gaps}")
+        del xs, want, want_g, o, o32, lse, grads
+        # the float32 route: float32 operands, float32 results
+        xs = _k9_operands(case, gen, torch.float32)
+        o32, _, lse = k9.forward(*xs[:3], **kw)
+        got = (o32, *k9.backward(*xs[:3], o32, lse, xs[3], **kw))
+        leaves = [x.detach().requires_grad_() for x in xs[:3]]
+        want = chunked_attention(*leaves, **kw)
+        want = (want.detach(), *torch.autograd.grad(want, leaves, xs[3]))
+        f32_rel = {what: float((x - y).abs().max() / y.abs().max())
+                   for what, x, y in zip(("out", "dq", "dk", "dv"), got,
+                                         want)}
+        check(max(f32_rel.values()) <= K9_F32_REL,
+              f"26 {name}: float32 route {f32_rel}")
+        del xs, got, leaves, want, o32, lse
+        torch.cuda.empty_cache()
+
+        def kernel():
+            out, out32, stats = k9.forward(q, k, v, **kw)
+            return k9.backward(q, k, v, out32, stats, do, **kw)
+        ms = time_ms(kernel, iters=10, warmup=3)
+        fwd_ms = time_ms(lambda: k9.forward(q, k, v, **kw), iters=10,
+                         warmup=3)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+        def plain():
+            out = chunked_attention(*leaves, **kw)
+            return torch.autograd.grad(out, leaves, do)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        library_ms = None
+        if d_qk == d_v:
+            def library():
+                qt, kt, vt = (x.transpose(1, 2) for x in leaves)
+                out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True,
+                                                     enable_gqa=True)
+                return torch.autograd.grad(out, leaves, do.transpose(1, 2))
+            library_ms = time_ms(library, iters=10, warmup=3)
+        # the model's FLOPs: a causal forward is S^2 H (d_qk + d_v), the
+        # backward two and a half forwards
+        flops = 3.5 * b * s * s * hq * (d_qk + d_v)
+        bound_ms = flops / flops_peak * 1e3
+        rows[name] = {"ms": ms, "fwd_ms": fwd_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound_ms,
+                      "first_call_s": first_s, "o32_rel": o32_rel,
+                      "bf16_gaps": gaps, "f32_rel": f32_rel}
+        lib = (f"SDPA (causal, enable_gqa) {library_ms:.4f} ms"
+               if library_ms is not None else "no SDPA at 192/128")
+        print(f"phase 26: K9 at {name}'s shape (B {b}, S {s}, {hq}/{hkv} "
+              f"heads, {d_qk}/{d_v}, window {window}): forward + backward "
+              f"{ms:.4f} ms (forward {fwd_ms:.4f}), bound {bound_ms:.4f} ms "
+              f"({flops:.3e} model FLOPs at {flops_peak / 1e12:.0f} "
+              f"TFLOP/s), {100 * bound_ms / ms:.1f}% of it; plain version "
+              f"{plain_ms:.3f} ms; {lib}; first call "
+              f"{first_s:.1f} s; float32 output rel {o32_rel:.3g}, bf16 "
+              f"gaps {json.dumps({k: float(f'{x:.3g}') for k, x in gaps.items()})}"
+              f", float32 route rel "
+              f"{json.dumps({k: float(f'{x:.3g}') for k, x in f32_rel.items()})}"
+              f"; {card}")
+        del q, k, v, do, leaves
+        torch.cuda.empty_cache()
+    main = rows[K9_CASES[0][0]]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "none: XLA fused the reference's chunked_attention "
+                        "scan on the TPU",
+            "launches_phase26": 3, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "FLOPs", "library_ms": main["library_ms"],
+            "shape": "B 1, S 4096, 32/8 heads of 128, causal, window 4096, "
+                     "forward + backward",
+            "by_shape": rows}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -6327,6 +6499,8 @@ def main(argv=None) -> int:
     mark("6")
     k8_row = phase25_adamw(card)
     mark("25")
+    k9_row = phase26_flash_attention(card)
+    mark("26")
     k1_launches, plans, k1_calls = phase7_collectives()
     mark("7")
     k1_rows = phase8_k1_times(card, plans, baseline)
@@ -6350,7 +6524,7 @@ def main(argv=None) -> int:
     mark("14")
     moe_k6 = phase15_moe_serving(card)
     mark("15")
-    moe_k1, moe_k8 = phase16_moe_training(card)
+    moe_k1, moe_k8, moe_k9 = phase16_moe_training(card)
     mark("16")
     ssm_k1 = phase17_ssm_hybrid(card)
     mark("17")
@@ -6507,11 +6681,16 @@ def main(argv=None) -> int:
         f"phase 16 (a): Mixtral-8x7B trained {TRAIN_STEPS} steps on "
         f"(data=2), rank 0's flexlink run, {MOE_TRAIN_K8_A_STEP} a step"))
     kernels.append(k8_row)
+    k9_row.update(launches=moe_k9, launches_from=(
+        f"phase 16 (a): Mixtral-8x7B ({MOE_TRAIN_LAYERS} layer) trained "
+        f"{TRAIN_STEPS} steps on (data=2), rank 0's flexlink run, "
+        f"{K9_A_LAYER_STEP} a layer and step"))
+    kernels.append(k9_row)
     # phase 24's launches by row: each row's kernel, K1's float32 + bf16
     # pairs in its mixed block
     example_key = {"paged_flash_decode": "k6", "chunk_accumulate": "k1",
                    "extract_segment": "k7a", "merge_segments": "k7b",
-                   "adamw": "k8"}
+                   "adamw": "k8", "flash_attention": "k9"}
     for row in kernels:
         row["launches_examples"] = example_launches[
             example_key.get(row["name"], row["name"])]

@@ -23,14 +23,15 @@ def launch_counts() -> dict:
     """This process's kernel launches by kernel, from each wrapper's own
     counter (0 for a kernel whose module was never imported): ``k1``
     (K1, mixed float32 + bf16 apart as ``k1_mixed``), the codec's K2-K5
-    by name, ``k6``, ``k7a`` / ``k7b`` and ``k8`` (its three launches, norm,
-    finalize and update, together)."""
+    by name, ``k6``, ``k7a`` / ``k7b``, ``k8`` (its three launches, norm,
+    finalize and update, together) and ``k9`` (its forward, dQ and dK/dV
+    launches together)."""
     mods = {name: sys.modules.get(f"{__name__}.{name}")
             for name in ("chunk_accumulate", "codec", "flash_decode",
-                         "payload_partition", "adamw")}
+                         "payload_partition", "adamw", "flash_attention")}
     out = {"k1": 0, "k1_mixed": 0, "fp8_encode": 0,
            "fp8_decode_accumulate": 0, "fp8_decode": 0, "bf16_pack": 0,
-           "k6": 0, "k7a": 0, "k7b": 0, "k8": 0}
+           "k6": 0, "k7a": 0, "k7b": 0, "k8": 0, "k9": 0}
     ca = mods["chunk_accumulate"]
     if ca is not None:
         out["k1_mixed"] = ca.launch_count[ca.MIXED]
@@ -44,6 +45,8 @@ def launch_counts() -> dict:
         out["k7a"], out["k7b"] = pp["extract"], pp["merge"]
     if mods["adamw"] is not None:
         out["k8"] = sum(mods["adamw"].launch_count.values())
+    if mods["flash_attention"] is not None:
+        out["k9"] = sum(mods["flash_attention"].launch_count.values())
     return out
 
 

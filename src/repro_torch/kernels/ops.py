@@ -28,6 +28,7 @@ import torch
 from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import chunk_accumulate as _ca
 from repro_torch.kernels import codec as _codec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import payload_partition as _pp
 from repro_torch.kernels import ref
@@ -320,3 +321,33 @@ def adamw_update(params: Sequence[torch.Tensor],
         _cuda_only(p, "adamw_update")
     spans.count("adamw.fused", n)
     _adamw.update(params, grads, mus, nus, wds, scale, **hyper)
+
+
+# -- self-attention (K9) ------------------------------------------------------
+#
+# The train step's and a cache-free prefill's attention.  A float32 model
+# asks for float32 products, which K9's float32 route gives on the tensor
+# cores from three bf16 planes an operand; a bfloat16 model takes the bf16
+# route.
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool, window=None, scale=None) -> torch.Tensor:
+    """Self-attention over one sequence, q [B, S, Hq, d_qk], k [B, S, Hkv,
+    d_qk], v [B, S, Hkv, d_v]: ``ref.chunked_attention(q, k, v,
+    causal=causal, window=window, scale=scale)``.  CPU and ``meta``
+    operands take that plain version; CUDA operands take K9
+    (``kernels/flash_attention.py``), which raises on what it does not
+    take (its types and widths), with no fallback.  The counters
+    ``attn.kernel`` and ``attn.plain`` add the query rows x heads each
+    path attended (``meta`` operands count nowhere)."""
+    rows = q.shape[0] * q.shape[1] * q.shape[2]
+    if _plain(q):
+        out = ref.chunked_attention(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+        if q.device.type != "meta":
+            spans.count("attn.plain", rows)
+        return out
+    _cuda_only(q, "attention")
+    out = _fa.attention(q, k, v, causal=causal, window=window, scale=scale)
+    spans.count("attn.kernel", rows)
+    return out

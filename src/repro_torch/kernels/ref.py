@@ -7,10 +7,14 @@ Port of ``src/repro/kernels/ref.py``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.codecs import SCALE_CHUNK
+
+ATTN_CHUNK = 512  # KV-axis chunk for the streaming softmax
 
 
 def split_flat(flat: torch.Tensor, shapes) -> list:
@@ -228,3 +232,103 @@ def adamw_update_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
         if wd:
             u.add_(ps.float(), alpha=wd)
         ps.copy_(ps.float() - lr * u)
+
+
+# -- self-attention: K9's plain version and the decode paths' attention -----
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+          window: Optional[int], kv_valid) -> torch.Tensor:
+    """Boolean keep-mask [..., Sq, Skv]; q_pos may be [Sq] or [B, Sq] and
+    kv_valid a scalar or [B] (per-slot serving positions)."""
+    qp = q_pos[..., :, None]                      # [(B,) Sq, 1]
+    kp = k_pos[None, :]                           # [1, Skv]
+    m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                   dtype=torch.bool, device=kp.device)
+    if causal:
+        m = m & (qp >= kp)
+    if window is not None:
+        m = m & ((qp - kp) < window)
+    if kv_valid is not None:
+        kv = torch.as_tensor(kv_valid, device=kp.device)
+        if kv.ndim:                               # per-batch [B]
+            m = m & (kp < kv[:, None, None])
+        else:
+            m = m & (kp < kv)
+    return m
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: Optional[int] = None,
+                      q_offset=0, k_offset: int = 0, kv_valid=None,
+                      chunk: int = ATTN_CHUNK, with_stats: bool = False,
+                      scale: Optional[float] = None):
+    """Streaming-softmax attention.
+
+    q, k: [B, Sq|Skv, Hq|Hkv, hd] with Hq % Hkv == 0; v: [B, Skv, Hkv,
+    hv] (MLA's value width differs from its key width).  The scores are
+    scaled by ``scale``, 1/sqrt(hd) unless given.
+    Query positions are q_offset+i (q_offset a scalar or [B]), key
+    positions k_offset+j (k_offset a host int: the first position of a
+    sequence-sharded cache's slice); kv_valid (scalar or [B]) bounds the
+    keys attended.  With ``with_stats`` the result is the un-normalised
+    (acc [B,Hkv,g,Sq,hv], running max [B,Hkv,g,Sq], denominator
+    [B,Hkv,g,Sq]) in float32, for a log-sum-exp merge across shards.
+    """
+    b, sq, hq, hd = q.shape
+    skv, hkv, hv = k.shape[1], k.shape[2], v.shape[-1]
+    group = hq // hkv
+    dev = q.device
+    qf = q.float() * (1.0 / math.sqrt(hd) if scale is None else scale)
+    q_off = torch.as_tensor(q_offset, device=dev)
+    ar = torch.arange(sq, device=dev)
+    q_pos = (q_off[..., None] + ar) if q_off.ndim else (q_off + ar)
+
+    n_chunks = -(-skv // chunk)
+    pad = n_chunks * chunk - skv
+    local_len = None
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        # padded slots are masked by LOCAL index: a kv_valid bound alone
+        # would admit them when no bound is given, or, with a nonzero
+        # k_offset, where they alias global positions below it
+        local_len = skv
+    kc = k.reshape(b, n_chunks, chunk, hkv, hd)
+    vc = v.reshape(b, n_chunks, chunk, hkv, hv)
+    qg = qf.reshape(b, sq, hkv, group, hd)               # [B,Sq,Hkv,g,hd]
+
+    m_run = torch.full((b, hkv, group, sq), -math.inf, device=dev)
+    l_run = torch.zeros((b, hkv, group, sq), device=dev)
+    acc = torch.zeros((b, hkv, group, sq, hv), device=dev)
+    for ci in range(n_chunks):                   # lax.scan in the reference
+        k_local = ci * chunk + torch.arange(chunk, device=dev)
+        kf = kc[:, ci].float()
+        vf = vc[:, ci].float()
+        s = torch.einsum("bqhgd,bchd->bhgqc", qg, kf)    # [B,Hkv,g,Sq,chunk]
+        keep = _mask(q_pos, k_offset + k_local, causal, window, kv_valid)
+        if local_len is not None:
+            keep = keep & (k_local < local_len)
+        if keep.ndim == 2:                       # [Sq, chunk]
+            keep = keep[None, None, None]
+        else:                                    # [B, Sq, chunk]
+            keep = keep[:, None, None]
+        s = torch.where(keep, s, -math.inf)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))     # [B,Hkv,g,Sq]
+        # guard all-masked rows (m == -inf): exp(-inf - -inf) -> use where
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        finite = torch.isfinite(s)
+        p = torch.exp(torch.where(finite, s - m_safe[..., None], -math.inf))
+        p = torch.where(finite, p, 0.0)
+        alpha = torch.where(torch.isfinite(m_run),
+                            torch.exp(m_run - m_safe), 0.0)  # rescale old
+        l_run = l_run * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqc,bchd->bhgqd", p, vf)
+        m_run = m_new
+
+    if with_stats:
+        return acc, m_run, l_run
+    denom = torch.clamp(l_run, min=1e-30)
+    out = acc / denom[..., None]                          # [B,Hkv,g,Sq,hv]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hv)
+    return out.to(q.dtype)

@@ -7,7 +7,10 @@ the reference's conventions:
   * activations are [B, S, D]; attention heads live in [B, S, H, hd];
   * attention is computed in chunks of ``ATTN_CHUNK`` over the KV axis with
     running max/denominator, the same -inf/isfinite guards and the same
-    padding, so masked lanes contribute exact zeros;
+    padding, so masked lanes contribute exact zeros (``chunked_attention``,
+    kept in ``kernels/ref.py``; a train step's or a cache-free prefill's
+    self-attention goes through ``kernels/ops.py::attention``, which runs
+    it for CPU and ``meta`` operands and K9 for CUDA ones);
   * ``init_*`` build GLOBAL-shaped dict trees (K/V projections stored
     full) from an explicit ``torch.Generator`` and device and a leading
     ``lead`` shape, so ``init_params`` draws stacked [L, ...] layers in one
@@ -30,19 +33,16 @@ partials merge by a distributed log-sum-exp.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import ops as K
+from repro_torch.kernels.ref import (  # noqa: F401  (ATTN_CHUNK re-exported)
+    ATTN_CHUNK, chunked_attention)
 from repro_torch.models.config import ArchConfig, MLAConfig, mla_of
 from repro_torch.models.tp import ParallelCtx
 from repro_torch.runtime import spans
-
-ATTN_CHUNK = 512  # KV-axis chunk for the streaming softmax
-
 
 # ---------------------------------------------------------------------------
 # primitives
@@ -99,106 +99,9 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# chunked (flash-style) attention
+# chunked (flash-style) attention: ``chunked_attention`` lives beside the
+# port's other plain kernel versions in kernels/ref.py
 # ---------------------------------------------------------------------------
-
-def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
-          window: Optional[int], kv_valid) -> torch.Tensor:
-    """Boolean keep-mask [..., Sq, Skv]; q_pos may be [Sq] or [B, Sq] and
-    kv_valid a scalar or [B] (per-slot serving positions)."""
-    qp = q_pos[..., :, None]                      # [(B,) Sq, 1]
-    kp = k_pos[None, :]                           # [1, Skv]
-    m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
-                   dtype=torch.bool, device=kp.device)
-    if causal:
-        m = m & (qp >= kp)
-    if window is not None:
-        m = m & ((qp - kp) < window)
-    if kv_valid is not None:
-        kv = torch.as_tensor(kv_valid, device=kp.device)
-        if kv.ndim:                               # per-batch [B]
-            m = m & (kp < kv[:, None, None])
-        else:
-            m = m & (kp < kv)
-    return m
-
-
-def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool, window: Optional[int] = None,
-                      q_offset=0, k_offset: int = 0, kv_valid=None,
-                      chunk: int = ATTN_CHUNK, with_stats: bool = False,
-                      scale: Optional[float] = None):
-    """Streaming-softmax attention.
-
-    q, k: [B, Sq|Skv, Hq|Hkv, hd] with Hq % Hkv == 0; v: [B, Skv, Hkv,
-    hv] (MLA's value width differs from its key width).  The scores are
-    scaled by ``scale``, 1/sqrt(hd) unless given.
-    Query positions are q_offset+i (q_offset a scalar or [B]), key
-    positions k_offset+j (k_offset a host int: the first position of a
-    sequence-sharded cache's slice); kv_valid (scalar or [B]) bounds the
-    keys attended.  With ``with_stats`` the result is the un-normalised
-    (acc [B,Hkv,g,Sq,hv], running max [B,Hkv,g,Sq], denominator
-    [B,Hkv,g,Sq]) in float32, for a log-sum-exp merge across shards.
-    """
-    b, sq, hq, hd = q.shape
-    skv, hkv, hv = k.shape[1], k.shape[2], v.shape[-1]
-    group = hq // hkv
-    dev = q.device
-    qf = q.float() * (1.0 / math.sqrt(hd) if scale is None else scale)
-    q_off = torch.as_tensor(q_offset, device=dev)
-    ar = torch.arange(sq, device=dev)
-    q_pos = (q_off[..., None] + ar) if q_off.ndim else (q_off + ar)
-
-    n_chunks = -(-skv // chunk)
-    pad = n_chunks * chunk - skv
-    local_len = None
-    if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        # padded slots are masked by LOCAL index: a kv_valid bound alone
-        # would admit them when no bound is given, or, with a nonzero
-        # k_offset, where they alias global positions below it
-        local_len = skv
-    kc = k.reshape(b, n_chunks, chunk, hkv, hd)
-    vc = v.reshape(b, n_chunks, chunk, hkv, hv)
-    qg = qf.reshape(b, sq, hkv, group, hd)               # [B,Sq,Hkv,g,hd]
-
-    m_run = torch.full((b, hkv, group, sq), -math.inf, device=dev)
-    l_run = torch.zeros((b, hkv, group, sq), device=dev)
-    acc = torch.zeros((b, hkv, group, sq, hv), device=dev)
-    for ci in range(n_chunks):                   # lax.scan in the reference
-        k_local = ci * chunk + torch.arange(chunk, device=dev)
-        kf = kc[:, ci].float()
-        vf = vc[:, ci].float()
-        s = torch.einsum("bqhgd,bchd->bhgqc", qg, kf)    # [B,Hkv,g,Sq,chunk]
-        keep = _mask(q_pos, k_offset + k_local, causal, window, kv_valid)
-        if local_len is not None:
-            keep = keep & (k_local < local_len)
-        if keep.ndim == 2:                       # [Sq, chunk]
-            keep = keep[None, None, None]
-        else:                                    # [B, Sq, chunk]
-            keep = keep[:, None, None]
-        s = torch.where(keep, s, -math.inf)
-        m_new = torch.maximum(m_run, s.amax(dim=-1))     # [B,Hkv,g,Sq]
-        # guard all-masked rows (m == -inf): exp(-inf - -inf) -> use where
-        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        finite = torch.isfinite(s)
-        p = torch.exp(torch.where(finite, s - m_safe[..., None], -math.inf))
-        p = torch.where(finite, p, 0.0)
-        alpha = torch.where(torch.isfinite(m_run),
-                            torch.exp(m_run - m_safe), 0.0)  # rescale old
-        l_run = l_run * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhgqc,bchd->bhgqd", p, vf)
-        m_run = m_new
-
-    if with_stats:
-        return acc, m_run, l_run
-    denom = torch.clamp(l_run, min=1e-30)
-    out = acc / denom[..., None]                          # [B,Hkv,g,Sq,hv]
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hv)
-    return out.to(q.dtype)
-
 
 def lse_merge(parts):
     """Merge per-shard ``(acc [B,Hkv,g,Sq,hd], m, l [B,Hkv,g,Sq])``
@@ -320,7 +223,7 @@ def mla_core(p, x: torch.Tensor, cfg: ArchConfig,
     W_kvb, each head [k_nope | v]; q_rope and the one k_rope rotated
     (half-split pairs, the YaRN frequencies), k_rope shared by every
     head.  Span ``mla.core``: causal attention over the expanded heads,
-    at the YaRN-scaled softmax scale."""
+    at the YaRN-scaled softmax scale (``kernels/ops.py::attention``)."""
     m, h = cfg.mla, cfg.n_heads
     b, s, _ = x.shape
     nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
@@ -341,7 +244,7 @@ def mla_core(p, x: torch.Tensor, cfg: ArchConfig,
         q, k, v = sp.outputs(q, k, v)
     with spans.span("mla.core") as sp:
         q, k, v = sp.inputs(q, k, v)
-        return sp.outputs(chunked_attention(
+        return sp.outputs(K.attention(
             q, k, v, causal=True, window=cfg.sliding_window,
             scale=m.softmax_scale))
 
@@ -457,7 +360,7 @@ def _self_attention(p, x, cfg: ArchConfig, ctx: ParallelCtx, causal,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if kv_cache is None:
-        return chunked_attention(q, k, v, causal=causal, window=window), None
+        return K.attention(q, k, v, causal=causal, window=window), None
     if seq:
         return _seq_sharded_decode(q, k, v, kv_cache, cache_pos, ctx,
                                    window, seq_shard)

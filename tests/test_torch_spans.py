@@ -223,9 +223,14 @@ def test_moe_counters_are_a_direct_count(traced, counter):
     assert want["moe.assigned"] == CFG.n_layers * BATCH * SEQ * 2
     assert want["moe.dropped"] > 0
     assert traced["first"][counter] == want[counter]
-    # beside them the optimizer's: every parameter, on the plain path
-    assert set(traced["second"]) == set(want) | {"adamw.plain"}
+    # beside them the optimizer's and attention's, on their plain paths:
+    # every parameter, and every query row x head once a layer (the
+    # recompute counts nothing)
+    assert set(traced["second"]) == set(want) | {"adamw.plain",
+                                                 "attn.plain"}
     assert traced["second"]["adamw.plain"] == traced["n_params"]
+    assert traced["second"]["attn.plain"] == (CFG.n_layers * BATCH * SEQ
+                                              * CFG.n_heads)
     if counter == "moe.assigned":
         assert traced["second"][counter] == want[counter]
 
